@@ -6,10 +6,12 @@ Run from the root of a checkout, on a host with one CUDA card::
 
 Phases, each fatal on failure:
 
-1. build the hand-written kernels from the sources in the checkout: K1
-   forward and backward (``mmlearn_tpu_torch/csrc/fused_attention.cu``, CUDA
-   C++ for sm_90a, into ``build/kernels/``) and K2 forward and backward
-   (Triton, ``mmlearn_tpu_torch/ops/fused_norm.py``);
+1. build the hand-written kernels from the sources in the checkout, one
+   ``nvcc`` a source, all at once: K1 forward and backward
+   (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
+   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), CUDA C++ for
+   sm_90a, into ``build/kernels/``; K2 forward and backward (Triton,
+   ``mmlearn_tpu_torch/ops/fused_norm.py``) build at their first call;
 2. hold each kernel against its plain PyTorch version on the card, with
    the tolerance printed on each line: at batch 8 over every case (masks,
    head dims, f32 and bf16), and at batch 256 in bf16 at the paths' shapes,
@@ -38,7 +40,22 @@ Phases, each fatal on failure:
    step; check the launches per step (per block: K1 forward once and each
    of K1 backward's two kernels once, K2 forward and each of K2 backward's
    two passes twice), a finite, nonzero gradient for every parameter, and a
-   last loss below the first.
+   last loss below the first;
+6. the I-JEPA path (``flagship.ijepa_training_task``: ViT-B/16 student, EMA
+   teacher, the default predictor of 12 heads of dim 32): the host time of
+   one batch of masks; one step at batch 8 on the card against the CPU
+   (loss, every gradient, the teacher after one ``post_update``); then
+   ``Trainer.fit`` at batch 256 twice, with every launch count set to 0
+   before each: with the default dispatch (K1) and with
+   ``MMLEARN_FUSED_ATTN_PACKED=1`` (K1f-p/K1b-p), each 3 warm-up steps and 3
+   timed windows of 5; check the launches per step exactly, every student
+   and predictor gradient finite and nonzero, the teacher moved and finite,
+   the loss finite, and both runs' first losses alike.
+
+The packed kernels are held to their plain versions (K1's) at batch 8 over
+every case and at the I-JEPA step's grids (teacher and student at batch 256,
+the predictor at 1,024 rows), and timed there beside K1, the plain version,
+SDPA and their bound; K2 is held at the predictor's width 384 too.
 
 The lines before the last give the card's name and power limit (from
 ``nvidia-smi``), the kernels' errors, times and bounds, ``encode``
@@ -49,6 +66,9 @@ Without a CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import copy
 import json
 import os
 import statistics
@@ -68,6 +88,14 @@ SEARCH_K = 5
 LATENCY_QUERIES = 24
 PARITY_BATCH = 8  # training step held against the CPU
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 3, 3, 10
+IJEPA_WINDOW_STEPS = 5  # I-JEPA: 3 warm-up steps, then WINDOWS windows of 5
+PACKED_ENV = "MMLEARN_FUSED_ATTN_PACKED"
+# the I-JEPA step's attention: (label, batch, tokens, heads, head dim)
+IJEPA_ATTENTION = (
+    ("teacher N=196 H=12 D=64", 256, 196, 12, 64),
+    ("student N=84 H=12 D=64", 256, 84, 12, 64),
+    ("predictor N=118 H=12 D=32", 1024, 118, 12, 32),
+)
 
 # the H100 SXM data sheet at 700 W: memory rate, dense peaks by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -81,8 +109,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # p where the plain version rounds p / l (reads 7.4e-3), K1 backward rounds
 # p and ds from f32 values that differ in their last bits (2.6e-3), K2 only
 # its output (2e-7). f32: summation order (reads 1.4e-6).
+# The head-grouped K1f-p/K1b-p compute K1's function with K1's roundings and
+# take K1's limits.
 BF16_ATOL = {"fused_mha_fwd": 1.5e-2, "fused_mha_bwd": 5e-3, "layernorm_fwd": 1e-4,
-             "layernorm_bwd": 1e-4}
+             "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.5e-2,
+             "fused_mha_packed_bwd": 5e-3}
 F32_TOL = (5e-6, 0.0)
 # K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
 # in another order, of values up to ~1,000 (reads 2.3e-5 at this rtol)
@@ -151,6 +182,21 @@ def attention_pairs(b: int, n: int, mask, causal: bool) -> int:
         visible = visible & torch.ones(n, n, dtype=torch.bool, device=mask.device).tril()
     rows = visible.sum(-1)
     return int(torch.where(rows > 0, rows, n).sum())
+
+
+@contextlib.contextmanager
+def packed_attention(on: bool):
+    """``MMLEARN_FUSED_ATTN_PACKED`` set to ``on`` inside the block (the port
+    reads it at every call), as it was after."""
+    old = os.environ.get(PACKED_ENV)
+    os.environ[PACKED_ENV] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(PACKED_ENV, None)
+        else:
+            os.environ[PACKED_ENV] = old
 
 
 def reset_counts() -> None:
@@ -247,7 +293,7 @@ def kernel_checks(device, gen) -> dict:
                                    compare(f"K1b fused_mha dqkv {tag}", dqkv, want_b,
                                            tol("fused_mha_bwd", dn)))
 
-    for n, c in ((197, 768), (77, 512)):
+    for n, c in ((197, 768), (77, 512), (118, 384)):  # 384: the I-JEPA predictor's
         for dtype in (torch.bfloat16, torch.float32):
             dn = _dtype_name(dtype)
             x, br, dy, dr = (torch.randn(b, n, c, generator=gen, device=device).to(dtype)
@@ -345,12 +391,15 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
                                                 retain_graph=True)),
             *bound(nbytes(qkv, out, dout, qkv, mask), 10 * h * d * pairs, "bfloat16"),
         )
-    for label, n, c in (("N=197 C=768", 197, 768), ("N=77 C=512", 77, 512)):
-        x, br, dy, dr = (torch.randn(BATCH, n, c, generator=gen, device=device).bfloat16()
+    # the I-JEPA predictor's norms: 1,024 x 118 = 120,832 rows of 384 (not a
+    # power of two: masked lanes)
+    for label, b, n, c in (("N=197 C=768", BATCH, 197, 768), ("N=77 C=512", BATCH, 77, 512),
+                           ("B=1024 N=118 C=384", 1024, 118, 384)):
+        x, br, dy, dr = (torch.randn(b, n, c, generator=gen, device=device).bfloat16()
                          for _ in range(4))
         g = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
         beta = 0.1 * torch.randn(c, generator=gen, device=device)
-        tag = f"B={BATCH} {label} bf16"
+        tag = f"{label} bf16" if "B=" in label else f"B={b} {label} bf16"
         r, y2 = fn.fused_add_layernorm(x, br, g, beta)
         worst("layernorm_fwd",
               compare(f"K2f layernorm {tag}", fn.fused_layernorm(x, g, beta),
@@ -396,8 +445,111 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
         )
     for label, (ms, plain, lib, bnd, by) in rows.items():
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
-        print(f"time {label} B={BATCH} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        at = "" if "B=" in label else f" B={BATCH}"
+        print(f"time {label}{at} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib_s}, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    return rows
+
+
+def packed_kernel_checks(device, gen, err: dict) -> None:
+    """K1f-p and K1b-p, reached through ``fused_mha`` with the variable set,
+    against their plain versions (K1's) at batch 8 over every case: head dim
+    32 and 64; no mask, a ragged key mask, causal, causal with a left-padded
+    mask; f32 and bf16. Their largest errors join ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import ragged_text_batch
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    b = 8
+    for n, d in ((118, 32), (196, 64)):
+        lens = ragged_text_batch(b, gen, device)["text_attention_mask"].sum(1, keepdim=True)
+        ragged = torch.arange(n, device=device)[None] < (lens * n) // 77
+        for label, mask, causal in (("", None, False), ("mask", ragged, False),
+                                    ("causal", None, True),
+                                    ("causal+left-pad mask", ragged.flip(1), True)):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn, h = _dtype_name(dtype), 12
+                x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
+                dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
+                reset_counts()
+                with packed_attention(True):
+                    leaf = x.clone().requires_grad_()
+                    out = fa.fused_mha(leaf, mask, num_heads=h, causal=causal)
+                    (dqkv,) = torch.autograd.grad(out, leaf, dout)
+                torch.cuda.synchronize()
+                check(fa.LAUNCHES["fused_mha_packed_fwd"] == 1
+                      and fa.LAUNCHES["fused_mha_packed_bwd_dq"] == 1
+                      and fa.LAUNCHES["fused_mha_fwd"] == 0,
+                      f"fused_mha with {PACKED_ENV}=1 launched {fa.LAUNCHES}")
+                scale = d ** -0.5
+                tag = f"{label or 'no mask'} B={b} N={n} H={h} D={d} {dn}"
+                err["fused_mha_packed_fwd"] = max(err.get("fused_mha_packed_fwd", 0.0), compare(
+                    f"K1f-p fused_mha {tag}", out, fa.mha_reference(x, mask, h, scale, causal),
+                    tol("fused_mha_packed_fwd", dn)))
+                err["fused_mha_packed_bwd"] = max(err.get("fused_mha_packed_bwd", 0.0), compare(
+                    f"K1b-p fused_mha dqkv {tag}", dqkv,
+                    fa.mha_bwd_reference(x, mask, out.detach(), dout, h, scale, causal),
+                    tol("fused_mha_packed_bwd", dn)))
+    reset_counts()
+
+
+def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
+    """At the I-JEPA step's attention shapes and grids, bf16: K1f-p/K1b-p
+    and K1f/K1b (K1 runs there by default) against their plain version,
+    then the times of each beside the plain version's, SDPA's (a yardstick
+    the port never calls) and the bound. Returns rows as
+    :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    rows = {}
+    for label, b, n, h, d in IJEPA_ATTENTION:
+        scale = d ** -0.5
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=device).bfloat16()
+        dout = torch.randn(b, n, h * d, generator=gen, device=device).bfloat16()
+        want = fa.mha_reference(qkv, None, h, scale, False)
+        q, k, v = (t.contiguous().requires_grad_() for t in
+                   qkv.view(b, n, h, 3, d).permute(3, 0, 2, 1, 4).unbind(0))
+        lib_out = F.scaled_dot_product_attention(q, k, v)
+        lib_dout = dout.view(b, n, h, d).transpose(1, 2).contiguous()
+        pairs = attention_pairs(b, n, None, False)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_dout,
+                                                      retain_graph=True))
+        plain_fwd = cuda_ms(lambda: fa.mha_reference(qkv, None, h, scale, False), iters=5)
+        for packed, name in ((True, "K1f-p"), (False, "K1f")):
+            kernel = "fused_mha_packed" if packed else "fused_mha"
+            out = fa._fused_mha_cuda(qkv, None, h, scale, False, packed)
+            dqkv = fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False, packed)
+            want_b = fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False)
+            tag = f"{label} B={b} bf16"
+            err[f"{kernel}_fwd"] = max(err.get(f"{kernel}_fwd", 0.0), compare(
+                f"{name} fused_mha {tag}", out, want, tol(f"{kernel}_fwd", "bfloat16")))
+            err[f"{kernel}_bwd"] = max(err.get(f"{kernel}_bwd", 0.0), compare(
+                f"{name.replace('f', 'b', 1)} fused_mha dqkv {tag}", dqkv, want_b,
+                tol(f"{kernel}_bwd", "bfloat16")))
+            rows[f"{name} {label} B={b}"] = (
+                cuda_ms(lambda: fa._fused_mha_cuda(qkv, None, h, scale, False, packed)),
+                plain_fwd, lib_fwd,
+                *bound(nbytes(qkv, out), 4 * h * d * pairs, "bfloat16"),
+            )
+            rows[f"{name.replace('f', 'b', 1)} {label} B={b}"] = (
+                cuda_ms(lambda: fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False,
+                                                       packed)),
+                cuda_ms(lambda: fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False),
+                        iters=3),
+                lib_bwd,
+                *bound(nbytes(qkv, out, dout, qkv), 10 * h * d * pairs, "bfloat16"),
+            )
+        del qkv, dout, want, want_b, q, k, v, lib_out, lib_dout, out, dqkv
+        torch.cuda.empty_cache()
+    for label, (ms, plain, lib, bnd, by) in rows.items():
+        print(f"time {label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    reset_counts()
     return rows
 
 
@@ -711,8 +863,9 @@ def training_path(device) -> dict:
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     want = {"fused_mha_fwd": depth, "fused_mha_bwd_dq": depth, "fused_mha_bwd_dkv": depth,
-            "layernorm_fwd": 2 * depth, "layernorm_bwd_rows": 2 * depth,
-            "layernorm_bwd_sum": 2 * depth}
+            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
+            "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
+            "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth}
     print(f"training path: {state.step} steps launched " + ", ".join(
         f"{k} {v} ({v / state.step:g} a step, want {want[k]})" for k, v in counts.items()))
     check(counts == {k: v * state.step for k, v in want.items()},
@@ -743,6 +896,157 @@ def training_path(device) -> dict:
     return counts
 
 
+def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
+    """``Trainer.fit`` of a copy of the I-JEPA task at batch 256 on
+    ``ijepa_batch``, with every launch count set to 0 first: 3 warm-up steps,
+    WINDOWS timed windows of IJEPA_WINDOW_STEPS and one more step. Checks the
+    launches per step exactly and the gradients, teacher and loss; returns
+    the launch counts and the losses."""
+    import math
+
+    import torch
+
+    from mmlearn_tpu_torch.flagship import ijepa_batch
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    task = copy.deepcopy(master).to(device)
+    batch = ijepa_batch(BATCH, torch.Generator(device=device).manual_seed(SEED + 6), device)
+    marks = [WARMUP_STEPS + i * IJEPA_WINDOW_STEPS for i in range(WINDOWS + 1)]
+    steps = marks[-1] + 1  # the last mark is taken before the last step
+    loader = TimedBatches(batch, marks)
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device)
+    teacher_before = [p.detach().clone() for p in task.teacher.parameters()]
+    name = "K1f-p/K1b-p" if packed else "K1f/K1b"
+    with packed_attention(packed):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        state = trainer.fit(task, loader)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    fwd = sum(len(m.blocks) for m in (task.teacher, task.encoder, task.predictor))
+    bwd = len(task.encoder.blocks) + len(task.predictor.blocks)
+    on, off = ("fused_mha_packed", "fused_mha") if packed else ("fused_mha", "fused_mha_packed")
+    want = {f"{on}_fwd": fwd, f"{on}_bwd_dq": bwd, f"{on}_bwd_dkv": bwd,
+            f"{off}_fwd": 0, f"{off}_bwd_dq": 0, f"{off}_bwd_dkv": 0,
+            "layernorm_fwd": 2 * fwd, "layernorm_bwd_rows": 2 * bwd,
+            "layernorm_bwd_sum": 2 * bwd}
+    print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
+        f"{k} {counts[k]} ({counts[k] / state.step:g} a step, want {v})"
+        for k, v in want.items()))
+    check(counts == {k: v * state.step for k, v in want.items()},
+          f"I-JEPA launches {counts}, want {want} a step")
+    check(fa.LAUNCHES[f"{on}_fwd"] > 0, f"{name} never launched")
+
+    trained = [*task.encoder.named_parameters(), *task.predictor.named_parameters()]
+    bad = [n for n, p in trained
+           if p.grad is None or not bool(p.grad.isfinite().all()) or not bool(p.grad.any())]
+    print(f"gradients of the last step: {len(trained) - len(bad)} of {len(trained)} student "
+          f"and predictor tensors finite and nonzero")
+    check(not bad, f"missing, non-finite or zero gradients: {bad[:10]}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(teacher_before, task.teacher.parameters()))
+    finite = all(bool(p.isfinite().all()) for p in task.teacher.parameters())
+    print(f"teacher: {moved} of {len(teacher_before)} tensors moved, all finite: {finite}")
+    check(moved > 0 and finite, "the EMA teacher did not move or is not finite")
+    losses = [h["loss"] for h in trainer.history]
+    print(f"loss step 0 {losses[0]:.6f}, step {len(losses) - 1} {losses[-1]:.6f}")
+    check(all(math.isfinite(x) for x in losses), f"I-JEPA losses {losses}")
+
+    window_s = [b - a for a, b in zip(loader.times, loader.times[1:])]
+    rates = [BATCH * IJEPA_WINDOW_STEPS / w for w in window_s]
+    median = statistics.median(rates)
+    print(f"I-JEPA train b{BATCH} ({name}): {median:.1f} images/s median of {WINDOWS} windows "
+          f"of {IJEPA_WINDOW_STEPS} steps (windows {', '.join(f'{r:.1f}' for r in rates)}; "
+          f"spread {(max(rates) - min(rates)) / median:.2%}), "
+          f"{statistics.median(window_s) / IJEPA_WINDOW_STEPS * 1e3:.2f} ms a step, "
+          f"peak memory {peak_gb:.2f} GB")
+    del task, teacher_before, batch
+    torch.cuda.empty_cache()
+    return counts, losses
+
+
+def ijepa_path(device) -> dict:
+    """The I-JEPA train step: the host's mask time, parity with the CPU at
+    batch 8, then ``Trainer.fit`` at batch 256 with K1 and with the
+    head-grouped kernels. Returns the launch counts of both runs, added."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.datasets.processors import IJEPAMaskGenerator
+    from mmlearn_tpu_torch.flagship import ijepa_training_task
+
+    masks = IJEPAMaskGenerator()
+    t0 = time.perf_counter()
+    masks(BATCH, rng=np.random.default_rng((SEED, 0, 0)))
+    print(f"host time of one b{BATCH} set of I-JEPA masks: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (the timed steps reuse one set)")
+
+    t0 = time.perf_counter()
+    master = ijepa_training_task("cpu", seed=SEED)
+    n_trained = sum(p.numel() for p in master.parameters() if p.requires_grad)
+    print(f"I-JEPA task built on the CPU in {time.perf_counter() - t0:.1f} s "
+          f"({n_trained / 1e6:.1f} M trained params, teacher "
+          f"{sum(p.numel() for p in master.teacher.parameters()) / 1e6:.1f} M)")
+
+    # ---- one step at batch 8: kernels on the card, plain versions on the CPU
+    images = torch.randn(PARITY_BATCH, 224, 224, 3,
+                         generator=torch.Generator().manual_seed(SEED + 5)).bfloat16()
+    batch = master.prepare_batch({"rgb": images}, step=0)
+    tasks, losses, grads = {}, {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        task = tasks[where] = copy.deepcopy(master).to(dev)
+        loss, _ = task.loss_fn(batch)
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()
+                        if p.requires_grad}
+        print(f"I-JEPA step b={PARITY_BATCH} on the {where}: loss {losses[where]:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(cos, key=cos.get)
+    print(f"I-JEPA step parity b={PARITY_BATCH}, card vs CPU: loss rel diff {rel:.3e} "
+          f"(tol {LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, median "
+          f"{statistics.median(cos.values()):.6f} over {len(cos)} tensors "
+          f"(bound {MIN_GRAD_COSINE})")
+    check(rel <= LOSS_RTOL, f"I-JEPA loss on the card {losses['card']} vs CPU {losses['cpu']}")
+    check(cos[worst] >= MIN_GRAD_COSINE, f"I-JEPA gradient of {worst}: cosine {cos[worst]}")
+    # the teacher after one post_update, from the same student on both sides:
+    # the CPU task's AdamW step, copied to the card
+    opt, _ = tasks["cpu"].configure_optimizers()
+    opt.step()
+    tasks["card"].encoder.load_state_dict(tasks["cpu"].encoder.state_dict())
+    teachers = {}
+    for where, task in tasks.items():
+        task.post_update(1000)
+        teachers[where] = {n: p.float().cpu() for n, p in task.teacher.named_parameters()}
+    t_rel = {n: float((teachers["card"][n] - t).norm() / t.norm().clamp_min(1e-30))
+             for n, t in teachers["cpu"].items()}
+    t_cos = {n: _cosine(teachers["card"][n], t) for n, t in teachers["cpu"].items()}
+    print(f"teacher after one post_update, card vs CPU: relative diff max "
+          f"{max(t_rel.values()):.3e} (tol {LOSS_RTOL}), cosine min {min(t_cos.values()):.6f}")
+    check(max(t_rel.values()) <= LOSS_RTOL and min(t_cos.values()) >= MIN_GRAD_COSINE,
+          "the teacher on the card differs from the CPU's after post_update")
+    del tasks, task, grads, teachers, opt
+
+    # ---- the main path: Trainer.fit at batch 256, K1 then the head-grouped kernels
+    total = {}
+    first = {}
+    for packed in (False, True):
+        counts, run_losses = ijepa_fit(master, device, packed)
+        first[packed] = run_losses[0]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    rel = abs(first[True] - first[False]) / abs(first[False])
+    print(f"I-JEPA first loss, K1 {first[False]:.6f} vs head-grouped {first[True]:.6f}: "
+          f"rel diff {rel:.3e} (tol {LOSS_RTOL})")
+    check(rel <= LOSS_RTOL, "the two attention kernels give different I-JEPA losses")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -761,26 +1065,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    os.environ[PACKED_ENV] = "0"  # the default dispatch, whatever the caller's environment
 
     from mmlearn_tpu_torch import _build
 
+    # one nvcc a source, all started together
     t0 = time.perf_counter()
-    lib = _build.build("fused_attention")
-    print(f"built K1 forward and backward {os.path.relpath(lib, REPO)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    sources = {"fused_attention": "K1 forward and backward",
+               "fused_attention_packed": "K1f-p/K1b-p forward and backward"}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = {name: pool.submit(_build.build, name) for name in sources}
+        for name, what in sources.items():
+            print(f"built {what} {os.path.relpath(built[name].result(), REPO)}")
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     errors = kernel_checks(device, gen)
+    packed_kernel_checks(device, gen, errors)
     times = kernels_at_batch(device, gen, errors)
+    times.update(ijepa_attention_at_batch(device, gen, errors))
     t0 = time.perf_counter()
-    main_path(device)
+    serving = main_path(device)
     print(f"serving path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = training_path(device)
     print(f"training path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ijepa_launches = ijepa_path(device)
+    print(f"I-JEPA path done in {time.perf_counter() - t0:.1f} s")
+    # launches on the main paths, each counted from 0: serving, CLIP
+    # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p
+    for key, count in ijepa_launches.items():
+        launches[key] = launches.get(key, 0) + count
+    launches["fused_mha_fwd"] += serving["launches"][0]
+    launches["layernorm_fwd"] += serving["launches"][1]
 
     # each kernel in the JSON line: its timed row (image attention, image
-    # norms) and its launch counts (a backward is two device kernels)
+    # norms, the I-JEPA predictor's attention) and its launch counts on the
+    # main paths (a backward is two device kernels)
     rows = {
         "fused_mha_fwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
                           "mmlearn_tpu/ops/fused_attention.py:173", "K1f image N=197 H=12",
@@ -794,6 +1116,14 @@ def main() -> int:
         "layernorm_bwd": ("triton", "mmlearn_tpu_torch/ops/fused_norm.py",
                           "mmlearn_tpu/ops/fused_norm.py:144", "K2b add+layernorm N=197 C=768",
                           ("layernorm_bwd_rows", "layernorm_bwd_sum")),
+        "fused_mha_packed_fwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention_packed.cu",
+                                 "mmlearn_tpu/ops/fused_attention.py:425",
+                                 "K1f-p predictor N=118 H=12 D=32 B=1024",
+                                 ("fused_mha_packed_fwd",)),
+        "fused_mha_packed_bwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention_packed.cu",
+                                 "mmlearn_tpu/ops/fused_attention.py:448",
+                                 "K1b-p predictor N=118 H=12 D=32 B=1024",
+                                 ("fused_mha_packed_bwd_dq", "fused_mha_packed_bwd_dkv")),
     }
     kernels = []
     for name, (route, source, replaces, row, counts) in rows.items():

@@ -15,7 +15,10 @@ modules, so a path maps to a ``state_dict`` key by four rules:
 - LayerNorm ``scale`` and Embed ``embedding`` are named ``weight``.
 
 The reverse (:func:`torch_to_jax`) writes the per-layer ``blocks_{i}``
-layout. Plain numpy and torch: nothing here imports jax.
+layout. An I-JEPA task's trees (``params = {"encoder", "predictor"}`` and
+the teacher in ``extras["ema_encoder"]``) cross with
+:func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. Plain numpy and
+torch: nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -97,6 +100,37 @@ def torch_to_jax(module: nn.Module) -> dict[str, np.ndarray]:
                 np.ascontiguousarray(arr)
             )
     return flat
+
+
+def ijepa_jax_to_torch(
+    params: Mapping[str, Any], extras: Mapping[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """A JAX I-JEPA task's ``params`` (``encoder`` and ``predictor``) and
+    ``extras["ema_encoder"]``, nested or as flat ``/`` paths, as the
+    ``state_dict`` of the port's ``IJEPA``: ``encoder.*``, ``predictor.*``
+    and ``teacher.*``. Without a teacher in the extras the teacher is the
+    student, as the JAX task's loss takes it."""
+    flat = flatten(params)
+    teacher = {k.removeprefix("ema_encoder/"): v for k, v in flatten(extras or {}).items()
+               if k.startswith("ema_encoder/")}
+    if not teacher:
+        teacher = {k.removeprefix("encoder/"): v for k, v in flat.items()
+                   if k.startswith("encoder/")}
+    flat.update({f"teacher/{k}": v for k, v in teacher.items()})
+    return jax_to_torch(flat)
+
+
+def ijepa_torch_to_jax(task: nn.Module) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """The port's ``IJEPA`` as flat JAX paths: ``(params, extras)``, the
+    student under ``encoder/`` and the predictor under ``predictor/`` in
+    ``params``, the teacher under ``ema_encoder/`` in ``extras``."""
+    params, extras = {}, {}
+    for path, arr in torch_to_jax(task).items():
+        if path.startswith("teacher/"):
+            extras["ema_encoder/" + path.removeprefix("teacher/")] = arr
+        else:
+            params[path] = arr
+    return params, extras
 
 
 def save_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:

@@ -1,0 +1,131 @@
+"""I-JEPA context/target block masks, counterpart of
+:mod:`mmlearn_tpu.datasets.processors.masking` (``IJEPAMaskGenerator``
+:192-285, ``_sample_block_size`` :80, ``_block_indices`` :169).
+
+Plain numpy on the host, draw for draw the JAX package's generator: the same
+``numpy.random.Generator`` gives the same arrays. The keep counts are fixed
+(``k_tgt`` from the mean target scale; ``k_ctx`` from the mean context scale
+less the expected union of the targets), so every batch has one shape. At
+224 px with 16-px patches that is ``k_tgt`` 34 and ``k_ctx`` 84.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+_RNG_LOCK = threading.Lock()
+
+
+def _sample_block_size(
+    rng: np.random.Generator,
+    num_patches_h: int,
+    num_patches_w: int,
+    scale: tuple[float, float],
+    aspect_ratio: tuple[float, float],
+) -> tuple[int, int]:
+    """Sample a (h, w) patch block from scale/aspect ranges."""
+    total = num_patches_h * num_patches_w
+    s = rng.uniform(scale[0], scale[1])
+    target_area = s * total
+    log_ar = (math.log(aspect_ratio[0]), math.log(aspect_ratio[1]))
+    ar = math.exp(rng.uniform(*log_ar))
+    h = int(round(math.sqrt(target_area * ar)))
+    w = int(round(math.sqrt(target_area / ar)))
+    h = max(1, min(h, num_patches_h - 1))
+    w = max(1, min(w, num_patches_w - 1))
+    return h, w
+
+
+def _block_indices(
+    rng: np.random.Generator, grid_h: int, grid_w: int, h: int, w: int, fixed_size: int
+) -> np.ndarray:
+    """Flattened patch indices of a random (h, w) block, padded (by cycling:
+    duplicates are harmless to a gather) or cut to ``fixed_size``."""
+    top = rng.integers(0, grid_h - h + 1)
+    left = rng.integers(0, grid_w - w + 1)
+    rows = np.arange(top, top + h)[:, None]
+    cols = np.arange(left, left + w)[None, :]
+    idx = (rows * grid_w + cols).reshape(-1)
+    if len(idx) >= fixed_size:
+        return idx[:fixed_size]
+    reps = int(np.ceil(fixed_size / len(idx)))
+    return np.tile(idx, reps)[:fixed_size]
+
+
+@dataclass
+class IJEPAMaskGenerator:
+    """``__call__(batch_size, rng)`` returns ``{"encoder_masks": (nenc, B,
+    k_ctx), "predictor_masks": (npred, B, k_tgt)}`` int32 patch indices.
+    Context blocks leave out every target patch (``allow_overlap=False``)."""
+
+    input_size: int = 224
+    patch_size: int = 16
+    min_keep: int = 10
+    allow_overlap: bool = False
+    enc_mask_scale: tuple[float, float] = (0.85, 1.0)
+    pred_mask_scale: tuple[float, float] = (0.15, 0.2)
+    aspect_ratio: tuple[float, float] = (0.75, 1.0)
+    nenc: int = 1
+    npred: int = 4
+    seed: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        self.grid = self.input_size // self.patch_size
+        self.num_patches = self.grid * self.grid
+        mean_pred = 0.5 * (self.pred_mask_scale[0] + self.pred_mask_scale[1])
+        self.k_tgt = max(self.min_keep, int(round(self.num_patches * mean_pred)))
+        mean_enc = 0.5 * (self.enc_mask_scale[0] + self.enc_mask_scale[1])
+        k_enc_raw = int(round(self.num_patches * mean_enc))
+        if not self.allow_overlap:
+            # the targets overlap each other: the context loses the expected
+            # union of the npred target blocks
+            coverage = 1.0 - (1.0 - mean_pred) ** self.npred
+            k_enc_raw = int(round(k_enc_raw * (1.0 - coverage)))
+        self.k_ctx = max(self.min_keep, k_enc_raw)
+        self._rng = np.random.default_rng(self.seed)
+
+    def __call__(
+        self, batch_size: int, rng: Optional[np.random.Generator] = None
+    ) -> dict[str, np.ndarray]:
+        if rng is None:
+            # numpy generators are not thread-safe: spawn a child stream
+            with _RNG_LOCK:
+                rng = self._rng.spawn(1)[0]
+        pred_masks = np.zeros((self.npred, batch_size, self.k_tgt), np.int32)
+        enc_masks = np.zeros((self.nenc, batch_size, self.k_ctx), np.int32)
+        # block shapes once a batch, offsets once an example
+        ph, pw = _sample_block_size(
+            rng, self.grid, self.grid, self.pred_mask_scale, self.aspect_ratio
+        )
+        eh, ew = _sample_block_size(rng, self.grid, self.grid, self.enc_mask_scale, (1.0, 1.0))
+        for b in range(batch_size):
+            taken = np.zeros(self.num_patches, dtype=bool)
+            for m in range(self.npred):
+                idx = _block_indices(rng, self.grid, self.grid, ph, pw, self.k_tgt)
+                pred_masks[m, b] = idx
+                taken[idx] = True
+            for m in range(self.nenc):
+                # context: a block at the context scale less every target patch
+                top = rng.integers(0, self.grid - eh + 1)
+                left = rng.integers(0, self.grid - ew + 1)
+                rows = np.arange(top, top + eh)[:, None]
+                cols = np.arange(left, left + ew)[None, :]
+                block = (rows * self.grid + cols).reshape(-1)
+                if not self.allow_overlap:
+                    free = block[~taken[block]]
+                    if len(free) < self.min_keep:
+                        fallback = np.nonzero(~taken)[0]
+                        free = fallback if len(fallback) >= self.min_keep else block
+                else:
+                    free = block
+                k = min(self.k_ctx, len(free))
+                sel = rng.choice(free, size=k, replace=False)
+                if k < self.k_ctx:
+                    sel = np.concatenate([sel, rng.choice(free, self.k_ctx - k, replace=True)])
+                enc_masks[m, b] = np.sort(sel)
+        return {"encoder_masks": enc_masks, "predictor_masks": pred_masks}

@@ -15,17 +15,29 @@ with weight decay 0.01 and the linear-warmup cosine schedule (base rate
 1e-3, 100 warmup steps, 10,000 steps). :func:`synthetic_batch` and
 :func:`ragged_text_batch` make the inputs of the training step and of text
 serving.
+
+:func:`ijepa_training_task` is ``bench.py``'s second step
+(``_ijepa_img_per_sec``): an I-JEPA ViT-B/16 student (224 px, 196 patch
+tokens, no cls token, fixed 2-D sin-cos positions, exact-erf gelu, norm eps
+1e-6, final norm), the default predictor (width 384, depth 6, 12 heads of
+dim 32) and an EMA teacher (decay 0.996 to 1.0 over 100,000 steps), weights
+f32 and compute bf16, trained with ``optax.adamw(learning_rate=1e-3)``:
+AdamW at 1e-3 with optax's default weight decay 1e-4 (on weights of ndim >=
+2), no schedule. :func:`ijepa_batch` makes its input.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from mmlearn_tpu_torch.datasets.processors.masking import IJEPAMaskGenerator
 from mmlearn_tpu_torch.modules.encoders import TextTransformer, VisionTransformer
 from mmlearn_tpu_torch.modules.lr_schedulers import linear_warmup_cosine_annealing_lr
 from mmlearn_tpu_torch.tasks.contrastive_pretraining import ContrastivePretraining
+from mmlearn_tpu_torch.tasks.ijepa import ENCODER_MASK_KEY, IJEPA, PREDICTOR_MASK_KEY
 
 IMAGE_SIZE = 224
 TEXT_LENGTH = 77
@@ -105,3 +117,36 @@ def ragged_text_batch(
     ids = torch.where(pos < lens, ids, 0)
     return {"text": ids.to(device, torch.int32),
             "text_attention_mask": (pos < lens).to(device, torch.int32)}
+
+
+def ijepa_training_task(device: torch.device | str = "cuda", seed: int = 0) -> IJEPA:
+    """``bench.py``'s I-JEPA ViT-B/16 task on ``device`` in train mode,
+    weights drawn on the CPU from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    encoder = VisionTransformer(
+        img_size=IMAGE_SIZE, patch_size=16, embed_dim=768, depth=12, num_heads=12,
+        dtype=torch.bfloat16, generator=g,
+    )
+    return IJEPA(
+        encoder,
+        optimizer=functools.partial(torch.optim.AdamW, lr=1e-3, weight_decay=1e-4),
+        ema_decay=0.996, ema_anneal_end_step=100_000, generator=g,
+    ).to(device).train()
+
+
+def ijepa_batch(
+    batch_size: int, generator: torch.Generator, device: torch.device | str = "cuda"
+) -> dict[str, torch.Tensor]:
+    """``bench.py``'s I-JEPA batch: standard-normal bf16 images drawn from
+    ``generator`` (on its own device), with the masks ``IJEPA.prepare_batch``
+    draws at step 0 under seed 0, prepared once (the task then leaves the
+    batch as it is)."""
+    images = torch.randn(batch_size, IMAGE_SIZE, IMAGE_SIZE, 3, generator=generator,
+                         device=generator.device)
+    masks = IJEPAMaskGenerator(input_size=IMAGE_SIZE, patch_size=16)(
+        batch_size, rng=np.random.default_rng((0, 0, 0)))
+    return {
+        "rgb": images.to(device, torch.bfloat16),
+        ENCODER_MASK_KEY: torch.from_numpy(masks["encoder_masks"]).to(device),
+        PREDICTOR_MASK_KEY: torch.from_numpy(masks["predictor_masks"]).to(device),
+    }

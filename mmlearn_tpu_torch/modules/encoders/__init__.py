@@ -1,7 +1,14 @@
-"""Encoders of the port: the CLIP-style vision and text towers."""
+"""Encoders of the port: the CLIP-style vision and text towers and the
+I-JEPA predictor."""
 
 from mmlearn_tpu_torch.modules.encoders.base import EncoderOutput
 from mmlearn_tpu_torch.modules.encoders.text import TextTransformer
-from mmlearn_tpu_torch.modules.encoders.vision import VisionTransformer
+from mmlearn_tpu_torch.modules.encoders.vision import (
+    VisionTransformer,
+    VisionTransformerPredictor,
+    apply_masks,
+    repeat_interleave_batch,
+)
 
-__all__ = ["EncoderOutput", "TextTransformer", "VisionTransformer"]
+__all__ = ["EncoderOutput", "TextTransformer", "VisionTransformer",
+           "VisionTransformerPredictor", "apply_masks", "repeat_interleave_batch"]

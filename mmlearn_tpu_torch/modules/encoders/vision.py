@@ -1,11 +1,13 @@
 """Vision Transformer, counterpart of :mod:`mmlearn_tpu.modules.encoders.vision`.
 
-Covers the CLIP-style tower of the JAX ``VisionTransformer`` (:68-280): the
-cls token, learned or fixed 2-D sin-cos position embeddings, ``norm_pre``,
-the final ``norm``, cls/avg pooling and the ``proj`` head. I-JEPA patch
-masks, the predictor and patch dropout are not ported yet. ``norm_pre`` and
-``norm`` are plain LayerNorms, as in the JAX package; the blocks' norms run
-kernel K2 and their attention kernel K1.
+Covers the JAX ``VisionTransformer`` (:68-280): the cls token, learned or
+fixed 2-D sin-cos position embeddings, I-JEPA patch-keep masks,
+``norm_pre``, the final ``norm``, cls/avg pooling and the ``proj`` head;
+and the I-JEPA ``VisionTransformerPredictor`` (:283-380) with
+:func:`apply_masks` and :func:`repeat_interleave_batch`. Patch dropout is not
+ported yet. ``norm_pre`` and ``norm`` are plain LayerNorms, as in the JAX
+package; the blocks' norms run kernel K2 and their attention kernel K1 (or
+its head-grouped variant, see :func:`~mmlearn_tpu_torch.ops.fused_attention.use_packed`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,27 @@ from mmlearn_tpu_torch.modules.layers.embedding import (
 )
 from mmlearn_tpu_torch.modules.layers.normalization import LayerNorm
 from mmlearn_tpu_torch.modules.layers.transformer_block import BlockStack
+
+
+def apply_masks(x: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Gather the kept tokens of ``x`` ``(B, N, D)`` under integer keep
+    indices ``masks`` ``(num_masks, B, K)`` (or ``(B, K)``): ``(num_masks * B,
+    K, D)``, mask-major, as the JAX package's ``apply_masks``."""
+    if masks.ndim == 2:
+        masks = masks[None]
+    num_masks, b, k = masks.shape
+    idx = masks.long()[..., None].expand(num_masks, b, k, x.shape[-1])
+    gathered = torch.gather(x[None].expand(num_masks, *x.shape), 2, idx)
+    return gathered.reshape(num_masks * b, k, x.shape[-1])
+
+
+def repeat_interleave_batch(x: torch.Tensor, b: int, repeat: int) -> torch.Tensor:
+    """Repeat each consecutive ``b``-row group ``repeat`` times: a tile of
+    the group (``[g0, g0, g1, g1]`` for two groups of ``b`` rows and
+    ``repeat=2``, each ``g`` whole), not ``torch.repeat_interleave``."""
+    n = x.shape[0] // b
+    out = x.reshape(n, b, *x.shape[1:]).repeat(1, repeat, *([1] * (x.ndim - 1)))
+    return out.reshape(n * repeat * b, *x.shape[1:])
 
 
 class VisionTransformer(nn.Module):
@@ -112,12 +135,20 @@ class VisionTransformer(nn.Module):
             if self.num_prefix:
                 nn.init.normal_(self.cls_token, std=0.02, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> EncoderOutput:
-        """``x``: ``(B, H, W, C)`` images."""
+    def forward(
+        self, x: torch.Tensor, patch_masks: Optional[torch.Tensor] = None
+    ) -> EncoderOutput:
+        """``x``: ``(B, H, W, C)`` images. ``patch_masks``: optional ``(M, B,
+        K)`` patch indices to keep; the output then has ``M * B`` rows of
+        ``K`` (+ cls) tokens."""
         x = self.patch_embed(x)
-        b = x.shape[0]
         pos = self.pos_embed
+        # the patch position embedding goes on before the gather, so a kept
+        # patch keeps its position
         x = x + pos[:, self.num_prefix:].to(x.dtype)
+        if patch_masks is not None:
+            x = apply_masks(x, patch_masks)
+        b = x.shape[0]
         if self.num_prefix:
             cls = self.cls_token + pos[:, :1].to(self.cls_token.dtype)
             dt = torch.promote_types(cls.dtype, x.dtype)  # jnp.concatenate promotes
@@ -133,3 +164,74 @@ class VisionTransformer(nn.Module):
         if pooled is not None and self.proj is not None:
             pooled = self.proj(pooled)
         return EncoderOutput(last_hidden_state=x, pooler_output=pooled)
+
+
+class VisionTransformerPredictor(nn.Module):
+    """I-JEPA predictor: from the context tokens, predicts the targets'
+    representations.
+
+    ``forward(z, enc_masks, pred_masks)``: the context tokens ``z``
+    ``(n_enc * B, K_ctx, embed_dim)`` go to the predictor width with their
+    sin-cos positions added; one mask token a target patch, at its position,
+    is appended to the context, which is tiled once per target mask; after
+    the blocks and the norm, the target tokens go back to ``embed_dim``:
+    ``(n_pred * n_enc * B, K_tgt, embed_dim)``.
+    """
+
+    def __init__(
+        self,
+        num_patches: int = 196,
+        embed_dim: int = 768,
+        predictor_embed_dim: int = 384,
+        depth: int = 6,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        qkv_bias: bool = True,
+        norm_eps: float = 1e-6,
+        dtype: torch.dtype | str = torch.float32,
+        param_dtype: torch.dtype | str = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        dtype, param_dtype = as_dtype(dtype), as_dtype(param_dtype)
+        self.dtype = dtype
+        grid = int(num_patches**0.5)
+        self.predictor_embed = Dense(embed_dim, predictor_embed_dim, True, dtype, param_dtype)
+        # the JAX predictor holds the fixed table in the compute dtype
+        table = get_2d_sincos_pos_embed(predictor_embed_dim, grid)
+        self.register_buffer("pos_embed", torch.from_numpy(table).to(dtype), persistent=False)
+        self.mask_token = nn.Parameter(
+            torch.empty(1, 1, predictor_embed_dim, dtype=param_dtype)
+        )
+        self.blocks = BlockStack(
+            depth, dim=predictor_embed_dim, num_heads=num_heads, mlp_ratio=mlp_ratio,
+            qkv_bias=qkv_bias, norm_eps=norm_eps, dtype=dtype, param_dtype=param_dtype,
+        )
+        self.norm = LayerNorm(predictor_embed_dim, norm_eps, dtype, param_dtype)
+        self.predictor_proj = Dense(predictor_embed_dim, embed_dim, True, dtype, param_dtype)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's initialisers, drawn from ``generator``."""
+        reset_submodules(self, generator)
+        with torch.no_grad():
+            nn.init.normal_(self.mask_token, std=0.02, generator=generator)
+
+    def forward(
+        self, z: torch.Tensor, enc_masks: torch.Tensor, pred_masks: torch.Tensor
+    ) -> torch.Tensor:
+        if enc_masks.ndim == 2:
+            enc_masks = enc_masks[None]
+        if pred_masks.ndim == 2:
+            pred_masks = pred_masks[None]
+        n_enc, b, k_ctx = enc_masks.shape
+        n_pred = pred_masks.shape[0]
+        x = self.predictor_embed(z)  # (n_enc * B, K_ctx, Dp)
+        table = self.pos_embed[None].expand(b, *self.pos_embed.shape)
+        x = x + apply_masks(table, enc_masks)
+        tgt_pos = repeat_interleave_batch(apply_masks(table, pred_masks), b, n_enc)
+        pred_tokens = self.mask_token.to(self.dtype) + tgt_pos
+        # the context once per target mask: (n_pred * n_enc * B, K_ctx, Dp)
+        x = torch.cat([x.repeat(n_pred, 1, 1), pred_tokens], dim=1)
+        x = self.norm(self.blocks(x))
+        return self.predictor_proj(x[:, k_ctx:])

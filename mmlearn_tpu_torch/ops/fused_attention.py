@@ -1,4 +1,5 @@
-"""Fused short-sequence multi-head attention, forward and backward (kernel K1).
+"""Fused short-sequence multi-head attention, forward and backward (kernel K1,
+and its head-grouped variant for small head dims).
 
 Counterpart of :mod:`mmlearn_tpu.ops.fused_attention`. The projection that
 feeds it is packed **head-major**, ``(B, N, H * [q|k|v] * D)``, so the kernel
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -33,11 +35,18 @@ NEG = -0.7 * float(np.finfo(np.float32).max)
 
 #: launches of the CUDA kernels, one count each: the forward by
 #: :func:`fused_mha`; the backward's dQ kernel (which also writes the rows'
-#: softmax statistics) and dK/dV kernel by :class:`FusedMHAFunction`
-LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd_dq": 0, "fused_mha_bwd_dkv": 0}
+#: softmax statistics) and dK/dV kernel by
+#: :class:`FusedMHAFunction`; the same three for the head-grouped kernels
+LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd_dq": 0, "fused_mha_bwd_dkv": 0,
+            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
+            "fused_mha_packed_bwd_dkv": 0}
 
 _MAX_SEQ = 2048
 _KERNEL_HEAD_DIMS = (32, 64)
+#: the longest sequence the JAX package sends to its packed kernel at each
+#: head dim (``_packed_enabled``: past it the TPU kernel's scoped-memory
+#: model falls back to the per-head kernel); the port routes the same layers
+_PACKED_MAX_SEQ = {16: 360, 32: 512, 64: 768}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,6 +90,22 @@ def supports_fused(num_heads: int, head_dim: int, seq: int) -> bool:
     {32, 64}; :func:`fused_mha` checks that.
     """
     return seq <= _MAX_SEQ and num_heads % _head_group(head_dim) == 0
+
+
+def use_packed(num_heads: int, head_dim: int, seq: int) -> bool:
+    """Whether a CUDA tensor of this shape goes to the head-grouped kernels.
+
+    Mirrors the JAX package's ``_packed_enabled`` and its head grouping:
+    ``MMLEARN_FUSED_ATTN_PACKED=1`` (read now, at call time), ``head_dim <=
+    64`` with ``128 % head_dim == 0``, ``num_heads`` a multiple of the group
+    ``128 / head_dim``, and ``seq`` no longer than the JAX package packs at
+    that head dim. The kernels take ``head_dim`` 32 or 64 and raise on 16.
+    """
+    if os.environ.get("MMLEARN_FUSED_ATTN_PACKED", "0") != "1":
+        return False
+    if not (head_dim <= 64 and 128 % head_dim == 0):
+        return False
+    return num_heads % (128 // head_dim) == 0 and seq <= _PACKED_MAX_SEQ.get(head_dim, 0)
 
 
 def _scores(qkv, mask, num_heads: int, scale: float, causal: bool):
@@ -158,27 +183,41 @@ def mha_bwd_reference(
     return torch.stack([dq, dk, dv], dim=3).reshape(b, n, three_c).to(qkv.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("fused_attention")
-    if lib.mmlearn_fused_mha_fwd.argtypes is None:
-        lib.mmlearn_fused_mha_fwd.restype = ctypes.c_int
-        lib.mmlearn_fused_mha_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, n, h, d
-            ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
-            ctypes.c_void_p,  # stream
-        ]
-        lib.mmlearn_fused_mha_bwd.restype = ctypes.c_int
-        lib.mmlearn_fused_mha_bwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dout, dqkv, stats
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, n, h, d
-            ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
-            ctypes.c_void_p,  # stream
-        ]
-        lib.mmlearn_cuda_error_string.restype = ctypes.c_char_p
-        lib.mmlearn_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_FWD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, n, h, d
+    ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
+    ctypes.c_void_p,  # stream
+]
+_BWD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dout, dqkv, stats
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, n, h, d
+    ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
+    ctypes.c_void_p,  # stream
+]
+#: per kernel family: its source ``csrc/<name>.cu``, its forward, backward
+#: and error-string entry points, and the prefix of its ``LAUNCHES`` keys
+_SOURCES = {
+    False: ("fused_attention", "mmlearn_fused_mha_fwd", "mmlearn_fused_mha_bwd",
+            "mmlearn_cuda_error_string", "fused_mha"),
+    True: ("fused_attention_packed", "mmlearn_fused_mha_packed_fwd",
+           "mmlearn_fused_mha_packed_bwd", "mmlearn_packed_error_string", "fused_mha_packed"),
+}
+
+
+def _library(packed: bool = False):
+    """``(forward, backward, error string, launch-count prefix)`` of K1's
+    library or, with ``packed``, of the head-grouped kernels' (built and
+    loaded at the first call)."""
+    name, fwd_name, bwd_name, err_name, prefix = _SOURCES[packed]
+    lib = _build.load_library(name)
+    fwd, bwd, err = getattr(lib, fwd_name), getattr(lib, bwd_name), getattr(lib, err_name)
+    if fwd.argtypes is None:
+        fwd.restype = bwd.restype = ctypes.c_int
+        fwd.argtypes, bwd.argtypes = _FWD_ARGTYPES, _BWD_ARGTYPES
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return fwd, bwd, err, prefix
 
 
 def _check_cuda(
@@ -211,72 +250,90 @@ def _check_cuda(
     return mask.to(torch.bool).contiguous()
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _raise_on(error_string, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(
-            f"{what} kernel launch failed: "
-            f"{lib.mmlearn_cuda_error_string(err).decode()} ({err})"
+            f"{what} kernel launch failed: {error_string(err).decode()} ({err})"
         )
 
 
-def _fused_mha_cuda(qkv, mask, num_heads: int, scale: float, causal: bool) -> torch.Tensor:
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The head-grouped kernels load and store 16-byte vectors."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("fused_mha head-grouped kernels need 16-byte aligned tensors")
+
+
+def _fused_mha_cuda(
+    qkv, mask, num_heads: int, scale: float, causal: bool, packed: bool = False
+) -> torch.Tensor:
     b, n, three_c = qkv.shape
     d = three_c // (3 * num_heads)
     out = torch.empty(b, n, num_heads * d, dtype=qkv.dtype, device=qkv.device)
-    lib = _library()
+    fwd, _, error_string, prefix = _library(packed)
+    if packed:
+        _check_aligned(qkv)
     with torch.cuda.device(qkv.device):
-        err = lib.mmlearn_fused_mha_fwd(
+        err = fwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), b, n, num_heads, d, _DTYPE_CODES[qkv.dtype],
             float(scale), int(causal), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, "fused_mha")
-    LAUNCHES["fused_mha_fwd"] += 1
+    _raise_on(error_string, err, prefix)
+    LAUNCHES[f"{prefix}_fwd"] += 1
     return out
 
 
 def _fused_mha_bwd_cuda(
-    qkv, mask, out, dout, num_heads: int, scale: float, causal: bool
+    qkv, mask, out, dout, num_heads: int, scale: float, causal: bool, packed: bool = False
 ) -> torch.Tensor:
     b, n, three_c = qkv.shape
     d = three_c // (3 * num_heads)
     dout = dout.to(qkv.dtype).contiguous()
+    if packed:
+        _check_aligned(qkv, out, dout)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(3 * b * num_heads * n, dtype=torch.float32, device=qkv.device)
-    lib = _library()
+    _, bwd, error_string, prefix = _library(packed)
     with torch.cuda.device(qkv.device):
-        err = lib.mmlearn_fused_mha_bwd(
+        err = bwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
             b, n, num_heads, d, _DTYPE_CODES[qkv.dtype], float(scale), int(causal),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, "fused_mha backward")
-    LAUNCHES["fused_mha_bwd_dq"] += 1
-    LAUNCHES["fused_mha_bwd_dkv"] += 1
+    _raise_on(error_string, err, f"{prefix} backward")
+    LAUNCHES[f"{prefix}_bwd_dq"] += 1
+    LAUNCHES[f"{prefix}_bwd_dkv"] += 1
     return dqkv
 
 
 class FusedMHAFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_fused_mha_nomask`` /
     ``_fused_mha_masked``: saves qkv, the mask and the output, and runs the
-    backward kernel (the plain backward on a CPU tensor)."""
+    backward kernel (the plain backward on a CPU tensor). ``packed`` picks
+    the head-grouped kernels for both passes on a CUDA tensor."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, num_heads: int, scale: float, causal: bool):
+    def forward(ctx, qkv, mask, num_heads: int, scale: float, causal: bool,
+                packed: bool = False):
         if qkv.device.type == "cpu":
             out = mha_reference(qkv, mask, num_heads, scale, causal)
         else:
-            out = _fused_mha_cuda(qkv, mask, num_heads, scale, causal)
+            out = _fused_mha_cuda(qkv, mask, num_heads, scale, causal, packed)
         ctx.save_for_backward(qkv, mask, out)
         ctx.config = (num_heads, scale, causal)
+        ctx.packed = packed
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, mask, out = ctx.saved_tensors
-        bwd = mha_bwd_reference if qkv.device.type == "cpu" else _fused_mha_bwd_cuda
-        return bwd(qkv, mask, out, dout, *ctx.config), None, None, None, None
+        if qkv.device.type == "cpu":
+            dqkv = mha_bwd_reference(qkv, mask, out, dout, *ctx.config)
+        else:
+            dqkv = _fused_mha_bwd_cuda(qkv, mask, out, dout, *ctx.config, ctx.packed)
+        return dqkv, None, None, None, None, None
 
 
 def fused_mha(
@@ -303,15 +360,18 @@ def fused_mha(
     for the gradient) at any shape, the function the JAX package computes
     off the TPU. A CUDA tensor launches the kernels, which take float32 or
     bfloat16, ``D`` in {32, 64} and shapes that :func:`supports_fused`
-    admits, and raises on anything else.
+    admits, and raises on anything else: K1's, or the head-grouped ones
+    where :func:`use_packed` says so.
     """
     b, n, three_c = qkv.shape
     if three_c % (3 * num_heads):
         raise ValueError(f"qkv dim {three_c} not divisible by 3*{num_heads}")
     d = three_c // (3 * num_heads)
     scale = float(d) ** -0.5 if scale is None else float(scale)
+    packed = False
     if qkv.device.type == "cuda":
         mask = _check_cuda(qkv, mask, num_heads)
+        packed = use_packed(num_heads, d, n)
     elif qkv.device.type != "cpu":
         raise ValueError(f"fused_mha runs on cpu or cuda tensors, got {qkv.device}")
-    return FusedMHAFunction.apply(qkv, mask, num_heads, scale, causal)
+    return FusedMHAFunction.apply(qkv, mask, num_heads, scale, causal, packed)

@@ -3,12 +3,15 @@
 Run from the root of a checkout, on a host with a CUDA card::
 
     python -m mmlearn_tpu_torch.profile_step --path train --batch 256
+    python -m mmlearn_tpu_torch.profile_step --path ijepa --batch 256
     python -m mmlearn_tpu_torch.profile_step --path encode-rgb --batch 256
     python -m mmlearn_tpu_torch.profile_step --path encode-text --batch 256
 
 ``train`` takes ``Trainer.fit`` steps of the flagship contrastive task on the
-synthetic batch; ``encode-*`` embeds a batch of images, or of ragged
-right-padded texts, with one tower. After 3 warm-up steps, ``--steps``
+synthetic batch; ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
+(with ``MMLEARN_FUSED_ATTN_PACKED=1`` in the environment its attention runs
+the head-grouped kernels); ``encode-*`` embeds a batch of images, or of
+ragged right-padded texts, with one tower. After 3 warm-up steps, ``--steps``
 steps run under ``torch.profiler`` (CPU and CUDA activity). The script
 prints the wall time a step (host clock between two synchronisations), the
 device kernel time a step, the idle share (1 - kernel time / wall time),
@@ -35,6 +38,8 @@ TOP = 15  # kernels listed by name
 GROUPS = [
     ("K1f attention forward", r"fused_mha_fwd_kernel"),
     ("K1b attention backward", r"fused_mha_bwd_"),
+    ("K1f-p attention forward, head-grouped", r"packed_fwd_kernel"),
+    ("K1b-p attention backward, head-grouped", r"packed_bwd_"),
     ("K2f layernorm forward", r"_ln_fwd_kernel"),
     ("K2b layernorm backward", r"_ln_bwd_"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|sm90_|ampere_"),
@@ -56,6 +61,8 @@ def _steps(path: str, batch: int, total: int, on_step):
     from mmlearn_tpu_torch.flagship import (
         flagship_task,
         flagship_training_task,
+        ijepa_batch,
+        ijepa_training_task,
         ragged_text_batch,
         synthetic_batch,
     )
@@ -63,8 +70,9 @@ def _steps(path: str, batch: int, total: int, on_step):
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
-    if path == "train":
-        data = synthetic_batch(batch, gen, device)
+    if path in ("train", "ijepa"):
+        train = path == "train"
+        data = (synthetic_batch if train else ijepa_batch)(batch, gen, device)
 
         def loader():
             for i in range(total + 1):
@@ -72,7 +80,7 @@ def _steps(path: str, batch: int, total: int, on_step):
                 yield data
 
         Trainer(max_steps=total, log_every_n_steps=total, device=device).fit(
-            flagship_training_task(device), loader())
+            (flagship_training_task if train else ijepa_training_task)(device), loader())
         return
     task = flagship_task(device)
     if path == "encode-rgb":
@@ -90,7 +98,7 @@ def _steps(path: str, batch: int, total: int, on_step):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=["train", "encode-rgb", "encode-text"],
+    parser.add_argument("--path", choices=["train", "ijepa", "encode-rgb", "encode-text"],
                         default="train")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--steps", type=int, default=5)

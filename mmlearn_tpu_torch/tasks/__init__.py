@@ -4,5 +4,6 @@ from mmlearn_tpu_torch.tasks.contrastive_pretraining import (
     ContrastivePretraining,
     ModuleKeySpec,
 )
+from mmlearn_tpu_torch.tasks.ijepa import IJEPA
 
-__all__ = ["ContrastivePretraining", "ModuleKeySpec"]
+__all__ = ["ContrastivePretraining", "IJEPA", "ModuleKeySpec"]

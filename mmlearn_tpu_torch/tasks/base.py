@@ -16,10 +16,18 @@ import functools
 import inspect
 from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from mmlearn_tpu_torch.modules.lr_schedulers import schedule_lambda_lr
+
+
+def as_tensor(value: Any, device: torch.device) -> torch.Tensor:
+    """A batch entry (numpy array or tensor) as a tensor on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.as_tensor(np.asarray(value), device=device)
 
 
 def decay_mask(module: nn.Module) -> dict[str, bool]:
@@ -58,6 +66,17 @@ class TrainingTask(nn.Module):
     def loss_fn(self, batch: Mapping[str, Any]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """``(loss, metrics)`` of one batch, differentiable in the weights."""
         raise NotImplementedError
+
+    def prepare_batch(
+        self, batch: dict[str, Any], step: int, training: bool = True
+    ) -> dict[str, Any]:
+        """Host-side hook on each batch before ``loss_fn`` (mask drawing,
+        say); the batch as it is by default."""
+        return batch
+
+    def post_update(self, step: int) -> None:
+        """Hook after the optimizer's update of step ``step`` (an EMA
+        teacher, say); nothing by default."""
 
     def configure_optimizers(
         self, max_steps: Optional[int] = None

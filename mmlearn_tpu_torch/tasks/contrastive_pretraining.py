@@ -22,7 +22,6 @@ import math
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Optional, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -30,13 +29,7 @@ from mmlearn_tpu_torch.constants import MODALITY_PRESENCE_SUFFIX
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.losses import ContrastiveLoss, LossPairSpec
-from mmlearn_tpu_torch.tasks.base import TrainingTask
-
-
-def _as_tensor(value: Any, device: torch.device) -> torch.Tensor:
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    return torch.as_tensor(np.asarray(value), device=device)
+from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
 
 
 @dataclass(frozen=True)
@@ -140,11 +133,11 @@ class ContrastivePretraining(TrainingTask):
         self, batch: Mapping[str, Any], modality: str, device: torch.device
     ) -> tuple[tuple, dict]:
         mod = Modalities.get_modality(modality)
-        x = _as_tensor(batch[mod.name], device)
+        x = as_tensor(batch[mod.name], device)
         kwargs: dict[str, Any] = {}
         # token ids (integer inputs) take the modality's padding mask
         if not x.is_floating_point() and mod.attention_mask in batch:
-            kwargs["attention_mask"] = _as_tensor(batch[mod.attention_mask], device)
+            kwargs["attention_mask"] = as_tensor(batch[mod.attention_mask], device)
         return (x,), kwargs
 
     def encode(
@@ -201,7 +194,7 @@ class ContrastivePretraining(TrainingTask):
         device = self.log_logit_scale.device
         validity = batch.get("batch_validity")
         if validity is not None:
-            validity = _as_tensor(validity, device).bool()
+            validity = as_tensor(validity, device).bool()
         ids = batch.get("example_ids", {})
         for m in self.modalities:
             name = Modalities.get_modality(m).name
@@ -209,13 +202,13 @@ class ContrastivePretraining(TrainingTask):
                 continue
             embeddings[m] = self.encode(batch, m, normalize=True)
             key = f"{name}{MODALITY_PRESENCE_SUFFIX}"
-            pres = _as_tensor(batch[key], device).bool() if key in batch else None
+            pres = as_tensor(batch[key], device).bool() if key in batch else None
             if validity is not None:
                 pres = validity if pres is None else pres & validity
             if pres is not None:
                 presence[m] = pres
             if name in ids:
-                example_ids[m] = _as_tensor(ids[name], device)
+                example_ids[m] = as_tensor(ids[name], device)
         scale = self.logit_scale()
         loss, metrics = self.loss(embeddings, example_ids or None, scale,
                                   self.modality_loss_pairs, presence=presence or None)

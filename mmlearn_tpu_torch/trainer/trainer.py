@@ -2,10 +2,11 @@
 :class:`mmlearn_tpu.trainer.Trainer` (``_build_tx`` :386,
 ``_make_train_step`` :494-537, ``fit`` :634).
 
-One step: ``task.loss_fn(batch)``, backward, the global gradient norm,
-optional clipping (``"norm"``: by the global norm, as
-``optax.clip_by_global_norm``; ``"value"``: elementwise, as ``optax.clip``),
-the optimizer update and the schedule's step. Each step records ``loss``,
+One step: ``task.prepare_batch(batch, step)``, ``task.loss_fn(batch)``,
+backward, the global gradient norm, optional clipping (``"norm"``: by the
+global norm, as ``optax.clip_by_global_norm``; ``"value"``: elementwise, as
+``optax.clip``), the optimizer update, ``task.post_update(step)`` (an EMA
+teacher follows the new weights) and the schedule's step. Each step records ``loss``,
 ``lr`` (the rate that step used), ``logit_scale`` where the task reports
 one, and ``grad_norm`` (before clipping), plus the task's other metrics.
 The records stay on the device and are read back every
@@ -13,9 +14,11 @@ The records stay on the device and are read back every
 the card each step.
 
 Not ported yet (ROADMAP P7): validation, callbacks, checkpoints, gradient
-accumulation, preemption, device input. The step draws no random numbers
-(the towers' dropout rates are 0), so the trainer takes no seed: the
-weights come seeded from the task's builder.
+accumulation, preemption, device input. The step draws no random numbers on
+the device (the towers' dropout rates are 0): the weights come seeded from
+the function that makes the task, and ``seed`` seeds only the task's
+host-side ``prepare_batch`` (``task.prepare_seed``, as the JAX trainer sets
+it).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class Trainer:
         gradient_clip_val: Optional[float] = None,
         gradient_clip_algorithm: str = "norm",
         device: torch.device | str = "cuda",
+        seed: int = 0,
     ) -> None:
         if gradient_clip_algorithm not in ("norm", "value"):
             raise ValueError(
@@ -52,6 +56,7 @@ class Trainer:
         self.gradient_clip_val = gradient_clip_val
         self.gradient_clip_algorithm = gradient_clip_algorithm
         self.device = torch.device(device)
+        self.seed = int(seed)
         #: one dict of floats per step taken by the last :meth:`fit`
         self.history: list[dict[str, float]] = []
 
@@ -59,6 +64,7 @@ class Trainer:
         """Move ``task`` to the trainer's device and take ``max_steps``
         steps, cycling over ``loader`` as often as needed."""
         task.to(self.device).train()
+        task.prepare_seed = self.seed
         optimizer, lr_scheduler = task.configure_optimizers(max_steps=self.max_steps)
         state = TrainState(0, task, optimizer, lr_scheduler)
         params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -84,6 +90,7 @@ class Trainer:
         optimizer = state.optimizer
         lr = optimizer.param_groups[0]["lr"]
         optimizer.zero_grad(set_to_none=True)
+        batch = state.task.prepare_batch(dict(batch), state.step)
         loss, metrics = state.task.loss_fn(batch)
         loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
@@ -97,6 +104,7 @@ class Trainer:
                 for g in grads:
                     g.mul_(coef)
         optimizer.step()
+        state.task.post_update(state.step)
         if state.lr_scheduler is not None:
             state.lr_scheduler.step()
         state.step += 1
