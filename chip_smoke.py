@@ -9,17 +9,22 @@ Phases, each fatal on failure:
 1. build the hand-written kernels from the sources in the checkout, one
    ``nvcc`` a source, all at once: K1 forward and backward
    (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
-   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), CUDA C++ for
+   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), and K5, the
+   quantizing int8 product (``csrc/int8_matmul.cu``), CUDA C++ for
    sm_90a, into ``build/kernels/``; K2 forward and backward (Triton,
    ``mmlearn_tpu_torch/ops/fused_norm.py``) build at their first call;
 2. hold each kernel against its plain PyTorch version on the card, with
    the tolerance printed on each line: at batch 8 over every case (masks,
-   head dims, f32 and bf16), and at batch 256 in bf16 at the paths' shapes,
+   head dims, f32 and bf16; K5 at ragged M, N and K, forward and dgrad
+   through ``switchback_matmul``, with its shape routing), and at batch 256
+   in bf16 at the paths' shapes (K5 at all 16 projection shapes),
    so at the grids the training step launches; then time the kernel, its
    plain version and, where one PyTorch call computes the same function,
    that call, at batch 256, beside the kernel's bound (the bytes it must
    move over 3.35 TB/s or its operations over the dense peak of its type,
-   whichever is larger);
+   whichever is larger); K5 beside a bf16 ``F.linear`` and ``torch._int_mm``
+   on operands quantized beforehand, printed as context (no one PyTorch call
+   computes K5's function);
 3. build the full-width flagship (CLIP ViT-B/16 + text tower, random
    weights from a fixed seed, bf16 compute), check that one tower forward
    launches K1 ``depth`` times and K2 ``2 * depth`` times, and time
@@ -50,7 +55,18 @@ Phases, each fatal on failure:
    ``MMLEARN_FUSED_ATTN_PACKED=1`` (K1f-p/K1b-p), each 3 warm-up steps and 3
    timed windows of 5; check the launches per step exactly, every student
    and predictor gradient finite and nonzero, the teacher moved and finite,
-   the loss finite, and both runs' first losses alike.
+   the loss finite, and both runs' first losses alike;
+7. the flagship step under ``MMLEARN_QUANT``: one step at batch 8 on the
+   card against the CPU for each of ``int8_sb``, ``int8_fwd`` and ``int8``;
+   then, with every count set to 0, ``Trainer.fit`` at batch 256 under
+   ``int8_sb`` (3 warm-up steps, 3 timed windows of 10, one more step):
+   launches a step checked exactly (K5 twice a projection: forward and
+   dgrad), every gradient finite and nonzero, the loss falling and its first
+   value within 2% of the bf16 run's from the same weights; then ``encode``
+   of images at batch 256 under ``int8_sb`` (K5 once a projection).
+
+Every main path before the last runs with ``MMLEARN_QUANT`` unset and
+checks that K5 never launched there.
 
 The packed kernels are held to their plain versions (K1's) at batch 8 over
 every case and at the I-JEPA step's grids (teacher and student at batch 256,
@@ -90,6 +106,7 @@ PARITY_BATCH = 8  # training step held against the CPU
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 3, 3, 10
 IJEPA_WINDOW_STEPS = 5  # I-JEPA: 3 warm-up steps, then WINDOWS windows of 5
 PACKED_ENV = "MMLEARN_FUSED_ATTN_PACKED"
+QUANT_ENV = "MMLEARN_QUANT"
 # the I-JEPA step's attention: (label, batch, tokens, heads, head dim)
 IJEPA_ATTENTION = (
     ("teacher N=196 H=12 D=64", 256, 196, 12, 64),
@@ -97,9 +114,18 @@ IJEPA_ATTENTION = (
     ("predictor N=118 H=12 D=32", 1024, 118, 12, 32),
 )
 
+# the flagship's block projections at batch 256: (label, rows, in, out); the
+# dgrad of each is the same product with in and out swapped
+INT8_SHAPES = tuple(
+    (f"{tower} {name}", BATCH * tokens, c_in, c_out)
+    for tower, tokens, c in (("image", 197, 768), ("text", 77, 512))
+    for name, c_in, c_out in (("qkv", c, 3 * c), ("proj", c, c), ("fc1", c, 4 * c),
+                              ("fc2", 4 * c, c))
+)
+
 # the H100 SXM data sheet at 700 W: memory rate, dense peaks by input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel-versus-plain tolerances, |kernel - plain| <= atol + rtol * |plain|,
 # each set about 2x above the least atol a sound run reads (printed on every
@@ -110,10 +136,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # p and ds from f32 values that differ in their last bits (2.6e-3), K2 only
 # its output (2e-7). f32: summation order (reads 1.4e-6).
 # The head-grouped K1f-p/K1b-p compute K1's function with K1's roundings and
-# take K1's limits.
+# take K1's limits. K5 and its plain version round x / sx to the same ints
+# and dequantize in the same order: only the output's rounding can differ.
 BF16_ATOL = {"fused_mha_fwd": 1.5e-2, "fused_mha_bwd": 5e-3, "layernorm_fwd": 1e-4,
              "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.5e-2,
-             "fused_mha_packed_bwd": 5e-3}
+             "fused_mha_packed_bwd": 5e-3, "int8_qmm": 1e-6}
 F32_TOL = (5e-6, 0.0)
 # K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
 # in another order, of values up to ~1,000 (reads 2.3e-5 at this rtol)
@@ -130,6 +157,15 @@ SELF_SCORE_ATOL = 2e-2
 # (cosine; reads 0.9954 at the worst bias)
 LOSS_RTOL = 2e-3
 MIN_GRAD_COSINE = 0.99
+# the same step under MMLEARN_QUANT: where the two sides' activations differ
+# by a bf16 rounding, a row's int8 value can fall on the other side of a
+# rounding edge, one quantization step in that element (reads 1.49e-3 on the
+# loss and cosine 0.9874 at the text tower's last fc2 bias, in every mode)
+QUANT_LOSS_RTOL = 3e-3
+QUANT_MIN_GRAD_COSINE = 0.975
+# the int8_sb step's first loss against the bf16 step's, same weights and
+# batch: the quantization error of the forward alone
+QUANT_FIRST_LOSS_RTOL = 2e-2
 
 
 class SmokeError(RuntimeError):
@@ -185,26 +221,33 @@ def attention_pairs(b: int, n: int, mask, causal: bool) -> int:
 
 
 @contextlib.contextmanager
-def packed_attention(on: bool):
-    """``MMLEARN_FUSED_ATTN_PACKED`` set to ``on`` inside the block (the port
-    reads it at every call), as it was after."""
-    old = os.environ.get(PACKED_ENV)
-    os.environ[PACKED_ENV] = "1" if on else "0"
+def environ(name: str, value: str):
+    """The variable ``name`` set to ``value`` inside the block, as it was
+    after: the port reads ``MMLEARN_FUSED_ATTN_PACKED`` and ``MMLEARN_QUANT``
+    at every call."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(PACKED_ENV, None)
+            os.environ.pop(name, None)
         else:
-            os.environ[PACKED_ENV] = old
+            os.environ[name] = old
+
+
+def packed_attention(on: bool):
+    """``MMLEARN_FUSED_ATTN_PACKED`` set to ``on`` inside the block."""
+    return environ(PACKED_ENV, "1" if on else "0")
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     from mmlearn_tpu_torch.ops import fused_attention as fa
     from mmlearn_tpu_torch.ops import fused_norm as fn
+    from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    for table in (fa.LAUNCHES, fn.LAUNCHES):
+    for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES):
         for key in table:
             table[key] = 0
 
@@ -213,8 +256,9 @@ def launch_counts() -> dict:
     """``{kernel: launches}`` since the last :func:`reset_counts`."""
     from mmlearn_tpu_torch.ops import fused_attention as fa
     from mmlearn_tpu_torch.ops import fused_norm as fn
+    from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    return {**fa.LAUNCHES, **fn.LAUNCHES}
+    return {**fa.LAUNCHES, **fn.LAUNCHES, **im.LAUNCHES}
 
 
 # ----------------------------------------------------------------- kernels
@@ -553,6 +597,105 @@ def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
     return rows
 
 
+def int8_kernel_checks(device, gen, err: dict) -> None:
+    """K5 against its plain version: small cases through ``switchback_matmul``
+    (its forward and its dgrad, each a K5 launch where ``supports_int8_qmm``
+    routes the shape to it, the composed product elsewhere: the launches are
+    checked) at ragged M, N and K, in bf16 and f32, covering each of the
+    kernel's row blocks (64, 32 and 16 rows) and both of its load paths;
+    then all 16 projection products of the flagship step at batch 256 in
+    bf16, forward and dgrad. The largest error joins ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import int8_matmul as im
+
+    cases = [  # (m, k, n, dtype)
+        (8, 128, 128, torch.bfloat16),  # the least M the routing admits
+        (37, 200, 160, torch.bfloat16),  # K % 16 != 0: byte loads
+        (130, 100, 300, torch.float32),  # dgrad N = 100: composed
+        (300, 96, 520, torch.float32),
+        (77, 3072, 768, torch.bfloat16),  # 64-row blocks at the largest flagship K
+        (520, 3264, 130, torch.float32),  # 32-row blocks
+        (40, 8192, 136, torch.bfloat16),  # 16-row blocks at the largest K
+        (20, 256, 64, torch.bfloat16),  # forward N = 64: composed
+    ]
+    err.setdefault("int8_qmm", 0.0)
+    for m, k, n, dtype in cases:
+        dn = _dtype_name(dtype)
+        x = torch.randn(m, k, generator=gen, device=device).to(dtype)
+        w = (torch.randn(n, k, generator=gen, device=device) * k ** -0.5).to(dtype)
+        g = torch.randn(m, n, generator=gen, device=device).to(dtype)
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        reset_counts()
+        y = im.switchback_matmul(xl, wl)
+        dx, _ = torch.autograd.grad(y, (xl, wl), g)
+        torch.cuda.synchronize()
+        want = int(im.supports_int8_qmm(m, k, n)) + int(im.supports_int8_qmm(m, n, k))
+        check(im.LAUNCHES["int8_qmm"] == want,
+              f"switchback M={m} K={k} N={n} launched K5 {im.LAUNCHES['int8_qmm']} times, "
+              f"want {want}")
+        tag = f"M={m} K={k} N={n} {dn}"
+        err["int8_qmm"] = max(
+            err["int8_qmm"],
+            compare(f"K5 int8_qmm fwd {tag}", y,
+                    im.int8_qmm_reference(x, *im.quantize_weight(w)), tol("int8_qmm", dn)),
+            compare(f"K5 int8_qmm dgrad {tag}", dx,
+                    im.int8_qmm_reference(g, *im.quantize_weight(w.t().contiguous())),
+                    tol("int8_qmm", dn)))
+    for label, m, c_in, c_out in INT8_SHAPES:
+        for way, k, n in (("fwd", c_in, c_out), ("dgrad", c_out, c_in)):
+            x = torch.randn(m, k, generator=gen, device=device).bfloat16()
+            qw, sw = im.quantize_weight(torch.randn(n, k, generator=gen, device=device)
+                                        .mul(k ** -0.5).bfloat16())
+            got = im.int8_qmm(x, qw, sw)
+            err["int8_qmm"] = max(err["int8_qmm"], compare(
+                f"K5 int8_qmm {label} {way} M={m} K={k} N={n} bf16", got,
+                im.int8_qmm_reference(x, qw, sw), tol("int8_qmm", "bfloat16")))
+            del x, qw, sw, got
+    torch.cuda.empty_cache()
+    reset_counts()
+
+
+def int8_at_batch(device, gen) -> dict:
+    """K5's time at the image tower's four projections and at fc1's dgrad,
+    batch 256, bf16, beside its plain version's and its bound (int8
+    operations over the int8 peak, or bytes). A bf16 ``F.linear`` of the
+    same shape and ``torch._int_mm`` on operands quantized beforehand are
+    printed beside it as context: neither computes K5's function, so the
+    row's library time is none. Returns rows as :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import int8_matmul as im
+
+    rows = {}
+    shapes = [(f"{label} fwd", m, k, n) for label, m, k, n in INT8_SHAPES[:4]]
+    shapes.append(("image fc1 dgrad", BATCH * 197, 4 * 768, 768))
+    for label, m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen, device=device).bfloat16()
+        w = (torch.randn(n, k, generator=gen, device=device) * k ** -0.5).bfloat16()
+        qw, sw = im.quantize_weight(w)
+        out = im.int8_qmm(x, qw, sw)
+        qx = im.quantize_weight(x)[0]
+        row = f"K5 {label} M={m} K={k} N={n}"
+        rows[row] = (
+            cuda_ms(lambda: im.int8_qmm(x, qw, sw)),
+            cuda_ms(lambda: im.int8_qmm_reference(x, qw, sw), iters=3),
+            None,
+            *bound(nbytes(x, qw, sw, out), 2 * m * k * n, "int8"),
+        )
+        linear_ms = cuda_ms(lambda: F.linear(x, w))
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(qx, qw.t()))
+        ms, plain, _, bnd, by = rows[row]
+        print(f"time {row} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library none, "
+              f"bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it); context: bf16 F.linear "
+              f"{linear_ms:.4f} ms, torch._int_mm of the quantized operands {int_mm_ms:.4f} ms")
+        del x, w, qw, sw, out, qx
+    torch.cuda.empty_cache()
+    reset_counts()
+    return rows
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -813,17 +956,15 @@ def _cosine(a, b) -> float:
     return float((a * b).sum()) / (na * nb)
 
 
-def training_path(device) -> dict:
-    """The flagship contrastive train step: parity with the CPU at batch 8,
-    then ``Trainer.fit`` at batch 256 as the main path."""
-    import math
-
+def step_parity(device, label: str, loss_rtol: float, min_cos: float):
+    """One step of the flagship contrastive task at batch 8 with the kernels
+    on the card against the same weights and batch through the plain
+    versions on the CPU: the loss and the cosine of every gradient tensor.
+    Returns the card's task (its weights still the seed's)."""
     import torch
 
     from mmlearn_tpu_torch.flagship import flagship_training_task, synthetic_batch
-    from mmlearn_tpu_torch.trainer import Trainer
 
-    # ---- one step at batch 8: kernels on the card, plain versions on the CPU
     batch = synthetic_batch(PARITY_BATCH, torch.Generator().manual_seed(SEED + 3), "cpu")
     losses, grads = {}, {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
@@ -835,22 +976,35 @@ def training_path(device) -> dict:
         grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()}
         if where == "card":
             card_task = task
-        print(f"training step b={PARITY_BATCH} on the {where}: loss {losses[where]:.6f} "
-              f"({time.perf_counter() - t0:.1f} s with the build)")
+        print(f"{label}training step b={PARITY_BATCH} on the {where}: loss "
+              f"{losses[where]:.6f} ({time.perf_counter() - t0:.1f} s with the build)")
     del task
     rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
     worst = min(cos, key=cos.get)
-    print(f"step parity b={PARITY_BATCH}, card vs CPU: loss rel diff {rel:.3e} "
-          f"(tol {LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, "
+    print(f"{label}step parity b={PARITY_BATCH}, card vs CPU: loss rel diff {rel:.3e} "
+          f"(tol {loss_rtol}); gradient cosine min {cos[worst]:.6f} at {worst}, "
           f"median {statistics.median(cos.values()):.6f} over {len(cos)} tensors "
-          f"(bound {MIN_GRAD_COSINE})")
-    check(rel <= LOSS_RTOL, f"training loss on the card {losses['card']} vs CPU {losses['cpu']}")
-    check(cos[worst] >= MIN_GRAD_COSINE, f"gradient of {worst}: cosine {cos[worst]}")
+          f"(bound {min_cos})")
+    check(rel <= loss_rtol, f"{label}training loss on the card {losses['card']} vs CPU "
+          f"{losses['cpu']}")
+    check(cos[worst] >= min_cos, f"{label}gradient of {worst}: cosine {cos[worst]}")
+    return card_task
 
-    # ---- the main path: Trainer.fit at batch 256 on the synthetic batch
-    task = card_task
-    depth = sum(len(enc.blocks) for enc in task.encoders.values())
+
+def fit_flagship(task, device, label: str, want: dict) -> tuple[dict, float]:
+    """``Trainer.fit`` of the flagship task at batch 256 on the synthetic
+    batch, with every launch count set to 0 first: 3 warm-up steps, 3 timed
+    windows of 10 steps and one more step. Checks the launches per step
+    against ``want`` exactly, a finite, nonzero gradient for every parameter
+    and a last loss below the first; returns the counts and the first loss."""
+    import math
+
+    import torch
+
+    from mmlearn_tpu_torch.flagship import synthetic_batch
+    from mmlearn_tpu_torch.trainer import Trainer
+
     batch = synthetic_batch(BATCH, torch.Generator(device=device).manual_seed(SEED + 4), device)
     marks = [WARMUP_STEPS + i * WINDOW_STEPS for i in range(WINDOWS + 1)]
     steps = marks[-1] + 1  # the last mark is taken before the last step
@@ -862,14 +1016,10 @@ def training_path(device) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    want = {"fused_mha_fwd": depth, "fused_mha_bwd_dq": depth, "fused_mha_bwd_dkv": depth,
-            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
-            "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
-            "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth}
-    print(f"training path: {state.step} steps launched " + ", ".join(
+    print(f"{label}training path: {state.step} steps launched " + ", ".join(
         f"{k} {v} ({v / state.step:g} a step, want {want[k]})" for k, v in counts.items()))
     check(counts == {k: v * state.step for k, v in want.items()},
-          f"training launches {counts}, want {want} a step")
+          f"{label}training launches {counts}, want {want} a step")
 
     bad = [n for n, p in task.named_parameters()
            if p.grad is None or not bool(p.grad.isfinite().all()) or not bool(p.grad.any())]
@@ -888,12 +1038,32 @@ def training_path(device) -> dict:
     window_s = [b - a for a, b in zip(loader.times, loader.times[1:])]
     rates = [BATCH * WINDOW_STEPS / w for w in window_s]
     median = statistics.median(rates)
-    print(f"train b{BATCH}: {median:.1f} pairs/s median of {WINDOWS} windows of "
+    print(f"{label}train b{BATCH}: {median:.1f} pairs/s median of {WINDOWS} windows of "
           f"{WINDOW_STEPS} steps (windows {', '.join(f'{r:.1f}' for r in rates)}; spread "
           f"{(max(rates) - min(rates)) / median:.2%}), "
           f"{statistics.median(window_s) / WINDOW_STEPS * 1e3:.2f} ms a step, "
           f"peak memory {peak_gb:.2f} GB")
-    return counts
+    return counts, first
+
+
+def flagship_launches(task, int8_qmm: int) -> dict:
+    """Launches a step of the flagship train step: per block K1 forward once
+    and each of K1 backward's two kernels once, K2 forward and each of K2
+    backward's two passes twice, K5 ``int8_qmm`` times."""
+    depth = sum(len(enc.blocks) for enc in task.encoders.values())
+    return {"fused_mha_fwd": depth, "fused_mha_bwd_dq": depth, "fused_mha_bwd_dkv": depth,
+            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
+            "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
+            "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth,
+            "int8_qmm": int8_qmm * depth}
+
+
+def training_path(device) -> tuple[dict, float]:
+    """The flagship contrastive train step: parity with the CPU at batch 8,
+    then ``Trainer.fit`` at batch 256 as the main path. Returns the launch
+    counts and the first loss."""
+    task = step_parity(device, "", LOSS_RTOL, MIN_GRAD_COSINE)
+    return fit_flagship(task, device, "", flagship_launches(task, 0))
 
 
 def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
@@ -932,7 +1102,7 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
     want = {f"{on}_fwd": fwd, f"{on}_bwd_dq": bwd, f"{on}_bwd_dkv": bwd,
             f"{off}_fwd": 0, f"{off}_bwd_dq": 0, f"{off}_bwd_dkv": 0,
             "layernorm_fwd": 2 * fwd, "layernorm_bwd_rows": 2 * bwd,
-            "layernorm_bwd_sum": 2 * bwd}
+            "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0}
     print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
         f"{k} {counts[k]} ({counts[k] / state.step:g} a step, want {v})"
         for k, v in want.items()))
@@ -1047,6 +1217,51 @@ def ijepa_path(device) -> dict:
     return total
 
 
+def quant_path(device, bf16_first_loss: float) -> dict:
+    """The flagship step under ``MMLEARN_QUANT``: parity with the CPU at
+    batch 8 under each mode, then ``Trainer.fit`` at batch 256 under
+    ``int8_sb`` as the main path (K5 for the forward and the dgrad of every
+    block projection), then image ``encode`` at batch 256 under ``int8_sb``.
+    Returns the launch counts of the ``int8_sb`` run."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import flagship_training_task
+    from mmlearn_tpu_torch.ops import int8_matmul as im
+
+    for mode in ("int8_sb", "int8_fwd", "int8"):
+        with environ(QUANT_ENV, mode):
+            step_parity(device, f"{mode} ", QUANT_LOSS_RTOL, QUANT_MIN_GRAD_COSINE)
+    torch.cuda.empty_cache()
+
+    with environ(QUANT_ENV, "int8_sb"):
+        task = flagship_training_task(device, seed=SEED)
+        counts, first = fit_flagship(task, device, "int8_sb ", flagship_launches(task, 8))
+        rel = abs(first - bf16_first_loss) / abs(bf16_first_loss)
+        print(f"int8_sb first loss {first:.6f} vs bf16 {bf16_first_loss:.6f} from the same "
+              f"weights and batch: rel diff {rel:.3e} (tol {QUANT_FIRST_LOSS_RTOL})")
+        check(rel <= QUANT_FIRST_LOSS_RTOL, "the int8_sb step's first loss is off the bf16 one")
+
+        task.eval()
+        depth = len(task.encoders["rgb"].blocks)
+        imgs = torch.randn(BATCH, 224, 224, 3, generator=torch.Generator(device=device)
+                           .manual_seed(SEED + 7), device=device)
+        with torch.inference_mode():
+            before = im.LAUNCHES["int8_qmm"]
+            emb = task.encode({"rgb": imgs}, "rgb", normalize=True)
+            torch.cuda.synchronize()
+            per_forward = im.LAUNCHES["int8_qmm"] - before
+            ms = cuda_ms(lambda: task.encode({"rgb": imgs}, "rgb", normalize=True),
+                         iters=10, warmup=2)
+        print(f"int8_sb encode rgb b{BATCH}: {ms:.2f} ms/batch = {BATCH / ms * 1e3:.1f} "
+              f"images/s; K5 {per_forward} launches a forward (want {4 * depth})")
+        check(per_forward == 4 * depth, f"int8_sb encode launched K5 {per_forward} times")
+        check(bool(emb.float().isfinite().all()) and emb.shape == (BATCH, 512),
+              f"int8_sb embeddings {tuple(emb.shape)} not finite")
+    del task, imgs, emb
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1066,13 +1281,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     os.environ[PACKED_ENV] = "0"  # the default dispatch, whatever the caller's environment
+    os.environ.pop(QUANT_ENV, None)  # unquantized until the last phase sets it
 
     from mmlearn_tpu_torch import _build
 
     # one nvcc a source, all started together
     t0 = time.perf_counter()
     sources = {"fused_attention": "K1 forward and backward",
-               "fused_attention_packed": "K1f-p/K1b-p forward and backward"}
+               "fused_attention_packed": "K1f-p/K1b-p forward and backward",
+               "int8_matmul": "K5 quantizing int8 product"}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = {name: pool.submit(_build.build, name) for name in sources}
         for name, what in sources.items():
@@ -1082,27 +1299,38 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     errors = kernel_checks(device, gen)
     packed_kernel_checks(device, gen, errors)
+    t0 = time.perf_counter()
+    int8_kernel_checks(device, gen, errors)
+    print(f"K5 checks done in {time.perf_counter() - t0:.1f} s")
     times = kernels_at_batch(device, gen, errors)
     times.update(ijepa_attention_at_batch(device, gen, errors))
+    times.update(int8_at_batch(device, gen))
     t0 = time.perf_counter()
     serving = main_path(device)
+    check(launch_counts()["int8_qmm"] == 0, "K5 launched on the serving path without "
+          f"{QUANT_ENV}")
     print(f"serving path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = training_path(device)
+    launches, bf16_first_loss = training_path(device)
     print(f"training path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ijepa_launches = ijepa_path(device)
     print(f"I-JEPA path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    quant_launches = quant_path(device, bf16_first_loss)
+    print(f"int8_sb path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
-    # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p
-    for key, count in ijepa_launches.items():
-        launches[key] = launches.get(key, 0) + count
+    # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
+    # int8_sb
+    for counts in (ijepa_launches, quant_launches):
+        for key, count in counts.items():
+            launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]
     launches["layernorm_fwd"] += serving["launches"][1]
 
     # each kernel in the JSON line: its timed row (image attention, image
-    # norms, the I-JEPA predictor's attention) and its launch counts on the
-    # main paths (a backward is two device kernels)
+    # norms, the I-JEPA predictor's attention, image fc1) and its launch
+    # counts on the main paths (a backward is two device kernels)
     rows = {
         "fused_mha_fwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
                           "mmlearn_tpu/ops/fused_attention.py:173", "K1f image N=197 H=12",
@@ -1124,6 +1352,9 @@ def main() -> int:
                                  "mmlearn_tpu/ops/fused_attention.py:448",
                                  "K1b-p predictor N=118 H=12 D=32 B=1024",
                                  ("fused_mha_packed_bwd_dq", "fused_mha_packed_bwd_dkv")),
+        "int8_qmm": ("cuda", "mmlearn_tpu_torch/csrc/int8_matmul.cu",
+                     "mmlearn_tpu/ops/int8_matmul.py:63", "K5 image fc1 fwd M=50432 K=768 N=3072",
+                     ("int8_qmm",)),
     }
     kernels = []
     for name, (route, source, replaces, row, counts) in rows.items():

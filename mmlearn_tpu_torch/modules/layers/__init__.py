@@ -13,6 +13,7 @@ from mmlearn_tpu_torch.modules.layers.normalization import (
     LayerNorm,
     l2_normalize,
 )
+from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense, quant_mode
 from mmlearn_tpu_torch.modules.layers.transformer_block import Block, BlockStack
 
 __all__ = [
@@ -22,8 +23,10 @@ __all__ = [
     "BlockStack",
     "Dense",
     "FusedLayerNorm",
+    "Int8Dense",
     "LayerNorm",
     "PatchEmbed",
     "get_2d_sincos_pos_embed",
     "l2_normalize",
+    "quant_mode",
 ]

@@ -6,7 +6,9 @@ h1_q | ...]``) so kernel K1 reads its output in place, and ``proj`` follows.
 This covers the JAX module's fused-kernel branch (``attention.py:128-134``),
 forward and backward through :class:`~mmlearn_tpu_torch.ops.fused_attention.FusedMHAFunction`;
 on a CPU tensor the same function runs as plain PyTorch at any shape, which
-is what the JAX package computes off the TPU. The ring-attention,
+is what the JAX package computes off the TPU. Both projections are
+``Int8Dense``, so ``MMLEARN_QUANT`` reaches them as it does in the JAX
+package. The ring-attention,
 ``return_weights`` and attention-dropout branches are not ported yet.
 """
 
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mmlearn_tpu_torch.modules.layers.dense import Dense
+from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 from mmlearn_tpu_torch.ops.fused_attention import fused_mha
 
 
@@ -39,8 +41,8 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.causal = causal
-        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, param_dtype)
-        self.proj = Dense(dim, dim, True, dtype, param_dtype)
+        self.qkv = Int8Dense(dim, 3 * dim, qkv_bias, dtype, param_dtype)
+        self.proj = Int8Dense(dim, dim, True, dtype, param_dtype)
 
     def forward(
         self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None

@@ -1,7 +1,8 @@
 """Configurable MLP, counterpart of :mod:`mmlearn_tpu.modules.layers.mlp`.
 
 Layers are named ``fc{i}`` as in the JAX package, so
-:mod:`mmlearn_tpu_torch.bridge` maps weights by path. Ported so far: an
+:mod:`mmlearn_tpu_torch.bridge` maps weights by path, and are ``Int8Dense``
+(``MMLEARN_QUANT``) as in the JAX package. Ported so far: an
 explicit ``hidden_dims`` list; the JAX module's ``hidden_dims_multiplier``,
 inter-layer norm and dropout are not (the flagship sets no dropout).
 """
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmlearn_tpu_torch.modules.layers.dense import Dense
+from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 
 # the towers' activations: exact-erf gelu and CLIP's quick_gelu
 _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -49,7 +50,7 @@ class MLP(nn.Module):
         self.num_layers = len(dims)
         prev = in_dim
         for i, dim in enumerate(dims):
-            self.add_module(f"fc{i + 1}", Dense(prev, dim, True, dtype, param_dtype))
+            self.add_module(f"fc{i + 1}", Int8Dense(prev, dim, True, dtype, param_dtype))
             prev = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

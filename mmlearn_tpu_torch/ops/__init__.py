@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 - :mod:`.fused_attention` -- K1, fused short-sequence attention (CUDA C++);
-- :mod:`.fused_norm` -- K2, LayerNorm and residual-add + LayerNorm (Triton).
+- :mod:`.fused_norm` -- K2, LayerNorm and residual-add + LayerNorm (Triton);
+- :mod:`.int8_matmul` -- K5, the quantizing int8 product of
+  ``MMLEARN_QUANT=int8_sb`` (CUDA C++).
 """

@@ -1,0 +1,152 @@
+"""Quantizing int8 matrix product (kernel K5) and the switchback product of
+``MMLEARN_QUANT=int8_sb``.
+
+Counterpart of :mod:`mmlearn_tpu.ops.int8_matmul`. :func:`int8_qmm` computes
+``x @ (qw * sw).T``: each row of ``x`` is absmax-quantized to int8 inside the
+kernel, multiplied s8 x s8 -> s32 with the weight quantized beforehand, and
+dequantized by ``sx * sw``. The weight is kept the torch way, ``(N, K)``
+rows with K contiguous (the JAX package's ``qw`` is its ``(K, N)``
+transpose). The CUDA kernel is ``csrc/int8_matmul.cu`` (built by
+:mod:`mmlearn_tpu_torch._build` at first use); its plain PyTorch version is
+:func:`int8_qmm_reference`, which keeps every s32 sum exact.
+
+:func:`switchback_matmul` is the JAX package's ``switchback_matmul`` as a
+``torch.autograd.Function``: K5 for the forward (``x`` against the weight
+quantized per output row) and for dgrad (``g`` against the transposed
+weight quantized per input column: one transpose a layer a step), and an
+exact wgrad ``g.T @ x`` by ``torch.matmul`` in the compute type. Shapes
+that :func:`supports_int8_qmm` refuses take the composed int8 product, as in
+the JAX package; the routing is decided before any launch. On a CPU tensor
+K5 is its plain version; on a CUDA tensor it launches or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from mmlearn_tpu_torch import _build
+from mmlearn_tpu_torch.modules.layers.quantization import _int8_fwd, _quantize, exact_int_dot
+
+#: launches of K5, counted by :func:`int8_qmm` where it launches the kernel
+LAUNCHES = {"int8_qmm": 0}
+
+#: the JAX package's full-K limit (``_MAX_K``); the kernel holds a block's
+#: quantized rows in shared memory and takes the same K
+MAX_K = 8192
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, qw, sw, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m, k, n, dtype
+    ctypes.c_void_p,  # stream
+]
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 quantization of an ``(N, K)`` weight, each
+    output row over the contraction dim: ``(q, scale)`` with scale ``(N,
+    1)``. The JAX package's ``quantize_weight(w, axis=0)`` on its ``(K, N)``
+    kernel, through the same quantizer as the composed route."""
+    return _quantize(w, -1)
+
+
+def supports_int8_qmm(m: int, k: int, n: int) -> bool:
+    """The shapes the JAX package sends to its kernel (full-K blocks)."""
+    return k <= MAX_K and m >= 8 and n >= 128
+
+
+def int8_qmm_reference(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: the rows of ``x`` quantized in f32, the
+    exact s32 sums, ``acc * (sx * sw)`` in f32, rounded to ``x``'s type."""
+    k, n = x.shape[-1], qw.shape[0]
+    qx, sx = _quantize(x.reshape(-1, k), -1)
+    y = exact_int_dot(qx, qw.t()) * (sx * sw.reshape(1, n).float())
+    return y.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def _library():
+    lib = _build.load_library("int8_matmul")
+    fn, err = lib.mmlearn_int8_qmm, lib.mmlearn_int8_error_string
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = ctypes.c_int, _ARGTYPES
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return fn, err
+
+
+def _int8_qmm_cuda(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    k, n = x.shape[-1], qw.shape[0]
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"int8_qmm kernel takes float32 or bfloat16, got {x.dtype}")
+    if qw.dtype != torch.int8 or qw.shape != (n, k):
+        raise ValueError(f"int8_qmm needs an int8 (N, {k}) weight, got {qw.dtype} "
+                         f"{tuple(qw.shape)}")
+    if sw.numel() != n:
+        raise ValueError(f"int8_qmm needs {n} weight scales, got {tuple(sw.shape)}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"int8_qmm kernel takes K up to {MAX_K}, got {k}")
+    if not (qw.device == sw.device == x.device):
+        raise ValueError("int8_qmm operands must lie on one device")
+    x2 = x.reshape(-1, k).contiguous()
+    qw = qw.contiguous()
+    sw = sw.reshape(n).to(torch.float32).contiguous()
+    m = x2.shape[0]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    fn, error_string = _library()
+    with torch.cuda.device(x.device):
+        err = fn(x2.data_ptr(), qw.data_ptr(), sw.data_ptr(), out.data_ptr(), m, k, n,
+                 _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"int8_qmm kernel launch failed: {error_string(err).decode()} ({err})")
+    LAUNCHES["int8_qmm"] += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+def int8_qmm(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """``x @ (qw * sw).T`` with in-kernel row quantization of ``x``.
+
+    x: ``(..., K)`` f32 or bf16; qw: ``(N, K)`` int8; sw: ``N`` f32 scales
+    (``(N, 1)`` as :func:`quantize_weight` gives them, or flat). Returns
+    ``(..., N)`` in ``x``'s type. A CPU tensor takes
+    :func:`int8_qmm_reference`; a CUDA tensor launches K5 or raises.
+    """
+    if x.device.type == "cpu":
+        return int8_qmm_reference(x, qw, sw)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_qmm runs on cpu or cuda tensors, got {x.device}")
+    return _int8_qmm_cuda(x, qw, sw)
+
+
+def _qmm_or_fallback(a: torch.Tensor, qw, sw, b_full: torch.Tensor) -> torch.Tensor:
+    """K5 where the JAX package runs its kernel; the composed int8 product
+    (the same numbers) elsewhere."""
+    if supports_int8_qmm(math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]):
+        return int8_qmm(a, qw, sw)
+    return _int8_fwd(a, b_full)
+
+
+class SwitchbackMatmul(torch.autograd.Function):
+    """``x @ w.T`` (``w`` as ``(out, in)``): int8 forward and dgrad, exact
+    wgrad. Saves ``x`` and ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        qw, sw = quantize_weight(w)
+        return _qmm_or_fallback(x, qw, sw, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wt = w.t().contiguous()  # (in, out): dgrad's weight, scaled per input column
+        qwt, swt = quantize_weight(wt)
+        dx = _qmm_or_fallback(g, qwt, swt, wt).to(x.dtype)
+        dw = torch.matmul(g.reshape(-1, g.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
+        return dx, dw.to(w.dtype)
+
+
+def switchback_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T``: int8 forward and int8 dgrad through K5, exact wgrad."""
+    return SwitchbackMatmul.apply(x, w)

@@ -6,13 +6,16 @@ Run from the root of a checkout, on a host with a CUDA card::
     python -m mmlearn_tpu_torch.profile_step --path ijepa --batch 256
     python -m mmlearn_tpu_torch.profile_step --path encode-rgb --batch 256
     python -m mmlearn_tpu_torch.profile_step --path encode-text --batch 256
+    python -m mmlearn_tpu_torch.profile_step --path train --quant int8_sb
 
 ``train`` takes ``Trainer.fit`` steps of the flagship contrastive task on the
 synthetic batch; ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
 (with ``MMLEARN_FUSED_ATTN_PACKED=1`` in the environment its attention runs
 the head-grouped kernels); ``encode-*`` embeds a batch of images, or of
-ragged right-padded texts, with one tower. After 3 warm-up steps, ``--steps``
-steps run under ``torch.profiler`` (CPU and CUDA activity). The script
+ragged right-padded texts, with one tower. ``--quant`` sets
+``MMLEARN_QUANT`` for the run, so the block projections take that int8 mode
+(``int8_sb``: kernel K5 for their forward and dgrad). After 3 warm-up steps,
+``--steps`` steps run under ``torch.profiler`` (CPU and CUDA activity). The script
 prints the wall time a step (host clock between two synchronisations), the
 device kernel time a step, the idle share (1 - kernel time / wall time),
 the kernels grouped by what they do and the 15 slowest kernels by name,
@@ -23,6 +26,7 @@ device time, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import subprocess
 import sys
@@ -42,6 +46,7 @@ GROUPS = [
     ("K1b-p attention backward, head-grouped", r"packed_bwd_"),
     ("K2f layernorm forward", r"_ln_fwd_kernel"),
     ("K2b layernorm backward", r"_ln_bwd_"),
+    ("K5 quantizing int8 product", r"int8_qmm_kernel"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|sm90_|ampere_"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("reductions", r"reduce_kernel|reduction"),
@@ -102,7 +107,11 @@ def main(argv=None) -> int:
                         default="train")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--quant", choices=["int8_fwd", "int8", "int8_sb"], default=None,
+                        help="run under MMLEARN_QUANT=<mode> (default: the variable as set)")
     args = parser.parse_args(argv)
+    if args.quant:
+        os.environ["MMLEARN_QUANT"] = args.quant
     if not torch.cuda.is_available():
         print("profile_step: no CUDA card", file=sys.stderr)
         return 1
@@ -138,8 +147,9 @@ def main(argv=None) -> int:
     if kernel_ms == 0:
         print("profile_step: the profiler recorded no device time", file=sys.stderr)
         return 1
-    print(f"{args.path} b{args.batch}: {wall_ms:.3f} ms a step (wall, under the profiler), "
-          f"kernels {kernel_ms:.3f} ms, idle share {1 - kernel_ms / wall_ms:.3f}")
+    quant = os.environ.get("MMLEARN_QUANT") or "off"
+    print(f"{args.path} b{args.batch} (MMLEARN_QUANT {quant}): {wall_ms:.3f} ms a step "
+          f"(wall, under the profiler), kernels {kernel_ms:.3f} ms, idle share {1 - kernel_ms / wall_ms:.3f}")
     groups: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for name, (ms, count) in by_name.items():
         groups[_group(name)][0] += ms
