@@ -63,15 +63,32 @@ Phases, each fatal on failure:
    launches a step checked exactly (K5 twice a projection: forward and
    dgrad), every gradient finite and nonzero, the loss falling and its first
    value within 2% of the bf16 run's from the same weights; then ``encode``
-   of images at batch 256 under ``int8_sb`` (K5 once a projection).
+   of images at batch 256 under ``int8_sb`` (K5 once a projection);
+8. the long-sequence path: the flagship towers with the image tower at 448
+   px (785 tokens, its position table interpolated from the 224-px one), whose
+   attention takes the flash kernel K3: with every count set to 0, image
+   ``encode`` at batch 256 (exact launches: K3f 12, K2f 24, K1 0; the
+   embeddings against the plain versions on the CPU) and images/s; then one
+   training step at batch 8 on the card against the CPU, and
+   ``Trainer.fit`` at batch 64 (3 warm-up steps, 3 timed windows of 5, one
+   more step) with exact launches a step (K3f and both K3b kernels 12 each
+   on the image tower, K1 only on the text tower), every gradient finite
+   and nonzero, the loss falling, pairs/s, ms a step and peak memory.
 
-Every main path before the last runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there.
+Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
+checks that K5 never launched there; so does the eighth.
 
 The packed kernels are held to their plain versions (K1's) at batch 8 over
 every case and at the I-JEPA step's grids (teacher and student at batch 256,
 the predictor at 1,024 rows), and timed there beside K1, the plain version,
-SDPA and their bound; K2 is held at the predictor's width 384 too.
+SDPA and their bound; K2 is held at the predictor's width 384 too. K3
+(``mmlearn_tpu_torch/csrc/flash_attention.cu``) is held to its plain
+versions at batch 8 over every case (N 785, 1,000 and 2,049; no mask,
+right and left padding, a wholly masked sample; causal or not; D 32 and 64;
+f32 and bf16: output, log-sum-exp, dQ, dK, dV) and, in bf16, at the 448
+path's grid (B=64, H=12, N=785) and at B=1, N=16,385 (ViT-B/16 at 2,048 px,
+its plain version head by head), and timed there beside its plain version,
+SDPA, its bound and, at 16,385, both peak memories.
 
 The lines before the last give the card's name and power limit (from
 ``nvidia-smi``), the kernels' errors, times and bounds, ``encode``
@@ -105,6 +122,7 @@ LATENCY_QUERIES = 24
 PARITY_BATCH = 8  # training step held against the CPU
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 3, 3, 10
 IJEPA_WINDOW_STEPS = 5  # I-JEPA: 3 warm-up steps, then WINDOWS windows of 5
+HIGHRES_BATCH = 64  # the 448-px training step: 50,240 image tokens, as b256 at 224 px
 PACKED_ENV = "MMLEARN_FUSED_ATTN_PACKED"
 QUANT_ENV = "MMLEARN_QUANT"
 # the I-JEPA step's attention: (label, batch, tokens, heads, head dim)
@@ -138,10 +156,28 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # The head-grouped K1f-p/K1b-p compute K1's function with K1's roundings and
 # take K1's limits. K5 and its plain version round x / sx to the same ints
 # and dequantize in the same order: only the output's rounding can differ.
+# K3 rounds where K1 does (unnormalised p in the forward, reads 5.6e-3; p
+# and ds in the backward, 1.7e-3).
 BF16_ATOL = {"fused_mha_fwd": 1.5e-2, "fused_mha_bwd": 5e-3, "layernorm_fwd": 1e-4,
              "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.5e-2,
-             "fused_mha_packed_bwd": 5e-3, "int8_qmm": 1e-6}
+             "fused_mha_packed_bwd": 5e-3, "int8_qmm": 1e-6,
+             "flash_attention_fwd": 1.2e-2, "flash_attention_bwd": 4e-3}
 F32_TOL = (5e-6, 0.0)
+# K3's f32 log-sum-exp, values up to ~15: the scores summed in another order
+# (reads 3.8e-6)
+LSE_TOL = (1e-5, 0.0)
+# a row that sees no key is the mean of V over the N_k keys: against the f32
+# mean, one rounding of the output (<= 2^-9 relative in bf16). A kernel that
+# also averaged padded keys (as the TPU kernel does) is off by (N_k - padded)
+# / padded, 2-6% at these lengths, which the output limit above lets through
+MASKED_ROW_TOL = (1e-6, 2 ** -7)
+# K3's outputs and gradients also as a whole: ||got - want|| / ||want||. The
+# element limits above are 20-33% of a typical |out| (std ~0.06 at N=785), so
+# an error of a few percent on many elements passes them. Reads: bf16 out
+# 3.1e-3 (the output's rounding, 2^-9 at most, and p's), gradients 3.6e-4
+# (rounded once from f32 sums); f32 1.3e-6 and 2.7e-7
+FLASH_REL_TOL = {"flash_attention_fwd": {"bfloat16": 7e-3, "float32": 3e-6},
+                 "flash_attention_bwd": {"bfloat16": 8e-4, "float32": 6e-7}}
 # K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
 # in another order, of values up to ~1,000 (reads 2.3e-5 at this rtol)
 SUM_TOL = (1e-4, 1e-4)
@@ -166,6 +202,10 @@ QUANT_MIN_GRAD_COSINE = 0.975
 # the int8_sb step's first loss against the bf16 step's, same weights and
 # batch: the quantization error of the forward alone
 QUANT_FIRST_LOSS_RTOL = 2e-2
+
+
+# the 224-px paths never reach the flash kernel (every N <= 197)
+NO_FLASH = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 class SmokeError(RuntimeError):
@@ -243,30 +283,33 @@ def packed_attention(on: bool):
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
+    from mmlearn_tpu_torch.ops import flash_attention as fl
     from mmlearn_tpu_torch.ops import fused_attention as fa
     from mmlearn_tpu_torch.ops import fused_norm as fn
     from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES):
+    for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES, fl.LAUNCHES):
         for key in table:
             table[key] = 0
 
 
 def launch_counts() -> dict:
     """``{kernel: launches}`` since the last :func:`reset_counts`."""
+    from mmlearn_tpu_torch.ops import flash_attention as fl
     from mmlearn_tpu_torch.ops import fused_attention as fa
     from mmlearn_tpu_torch.ops import fused_norm as fn
     from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    return {**fa.LAUNCHES, **fn.LAUNCHES, **im.LAUNCHES}
+    return {**fa.LAUNCHES, **fn.LAUNCHES, **im.LAUNCHES, **fl.LAUNCHES}
 
 
 # ----------------------------------------------------------------- kernels
 
 
-def compare(name: str, got, want, tol: tuple[float, float]) -> float:
-    """Check ``|got - want| <= atol + rtol |want|`` everywhere; print the
-    largest error and the least atol that this rtol would need."""
+def compare(name: str, got, want, tol: tuple[float, float], rel=None) -> float:
+    """Check ``|got - want| <= atol + rtol |want|`` everywhere and, where
+    ``rel`` is given, ``||got - want|| / ||want|| <= rel``; print the largest
+    error, the least atol that this rtol would need and the relative error."""
     atol, rtol = tol
     got = got.detach()
     err = (got.float() - want.float()).abs()
@@ -274,7 +317,12 @@ def compare(name: str, got, want, tol: tuple[float, float]) -> float:
     max_err = float(err.max())
     least_atol = max(float((err - rtol * want.float().abs()).max()), 0.0)
     ok = bool((err <= lim).all()) and bool(got.isfinite().all())
-    print(f"{name}: max_abs_err={max_err:.3e} least_atol={least_atol:.3e} "
+    rel_text = ""
+    if rel is not None:
+        rel_err = float(err.norm() / want.float().norm())
+        ok = ok and rel_err <= rel
+        rel_text = f" rel_err={rel_err:.3e} (limit {rel:g})"
+    print(f"{name}: max_abs_err={max_err:.3e} least_atol={least_atol:.3e}{rel_text} "
           f"(tol atol={atol:g} rtol={rtol:g}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} disagrees with its plain version")
     return max_err
@@ -696,6 +744,207 @@ def int8_at_batch(device, gen) -> dict:
     return rows
 
 
+def _flash_mask(kind: str, b: int, n: int, device):
+    """None; right padding (a ragged tail in sample 0); left padding (sample
+    0's first third: early causal rows see no key); sample 1 wholly masked."""
+    import torch
+
+    if kind == "no mask":
+        return None
+    mask = torch.ones(b, n, dtype=torch.bool, device=device)
+    if kind == "right pad":
+        mask[0, n - n // 3:] = False
+    elif kind == "left pad":
+        mask[0, : n // 3] = False
+    else:
+        mask[1] = False
+    return mask
+
+
+def flash_kernel_checks(device, gen, err: dict) -> None:
+    """K3f and K3b, reached through ``flash_attention`` and autograd, against
+    their plain versions at batch 8 over every case: N 785, 1,000 and 2,049
+    (ragged last tiles); no mask, right padding, left padding, one wholly
+    masked sample; causal or not; head dim 32 and 64; f32 and bf16. Compares
+    the output, the log-sum-exp, dQ, dK and dV (the output and gradients
+    also as a whole); the largest errors join ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+
+    b, h = 8, 3
+    err.setdefault("flash_attention_fwd", 0.0)
+    err.setdefault("flash_attention_bwd", 0.0)
+    for n in (785, 1000, 2049):
+        for d in (32, 64):
+            for kind in ("no mask", "right pad", "left pad", "empty sample"):
+                mask = _flash_mask(kind, b, n, device)
+                for causal in (False, True):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        dn, scale = _dtype_name(dtype), d ** -0.5
+                        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=device)
+                                       .to(dtype) for _ in range(4))
+                        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                        reset_counts()
+                        out = fl.flash_attention(*leaves, mask, causal=causal)
+                        grads = torch.autograd.grad(out, leaves, do)
+                        _, lse = fl._flash_fwd_cuda(q, k, v, mask, scale, causal)
+                        torch.cuda.synchronize()
+                        check(launch_counts()["flash_fwd"] == 2
+                              and launch_counts()["flash_bwd_dq"] == 1,
+                              f"flash_attention launched {launch_counts()}")
+                        want, want_lse = fl.flash_fwd_reference(q, k, v, mask, scale, causal)
+                        # the backward's plain version from the kernel's own
+                        # output and log-sum-exp, as the autograd Function saves
+                        want_b = fl.flash_bwd_reference(q, k, v, mask, out.detach(), lse, do,
+                                                        scale, causal)
+                        tag = (f"{kind}{' causal' if causal else ''} B={b} N={n} H={h} D={d} "
+                               f"{dn}")
+                        fwd_tol, bwd_tol = (tol("flash_attention_fwd", dn),
+                                            tol("flash_attention_bwd", dn))
+                        fwd_rel = FLASH_REL_TOL["flash_attention_fwd"][dn]
+                        bwd_rel = FLASH_REL_TOL["flash_attention_bwd"][dn]
+                        err["flash_attention_fwd"] = max(
+                            err["flash_attention_fwd"],
+                            compare(f"K3f flash out {tag}", out, want, fwd_tol, fwd_rel))
+                        compare(f"K3f flash lse {tag}", lse, want_lse, LSE_TOL)
+                        if kind == "empty sample":
+                            mean = v[1].float().mean(dim=1, keepdim=True).expand(h, n, d)
+                            compare(f"K3f flash out of the masked sample {tag}", out[1], mean,
+                                    MASKED_ROW_TOL)
+                        err["flash_attention_bwd"] = max(err["flash_attention_bwd"], *(
+                            compare(f"K3b flash d{name} {tag}", got, w, bwd_tol, bwd_rel)
+                            for name, got, w in zip("qkv", grads, want_b)))
+                        del q, k, v, do, leaves, out, grads, want, want_b
+    torch.cuda.empty_cache()
+    reset_counts()
+
+
+def flash_at_grids(device, gen, err: dict) -> dict:
+    """K3 in bf16 at the grids of the 448 path: K3f at 448 ``encode``'s
+    (B=256, H=12, N=785, D=64) against its plain version sample block by
+    sample block, and its time beside SDPA's; K3f and K3b at the training
+    step's (B=64) and at B=1, N=16,385 (ViT-B/16 at 2,048 px): forward and
+    backward against their plain versions (head by head at 16,385, to bound
+    their memory), then the times of each beside the plain version's,
+    SDPA's (a yardstick the port never calls: its forward, its backward
+    through autograd, and both) and the bound; at 16,385 the peak memory of
+    a forward and backward through each. Returns rows as
+    :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+
+    rows = {}
+    fwd_tol, bwd_tol = tol("flash_attention_fwd", "bfloat16"), tol("flash_attention_bwd",
+                                                                  "bfloat16")
+    fwd_rel = FLASH_REL_TOL["flash_attention_fwd"]["bfloat16"]
+    bwd_rel = FLASH_REL_TOL["flash_attention_bwd"]["bfloat16"]
+    b, h, n, d = BATCH, 12, 785, 64
+    scale = d ** -0.5
+    q, k, v = (torch.randn(b, h, n, d, generator=gen, device=device).bfloat16()
+               for _ in range(3))
+    out, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+    blocks = [slice(i, i + 32) for i in range(0, b, 32)]
+
+    def plain_fwd():
+        return [fl.flash_fwd_reference(q[s], k[s], v[s], None, scale, False) for s in blocks]
+
+    want = plain_fwd()
+    tag = f"448 encode N=785 B={b} H={h} D={d} bf16"
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], compare(
+        f"K3f flash out {tag}", out, torch.cat([o for o, _ in want]), fwd_tol, fwd_rel))
+    compare(f"K3f flash lse {tag}", lse, torch.cat([l for _, l in want]), LSE_TOL)
+    del want
+    rows["K3f encode N=785"] = (
+        cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False)),
+        cuda_ms(plain_fwd, iters=2, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        *bound(nbytes(q, k, v, out, lse), 4 * h * d * b * n * n, "bfloat16"),
+    )
+    del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    for label, b, n in (("image N=785", HIGHRES_BATCH, 785), ("N=16385", 1, 16385)):
+        h, d = 12, 64
+        scale = d ** -0.5
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=device).bfloat16()
+                       for _ in range(4))
+        out, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+        grads = fl._flash_bwd_cuda(q, k, v, None, out, lse, do, scale, False)
+        heads = [slice(i, i + 1) for i in range(h)] if b == 1 else [slice(None)]
+
+        def plain_fwd():
+            return [fl.flash_fwd_reference(q[:, s], k[:, s], v[:, s], None, scale, False)
+                    for s in heads]
+
+        def plain_bwd():
+            return [fl.flash_bwd_reference(q[:, s], k[:, s], v[:, s], None, out[:, s], lse[:, s],
+                                           do[:, s], scale, False) for s in heads]
+
+        want = plain_fwd()
+        want_out = torch.cat([o for o, _ in want], 1)
+        want_lse = torch.cat([l for _, l in want], 1)
+        del want
+        tag = f"{label} B={b} H={h} D={d} bf16"
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], compare(
+            f"K3f flash out {tag}", out, want_out, fwd_tol, fwd_rel))
+        compare(f"K3f flash lse {tag}", lse, want_lse, LSE_TOL)
+        del want_out, want_lse
+        want_b = plain_bwd()
+        for i, name in enumerate("qkv"):
+            err["flash_attention_bwd"] = max(err["flash_attention_bwd"], compare(
+                f"K3b flash d{name} {tag}", grads[i], torch.cat([w[i] for w in want_b], 1),
+                bwd_tol, bwd_rel))
+        del want_b, grads
+        torch.cuda.empty_cache()
+
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+        pairs = b * n * n
+        fwd_bytes = nbytes(q, k, v, out, lse)
+        bwd_bytes = nbytes(q, k, v, out, do, lse, q, k, v)
+        sdpa_both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(lq, lk, lv), (lq, lk, lv), do))
+        rows[f"K3f {label}"] = (
+            cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False)),
+            cuda_ms(plain_fwd, iters=2, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            *bound(fwd_bytes, 4 * h * d * pairs, "bfloat16"),
+        )
+        rows[f"K3b {label}"] = (
+            cuda_ms(lambda: fl._flash_bwd_cuda(q, k, v, None, out, lse, do, scale, False)),
+            cuda_ms(plain_bwd, iters=2, warmup=1),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)),
+            *bound(bwd_bytes, 10 * h * d * pairs, "bfloat16"),
+        )
+        fwd_ms, bwd_ms = rows[f"K3f {label}"][0], rows[f"K3b {label}"][0]
+        print(f"time {label} B={b} bf16 forward + backward: K3 {fwd_ms + bwd_ms:.4f} ms "
+              f"({14 * h * d * pairs / (fwd_ms + bwd_ms) / 1e9:.1f} TFLOP/s), SDPA through "
+              f"autograd {sdpa_both:.4f} ms")
+        if b == 1:
+            peaks = {}
+            for name, fn in (("K3", fl.flash_attention),
+                             ("SDPA", F.scaled_dot_product_attention)):
+                del lib_out
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                lib_out = fn(lq, lk, lv)
+                torch.autograd.grad(lib_out, (lq, lk, lv), do)
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated(device) - base) / 1e6
+            print(f"peak memory of a forward and backward at N={n} B=1 H={h} D={d} bf16, above "
+                  f"the inputs: K3 {peaks['K3']:.1f} MB, SDPA {peaks['SDPA']:.1f} MB")
+        del q, k, v, do, out, lse, lq, lk, lv, lib_out
+        torch.cuda.empty_cache()
+    for label, (ms, plain, lib, bnd, by) in rows.items():
+        print(f"time {label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    reset_counts()
+    return rows
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -956,20 +1205,31 @@ def _cosine(a, b) -> float:
     return float((a * b).sum()) / (na * nb)
 
 
-def step_parity(device, label: str, loss_rtol: float, min_cos: float):
-    """One step of the flagship contrastive task at batch 8 with the kernels
-    on the card against the same weights and batch through the plain
-    versions on the CPU: the loss and the cosine of every gradient tensor.
-    Returns the card's task (its weights still the seed's)."""
+def step_parity(device, label: str, loss_rtol: float, min_cos: float, highres: bool = False):
+    """One step of the flagship contrastive task (with ``highres``, its
+    448-px variant) at batch 8 with the kernels on the card against the same
+    weights and batch through the plain versions on the CPU: the loss and
+    the cosine of every gradient tensor. Returns the card's task (its
+    weights still the seed's)."""
     import torch
 
-    from mmlearn_tpu_torch.flagship import flagship_training_task, synthetic_batch
+    from mmlearn_tpu_torch.flagship import (
+        flagship_training_task,
+        highres_batch,
+        highres_training_task,
+        synthetic_batch,
+    )
 
-    batch = synthetic_batch(PARITY_BATCH, torch.Generator().manual_seed(SEED + 3), "cpu")
+    make_batch = highres_batch if highres else synthetic_batch
+    make_task = highres_training_task if highres else flagship_training_task
+    batch = make_batch(PARITY_BATCH, torch.Generator().manual_seed(SEED + 3), "cpu")
     losses, grads = {}, {}
+    t0 = time.perf_counter()
+    master = make_task("cpu", seed=SEED)
+    print(f"{label}task built on the CPU in {time.perf_counter() - t0:.1f} s")
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         t0 = time.perf_counter()
-        task = flagship_training_task(dev, seed=SEED)
+        task = copy.deepcopy(master).to(dev) if where == "card" else master
         loss, _ = task.loss_fn({k: v.to(dev) for k, v in batch.items()})
         loss.backward()
         losses[where] = loss.item()
@@ -977,8 +1237,8 @@ def step_parity(device, label: str, loss_rtol: float, min_cos: float):
         if where == "card":
             card_task = task
         print(f"{label}training step b={PARITY_BATCH} on the {where}: loss "
-              f"{losses[where]:.6f} ({time.perf_counter() - t0:.1f} s with the build)")
-    del task
+              f"{losses[where]:.6f} ({time.perf_counter() - t0:.1f} s)")
+    del task, master
     rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
     worst = min(cos, key=cos.get)
@@ -992,21 +1252,26 @@ def step_parity(device, label: str, loss_rtol: float, min_cos: float):
     return card_task
 
 
-def fit_flagship(task, device, label: str, want: dict) -> tuple[dict, float]:
+def fit_flagship(task, device, label: str, want: dict, highres: bool = False
+                 ) -> tuple[dict, float]:
     """``Trainer.fit`` of the flagship task at batch 256 on the synthetic
-    batch, with every launch count set to 0 first: 3 warm-up steps, 3 timed
-    windows of 10 steps and one more step. Checks the launches per step
-    against ``want`` exactly, a finite, nonzero gradient for every parameter
-    and a last loss below the first; returns the counts and the first loss."""
+    batch (with ``highres``, of its 448-px variant at batch 64 on
+    ``highres_batch``), with every launch count set to 0 first: 3 warm-up
+    steps, 3 timed windows of 10 steps (5 with ``highres``) and one more
+    step. Checks the launches per step against ``want`` exactly, a finite,
+    nonzero gradient for every parameter and a last loss below the first;
+    returns the counts and the first loss."""
     import math
 
     import torch
 
-    from mmlearn_tpu_torch.flagship import synthetic_batch
+    from mmlearn_tpu_torch.flagship import highres_batch, synthetic_batch
     from mmlearn_tpu_torch.trainer import Trainer
 
-    batch = synthetic_batch(BATCH, torch.Generator(device=device).manual_seed(SEED + 4), device)
-    marks = [WARMUP_STEPS + i * WINDOW_STEPS for i in range(WINDOWS + 1)]
+    size, window_steps = (HIGHRES_BATCH, IJEPA_WINDOW_STEPS) if highres else (BATCH, WINDOW_STEPS)
+    batch = (highres_batch if highres else synthetic_batch)(
+        size, torch.Generator(device=device).manual_seed(SEED + 4), device)
+    marks = [WARMUP_STEPS + i * window_steps for i in range(WINDOWS + 1)]
     steps = marks[-1] + 1  # the last mark is taken before the last step
     loader = TimedBatches(batch, marks)
     trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device)
@@ -1036,12 +1301,12 @@ def fit_flagship(task, device, label: str, want: dict) -> tuple[dict, float]:
     check(math.isfinite(last) and last < first, f"loss went {first} -> {last}")
 
     window_s = [b - a for a, b in zip(loader.times, loader.times[1:])]
-    rates = [BATCH * WINDOW_STEPS / w for w in window_s]
+    rates = [size * window_steps / w for w in window_s]
     median = statistics.median(rates)
-    print(f"{label}train b{BATCH}: {median:.1f} pairs/s median of {WINDOWS} windows of "
-          f"{WINDOW_STEPS} steps (windows {', '.join(f'{r:.1f}' for r in rates)}; spread "
+    print(f"{label}train b{size}: {median:.1f} pairs/s median of {WINDOWS} windows of "
+          f"{window_steps} steps (windows {', '.join(f'{r:.1f}' for r in rates)}; spread "
           f"{(max(rates) - min(rates)) / median:.2%}), "
-          f"{statistics.median(window_s) / WINDOW_STEPS * 1e3:.2f} ms a step, "
+          f"{statistics.median(window_s) / window_steps * 1e3:.2f} ms a step, "
           f"peak memory {peak_gb:.2f} GB")
     return counts, first
 
@@ -1055,7 +1320,7 @@ def flagship_launches(task, int8_qmm: int) -> dict:
             "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
             "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
             "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth,
-            "int8_qmm": int8_qmm * depth}
+            "int8_qmm": int8_qmm * depth, **NO_FLASH}
 
 
 def training_path(device) -> tuple[dict, float]:
@@ -1102,7 +1367,7 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
     want = {f"{on}_fwd": fwd, f"{on}_bwd_dq": bwd, f"{on}_bwd_dkv": bwd,
             f"{off}_fwd": 0, f"{off}_bwd_dq": 0, f"{off}_bwd_dkv": 0,
             "layernorm_fwd": 2 * fwd, "layernorm_bwd_rows": 2 * bwd,
-            "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0}
+            "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0, **NO_FLASH}
     print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
         f"{k} {counts[k]} ({counts[k] / state.step:g} a step, want {v})"
         for k, v in want.items()))
@@ -1262,6 +1527,65 @@ def quant_path(device, bf16_first_loss: float) -> dict:
     return counts
 
 
+def highres_path(device) -> dict:
+    """The 448-px long-sequence path: with every count set to 0, image
+    ``encode`` at batch 256 (launches checked exactly, a few embeddings
+    against the plain versions on the CPU) and images/s; then one training
+    step at batch 8 on the card against the CPU and ``Trainer.fit`` at batch
+    64. Returns the launch counts of the two main-path runs, added."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.flagship import HIGHRES_IMAGE_SIZE, highres_task
+
+    t0 = time.perf_counter()
+    cpu_task = highres_task("cpu", seed=SEED)
+    task = copy.deepcopy(cpu_task).to(device)
+    rgb = task.encoders["rgb"]
+    depth, tokens = len(rgb.blocks), rgb.pos_embed.shape[1]
+    print(f"448-px towers built in {time.perf_counter() - t0:.1f} s: {tokens} image tokens, "
+          f"position table interpolated from 197 rows")
+    imgs = torch.randn(BATCH, HIGHRES_IMAGE_SIZE, HIGHRES_IMAGE_SIZE, 3,
+                       generator=torch.Generator(device=device).manual_seed(SEED + 8),
+                       device=device)
+    reset_counts()
+    with torch.inference_mode():
+        emb = task.encode({"rgb": imgs}, "rgb", normalize=True)
+    torch.cuda.synchronize()
+    serving = launch_counts()
+    want = {**{key: 0 for key in serving}, "flash_fwd": depth, "layernorm_fwd": 2 * depth}
+    print(f"448 encode b{BATCH} launches: " + ", ".join(
+        f"{key} {serving[key]} (want {want[key]})" for key in want if want[key] or serving[key]))
+    check(serving == want, f"448 encode launched {serving}, want {want}")
+    check(bool(emb.float().isfinite().all()) and emb.shape == (BATCH, 512),
+          f"448 embeddings {tuple(emb.shape)} not finite")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: task.encode({"rgb": imgs}, "rgb", normalize=True), iters=5,
+                     warmup=1)
+    print(f"448 encode rgb b{BATCH}: {ms:.2f} ms/batch = {BATCH / ms * 1e3:.1f} images/s")
+    with torch.inference_mode():
+        ref = cpu_task.encode({"rgb": imgs[:2].cpu()}, "rgb", normalize=True).float().numpy()
+    got = emb[:2].float().cpu().numpy()
+    cos = (got * ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(ref, axis=1)
+    print(f"448 embeddings on the card vs plain versions on the CPU: min cosine "
+          f"{cos.min():.6f} (bound {MIN_COSINE})")
+    check(bool(cos.min() >= MIN_COSINE), f"448 embedding cosine {cos}")
+    del task, cpu_task, imgs, emb
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    task = step_parity(device, "448 ", LOSS_RTOL, MIN_GRAD_COSINE, highres=True)
+    want = {**flagship_launches(task, 0), "flash_fwd": depth, "flash_bwd_dkv": depth,
+            "flash_bwd_dq": depth}
+    for key in ("fused_mha_fwd", "fused_mha_bwd_dq", "fused_mha_bwd_dkv"):
+        want[key] = len(task.encoders["text"].blocks)  # K1 on the text tower only
+    training, _ = fit_flagship(task, device, "448 ", want, highres=True)
+    print(f"448 training path done in {time.perf_counter() - t0:.1f} s")
+    del task
+    torch.cuda.empty_cache()
+    return {key: serving[key] + training[key] for key in serving}
+
+
 def main() -> int:
     import torch
 
@@ -1289,7 +1613,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = {"fused_attention": "K1 forward and backward",
                "fused_attention_packed": "K1f-p/K1b-p forward and backward",
-               "int8_matmul": "K5 quantizing int8 product"}
+               "int8_matmul": "K5 quantizing int8 product",
+               "flash_attention": "K3 forward and backward"}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = {name: pool.submit(_build.build, name) for name in sources}
         for name, what in sources.items():
@@ -1300,11 +1625,15 @@ def main() -> int:
     errors = kernel_checks(device, gen)
     packed_kernel_checks(device, gen, errors)
     t0 = time.perf_counter()
+    flash_kernel_checks(device, gen, errors)
+    print(f"K3 checks done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     int8_kernel_checks(device, gen, errors)
     print(f"K5 checks done in {time.perf_counter() - t0:.1f} s")
     times = kernels_at_batch(device, gen, errors)
     times.update(ijepa_attention_at_batch(device, gen, errors))
     times.update(int8_at_batch(device, gen))
+    times.update(flash_at_grids(device, gen, errors))
     t0 = time.perf_counter()
     serving = main_path(device)
     check(launch_counts()["int8_qmm"] == 0, "K5 launched on the serving path without "
@@ -1319,10 +1648,14 @@ def main() -> int:
     t0 = time.perf_counter()
     quant_launches = quant_path(device, bf16_first_loss)
     print(f"int8_sb path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    highres_launches = highres_path(device)
+    check(highres_launches["int8_qmm"] == 0, f"K5 launched on the 448 path without {QUANT_ENV}")
+    print(f"448 path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
-    # int8_sb
-    for counts in (ijepa_launches, quant_launches):
+    # int8_sb, 448 encode and 448 training
+    for counts in (ijepa_launches, quant_launches, highres_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]
@@ -1355,6 +1688,12 @@ def main() -> int:
         "int8_qmm": ("cuda", "mmlearn_tpu_torch/csrc/int8_matmul.cu",
                      "mmlearn_tpu/ops/int8_matmul.py:63", "K5 image fc1 fwd M=50432 K=768 N=3072",
                      ("int8_qmm",)),
+        "flash_attention_fwd": ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
+                                "mmlearn_tpu/ops/flash_attention.py:76", "K3f image N=785",
+                                ("flash_fwd",)),
+        "flash_attention_bwd": ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
+                                "mmlearn_tpu/ops/flash_attention.py:267", "K3b image N=785",
+                                ("flash_bwd_dkv", "flash_bwd_dq")),
     }
     kernels = []
     for name, (route, source, replaces, row, counts) in rows.items():

@@ -11,9 +11,10 @@ use, or Triton. Beside each kernel sits its plain PyTorch version, which a
 wrapper takes only for a tensor that lies on the CPU.
 
 Ported so far: the embedding-serving path (encoders, artifact export, the
-embedding index and the HTTP server) and the flagship contrastive training
-step (loss, AdamW with its schedule, a minimal trainer), with the backward
-kernels it runs.
+embedding index and the HTTP server), the flagship contrastive training
+step (loss, AdamW with its schedule, a minimal trainer), the I-JEPA step,
+the ``MMLEARN_QUANT`` int8 modes and the long-sequence attention path (the
+towers at 448 px), with the kernels they run.
 """
 
 __version__ = "0.1.0"

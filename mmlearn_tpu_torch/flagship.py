@@ -16,6 +16,15 @@ with weight decay 0.01 and the linear-warmup cosine schedule (base rate
 :func:`ragged_text_batch` make the inputs of the training step and of text
 serving.
 
+:func:`highres_task` and :func:`highres_training_task` are the same towers
+with the image tower at 448 px (28 x 28 patches + CLS = 785 tokens), the
+usual high-resolution fine-tune and serving setting of a 224-px CLIP: the
+seed's 224-px towers, with the 197-row position table carried to 785 rows by
+:func:`~mmlearn_tpu_torch.modules.layers.interpolate_pos_embed`. Their image
+attention takes the flash kernel (:func:`~mmlearn_tpu_torch.ops.fused_attention.supports_fused`
+admits N <= 768 at D=64); :func:`highres_batch` is the synthetic batch at 448
+px.
+
 :func:`ijepa_training_task` is ``bench.py``'s second step
 (``_ijepa_img_per_sec``): an I-JEPA ViT-B/16 student (224 px, 196 patch
 tokens, no cls token, fixed 2-D sin-cos positions, exact-erf gelu, norm eps
@@ -35,11 +44,13 @@ import torch
 
 from mmlearn_tpu_torch.datasets.processors.masking import IJEPAMaskGenerator
 from mmlearn_tpu_torch.modules.encoders import TextTransformer, VisionTransformer
+from mmlearn_tpu_torch.modules.layers import interpolate_pos_embed
 from mmlearn_tpu_torch.modules.lr_schedulers import linear_warmup_cosine_annealing_lr
 from mmlearn_tpu_torch.tasks.contrastive_pretraining import ContrastivePretraining
 from mmlearn_tpu_torch.tasks.ijepa import ENCODER_MASK_KEY, IJEPA, PREDICTOR_MASK_KEY
 
 IMAGE_SIZE = 224
+HIGHRES_IMAGE_SIZE = 448
 TEXT_LENGTH = 77
 VOCAB_SIZE = 49408
 
@@ -62,6 +73,36 @@ def _towers(seed: int) -> dict[str, torch.nn.Module]:
     return {"rgb": vision, "text": text}
 
 
+def _highres_towers(seed: int, image_size: int) -> dict[str, torch.nn.Module]:
+    """:func:`_towers` with the image tower rebuilt at ``image_size``: the
+    224-px weights, and the position table interpolated to the new grid."""
+    towers = _towers(seed)
+    low = towers["rgb"]
+    config = {**low.config, "img_size": image_size}
+    high = VisionTransformer(**config, generator=torch.Generator().manual_seed(seed))
+    state = low.state_dict()
+    patch = low.config["patch_size"]
+    state["pos_embed"] = interpolate_pos_embed(
+        state["pos_embed"], (image_size // patch,) * 2, (IMAGE_SIZE // patch,) * 2,
+        low.num_prefix)
+    high.load_state_dict(state)
+    towers["rgb"] = high
+    return towers
+
+
+def _training(towers: dict[str, torch.nn.Module]) -> ContrastivePretraining:
+    """The contrastive task with the optimizer and schedule of ``bench.py``'s
+    train step: AdamW with weight decay 0.01, warmup-cosine from 1e-3."""
+    return ContrastivePretraining(
+        towers,
+        optimizer=functools.partial(torch.optim.AdamW, weight_decay=0.01),
+        lr_scheduler=functools.partial(
+            linear_warmup_cosine_annealing_lr, base_lr=1e-3, warmup_steps=100,
+            max_steps=10_000,
+        ),
+    )
+
+
 def flagship_task(device: torch.device | str = "cuda", seed: int = 0) -> ContrastivePretraining:
     """The flagship towers on ``device`` in eval mode, for serving."""
     return ContrastivePretraining(_towers(seed)).to(device).eval()
@@ -72,31 +113,52 @@ def flagship_training_task(
 ) -> ContrastivePretraining:
     """The flagship contrastive task on ``device`` in train mode, with the
     optimizer and schedule of ``bench.py``'s train step."""
-    return ContrastivePretraining(
-        _towers(seed),
-        optimizer=functools.partial(torch.optim.AdamW, weight_decay=0.01),
-        lr_scheduler=functools.partial(
-            linear_warmup_cosine_annealing_lr, base_lr=1e-3, warmup_steps=100,
-            max_steps=10_000,
-        ),
-    ).to(device).train()
+    return _training(_towers(seed)).to(device).train()
+
+
+def highres_task(
+    device: torch.device | str = "cuda", seed: int = 0, image_size: int = HIGHRES_IMAGE_SIZE
+) -> ContrastivePretraining:
+    """The flagship towers with the image tower at ``image_size`` (its
+    position table interpolated from the seed's 224-px one) on ``device`` in
+    eval mode, for serving."""
+    return ContrastivePretraining(_highres_towers(seed, image_size)).to(device).eval()
+
+
+def highres_training_task(
+    device: torch.device | str = "cuda", seed: int = 0, image_size: int = HIGHRES_IMAGE_SIZE
+) -> ContrastivePretraining:
+    """:func:`highres_task`'s towers as the flagship contrastive task in
+    train mode: a 224-px checkpoint fine-tuned at ``image_size``."""
+    return _training(_highres_towers(seed, image_size)).to(device).train()
 
 
 def synthetic_batch(
-    batch_size: int, generator: torch.Generator, device: torch.device | str = "cuda"
+    batch_size: int,
+    generator: torch.Generator,
+    device: torch.device | str = "cuda",
+    image_size: int = IMAGE_SIZE,
 ) -> dict[str, torch.Tensor]:
     """The synthetic batch of ``_synthetic_batch``, drawn from ``generator``
     (on its own device) and placed on ``device``: standard-normal bf16
-    images, token ids in ``[2, vocab - 2]`` with the end-of-text id
-    ``vocab - 1`` at the last position, and no padding mask (the sequences
-    are full length)."""
+    images of ``image_size`` pixels a side, token ids in ``[2, vocab - 2]``
+    with the end-of-text id ``vocab - 1`` at the last position, and no
+    padding mask (the sequences are full length)."""
     g_dev = generator.device
-    images = torch.randn(batch_size, IMAGE_SIZE, IMAGE_SIZE, 3, generator=generator,
+    images = torch.randn(batch_size, image_size, image_size, 3, generator=generator,
                          device=g_dev)
     ids = torch.randint(2, VOCAB_SIZE - 1, (batch_size, TEXT_LENGTH), generator=generator,
                         device=g_dev, dtype=torch.int32)
     ids[:, -1] = VOCAB_SIZE - 1
     return {"rgb": images.to(device, torch.bfloat16), "text": ids.to(device)}
+
+
+def highres_batch(
+    batch_size: int, generator: torch.Generator, device: torch.device | str = "cuda"
+) -> dict[str, torch.Tensor]:
+    """:func:`synthetic_batch` at 448 px, the input of
+    :func:`highres_training_task`."""
+    return synthetic_batch(batch_size, generator, device, HIGHRES_IMAGE_SIZE)
 
 
 def ragged_text_batch(

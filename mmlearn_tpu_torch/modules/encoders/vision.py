@@ -7,7 +7,8 @@ and the I-JEPA ``VisionTransformerPredictor`` (:283-380) with
 :func:`apply_masks` and :func:`repeat_interleave_batch`. Patch dropout is not
 ported yet. ``norm_pre`` and ``norm`` are plain LayerNorms, as in the JAX
 package; the blocks' norms run kernel K2 and their attention kernel K1 (or
-its head-grouped variant, see :func:`~mmlearn_tpu_torch.ops.fused_attention.use_packed`).
+its head-grouped variant, see :func:`~mmlearn_tpu_torch.ops.fused_attention.use_packed`),
+or K3 past the lengths K1 takes (a 448-px ViT-B/16 at 785 tokens).
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ from mmlearn_tpu_torch.modules.layers.dense import Dense
 from mmlearn_tpu_torch.modules.layers.embedding import (
     PatchEmbed,
     get_2d_sincos_pos_embed,
+    interpolate_pos_embed,
 )
 from mmlearn_tpu_torch.modules.layers.mlp import MLP
 from mmlearn_tpu_torch.modules.layers.normalization import (
@@ -27,6 +28,7 @@ __all__ = [
     "LayerNorm",
     "PatchEmbed",
     "get_2d_sincos_pos_embed",
+    "interpolate_pos_embed",
     "l2_normalize",
     "quant_mode",
 ]

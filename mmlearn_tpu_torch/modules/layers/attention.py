@@ -3,13 +3,19 @@
 
 The fused ``qkv`` Linear is packed **head-major** (``[h0_q | h0_k | h0_v |
 h1_q | ...]``) so kernel K1 reads its output in place, and ``proj`` follows.
-This covers the JAX module's fused-kernel branch (``attention.py:128-134``),
-forward and backward through :class:`~mmlearn_tpu_torch.ops.fused_attention.FusedMHAFunction`;
-on a CPU tensor the same function runs as plain PyTorch at any shape, which
-is what the JAX package computes off the TPU. Both projections are
-``Int8Dense``, so ``MMLEARN_QUANT`` reaches them as it does in the JAX
-package. The ring-attention,
-``return_weights`` and attention-dropout branches are not ported yet.
+This covers the JAX module's two kernel branches, routed as it routes them
+by :func:`~mmlearn_tpu_torch.ops.fused_attention.supports_fused`: the fused
+short-sequence kernel (``attention.py:128-134``) through
+:class:`~mmlearn_tpu_torch.ops.fused_attention.FusedMHAFunction`, and the
+flash branch (``attention.py:135-145``) for every other layer, which splits
+the head-major qkv into ``(B, H, N, D)`` q, k, v and calls
+:func:`~mmlearn_tpu_torch.ops.flash_attention.flash_attention`. The split is
+three strided views that the CUDA kernels read in place, and the kernels
+write the output with the heads already merged. On a CPU tensor both
+branches run as plain PyTorch, which is what the JAX package computes off
+the TPU. Both projections are ``Int8Dense``, so ``MMLEARN_QUANT`` reaches
+them as it does in the JAX package. The ring-attention, ``return_weights``
+and attention-dropout branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 from torch import nn
 
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
-from mmlearn_tpu_torch.ops.fused_attention import fused_mha
+from mmlearn_tpu_torch.ops.flash_attention import flash_attention
+from mmlearn_tpu_torch.ops.fused_attention import fused_mha, supports_fused
 
 
 class Attention(nn.Module):
@@ -52,8 +59,14 @@ class Attention(nn.Module):
                 "attention_mask must be (batch, kv_seq), got "
                 f"{tuple(attention_mask.shape)}"
             )
-        out = fused_mha(
-            self.qkv(x), attention_mask, num_heads=self.num_heads,
-            scale=self.scale, causal=self.causal,
-        )
+        b, n, c = x.shape
+        qkv = self.qkv(x)
+        if supports_fused(self.num_heads, c // self.num_heads, n):
+            out = fused_mha(qkv, attention_mask, num_heads=self.num_heads,
+                            scale=self.scale, causal=self.causal)
+        else:
+            q, k, v = qkv.view(b, n, self.num_heads, 3, -1).permute(3, 0, 2, 1, 4).unbind(0)
+            out = flash_attention(q, k, v, attention_mask, scale=self.scale,
+                                  causal=self.causal)
+            out = out.transpose(1, 2).reshape(b, n, c)
         return self.proj(out)

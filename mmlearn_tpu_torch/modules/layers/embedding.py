@@ -1,9 +1,13 @@
-"""Patch embedding and 2-D sin-cos position embeddings.
+"""Patch embedding, 2-D sin-cos position embeddings and the resize of a
+learned position table.
 
 Counterpart of :mod:`mmlearn_tpu.modules.layers.embedding`. Images are NHWC,
 as in the JAX package. The patch projection is a patch unfold plus one
 matmul in (h, w, c) flatten order -- exactly flax's strided ``Conv`` and
 free of cuDNN's default TF32 convolution on the card.
+:func:`interpolate_pos_embed` resizes with the bicubic of ``jax.image.resize``
+(Keys' cubic with a = -0.5, weights renormalised at the edges), which
+``F.interpolate(mode="bicubic")`` (a = -0.75, clamped indices) is not.
 """
 
 from __future__ import annotations
@@ -109,3 +113,48 @@ class PatchEmbed(nn.Module):
             .reshape(b, gh * gw, p * p * c)
         )
         return self.proj(patches)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel with a = -0.5 at distances ``x >= 0``."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """``(in_size, out_size)`` weights of one axis, as
+    ``jax.image.scale_and_translate`` builds them for ``resize`` (scale
+    ``out / in``, no translation, antialiasing: the kernel widens by ``in /
+    out`` when shrinking): each output column's weights sum to one, and a
+    sample outside the input gets none."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic(np.abs(sample[None, :] - np.arange(in_size)[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def interpolate_pos_embed(
+    pos_embed: torch.Tensor,
+    new_grid: tuple[int, int],
+    old_grid: tuple[int, int],
+    num_prefix_tokens: int = 1,
+) -> torch.Tensor:
+    """Resize a learned ``(1, prefix + old_h * old_w, dim)`` position table
+    to ``new_grid``, keeping the prefix (cls) rows: the JAX package's
+    ``interpolate_pos_embed``, bicubic as ``jax.image.resize`` computes it,
+    one axis at a time (an axis whose size does not change is left as it
+    is). The weights are built in f64 and applied in the table's dtype."""
+    prefix = pos_embed[:, :num_prefix_tokens]
+    dim = pos_embed.shape[-1]
+    grid = pos_embed[:, num_prefix_tokens:].reshape(1, old_grid[0], old_grid[1], dim)
+    for axis, (old, new) in enumerate(zip(old_grid, new_grid)):
+        if old != new:
+            w = torch.from_numpy(_resize_weights(old, new)).to(grid.device, grid.dtype)
+            grid = torch.movedim(torch.tensordot(grid, w, dims=([axis + 1], [0])), -1, axis + 1)
+    return torch.cat([prefix, grid.reshape(1, new_grid[0] * new_grid[1], dim)], dim=1)

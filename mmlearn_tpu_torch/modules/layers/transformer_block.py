@@ -1,8 +1,8 @@
 """Pre-LN transformer block, counterpart of
 :mod:`mmlearn_tpu.modules.layers.transformer_block`.
 
-Trains through the kernels' autograd Functions (attention K1, both norms
-K2). Dropout, attention dropout and drop-path are not ported: the flagship
+Trains through the kernels' autograd Functions (attention K1, or K3 for
+long sequences; both norms K2). Dropout, attention dropout and drop-path are not ported: the flagship
 sets their rates to 0, and a nonzero rate raises ``NotImplementedError``.
 :class:`BlockStack` is a plain ``nn.ModuleList`` (no activation
 checkpointing). The JAX package's scanned

@@ -43,6 +43,12 @@ LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd_dq": 0, "fused_mha_bwd_dkv": 0,
 
 _MAX_SEQ = 2048
 _KERNEL_HEAD_DIMS = (32, 64)
+#: the JAX package's routing rule between this kernel and the flash kernel:
+#: its byte model of the TPU backward's scoped memory (``_bwd_unit_bytes``,
+#: ``_BWD_VMEM_LIMIT``), kept here so both packages route the same layers.
+#: It is a property of the TPU build, not of the H100 or of this kernel.
+_LANES = 128
+_BWD_VMEM_LIMIT = 20 * 1024 * 1024
 #: the longest sequence the JAX package sends to its packed kernel at each
 #: head dim (``_packed_enabled``: past it the TPU kernel's scoped-memory
 #: model falls back to the per-head kernel); the port routes the same layers
@@ -79,17 +85,36 @@ def _head_group(head_dim: int) -> int:
     return math.lcm(width, 128) // width
 
 
-def supports_fused(num_heads: int, head_dim: int, seq: int) -> bool:
-    """Dispatch predicate of the fused short-sequence kernel.
+def _pad_to8(n: int) -> int:
+    return ((n + 7) // 8) * 8
 
-    The JAX package's predicate is a TPU VMEM byte model; at the shapes of
-    this slice its outcome is ``seq <= 2048 and num_heads % head_group ==
-    0``, with ``head_group = lcm(3D, 128) / 3D`` (2 heads at D=64, 4 at
-    D=32). The port keeps exactly that rule so both packages route the same
-    layers to the kernel. The CUDA kernel itself needs ``head_dim`` in
-    {32, 64}; :func:`fused_mha` checks that.
+
+def _bwd_unit_bytes(seq: int, head_dim: int) -> int:
+    """The JAX package's estimate of the TPU backward's scoped memory per
+    (sample, head): three f32 ``(N, N)`` temporaries and six f32 ``(N, D)``
+    rows, padded to the TPU's (8, 128) tiles."""
+    sub = _pad_to8(seq)
+    lane = ((seq + _LANES - 1) // _LANES) * _LANES
+    dlane = max(((head_dim + _LANES - 1) // _LANES) * _LANES, _LANES)
+    return (3 * sub * lane + 6 * sub * dlane) * 4
+
+
+def supports_fused(num_heads: int, head_dim: int, seq: int) -> bool:
+    """Dispatch predicate of the fused short-sequence kernel: the JAX
+    package's ``supports_fused``, outcome for outcome. ``seq <= 2048``, heads
+    a multiple of ``head_group = lcm(3D, 128) / 3D`` (2 at D=64, 4 at D=32),
+    and one head group's backward within the TPU's 20 MiB byte model: that
+    admits N <= 768 at D=64 and N <= 512 at D=32. Every other layer takes
+    the flash kernel (:mod:`mmlearn_tpu_torch.ops.flash_attention`). The
+    CUDA kernel itself needs ``head_dim`` in {32, 64}; :func:`fused_mha`
+    checks that.
     """
-    return seq <= _MAX_SEQ and num_heads % _head_group(head_dim) == 0
+    if seq > _MAX_SEQ:
+        return False
+    group = _head_group(head_dim)
+    if num_heads % group:
+        return False
+    return group * _bwd_unit_bytes(seq, head_dim) <= _BWD_VMEM_LIMIT
 
 
 def use_packed(num_heads: int, head_dim: int, seq: int) -> bool:
@@ -234,7 +259,7 @@ def _check_cuda(
     if not supports_fused(num_heads, d, n):
         raise ValueError(
             f"fused_mha kernel does not take heads={num_heads}, head_dim={d}, "
-            f"seq={n}: longer sequences need the flash kernel, not yet ported"
+            f"seq={n}: supports_fused routes such layers to flash_attention"
         )
     if not qkv.is_contiguous():
         raise ValueError("fused_mha kernel needs a contiguous qkv")

@@ -7,9 +7,12 @@ Run from the root of a checkout, on a host with a CUDA card::
     python -m mmlearn_tpu_torch.profile_step --path encode-rgb --batch 256
     python -m mmlearn_tpu_torch.profile_step --path encode-text --batch 256
     python -m mmlearn_tpu_torch.profile_step --path train --quant int8_sb
+    python -m mmlearn_tpu_torch.profile_step --path highres --batch 64
 
 ``train`` takes ``Trainer.fit`` steps of the flagship contrastive task on the
-synthetic batch; ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
+synthetic batch; ``highres`` those of its 448-px variant (785 image tokens,
+attention on the flash kernel K3) on ``highres_batch`` (batch 64 unless
+``--batch`` says otherwise); ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
 (with ``MMLEARN_FUSED_ATTN_PACKED=1`` in the environment its attention runs
 the head-grouped kernels); ``encode-*`` embeds a batch of images, or of
 ragged right-padded texts, with one tower. ``--quant`` sets
@@ -44,6 +47,8 @@ GROUPS = [
     ("K1b attention backward", r"fused_mha_bwd_"),
     ("K1f-p attention forward, head-grouped", r"packed_fwd_kernel"),
     ("K1b-p attention backward, head-grouped", r"packed_bwd_"),
+    ("K3f flash attention forward", r"flash_fwd"),
+    ("K3b flash attention backward", r"flash_bwd_"),
     ("K2f layernorm forward", r"_ln_fwd_kernel"),
     ("K2b layernorm backward", r"_ln_bwd_"),
     ("K5 quantizing int8 product", r"int8_qmm_kernel"),
@@ -66,6 +71,8 @@ def _steps(path: str, batch: int, total: int, on_step):
     from mmlearn_tpu_torch.flagship import (
         flagship_task,
         flagship_training_task,
+        highres_batch,
+        highres_training_task,
         ijepa_batch,
         ijepa_training_task,
         ragged_text_batch,
@@ -75,9 +82,12 @@ def _steps(path: str, batch: int, total: int, on_step):
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
-    if path in ("train", "ijepa"):
-        train = path == "train"
-        data = (synthetic_batch if train else ijepa_batch)(batch, gen, device)
+    steps = {"train": (synthetic_batch, flagship_training_task),
+             "highres": (highres_batch, highres_training_task),
+             "ijepa": (ijepa_batch, ijepa_training_task)}
+    if path in steps:
+        make_batch, make_task = steps[path]
+        data = make_batch(batch, gen, device)
 
         def loader():
             for i in range(total + 1):
@@ -85,7 +95,7 @@ def _steps(path: str, batch: int, total: int, on_step):
                 yield data
 
         Trainer(max_steps=total, log_every_n_steps=total, device=device).fit(
-            (flagship_training_task if train else ijepa_training_task)(device), loader())
+            make_task(device), loader())
         return
     task = flagship_task(device)
     if path == "encode-rgb":
@@ -103,13 +113,16 @@ def _steps(path: str, batch: int, total: int, on_step):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=["train", "ijepa", "encode-rgb", "encode-text"],
-                        default="train")
-    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--path", choices=["train", "highres", "ijepa", "encode-rgb",
+                                           "encode-text"], default="train")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="batch size (default: 64 for highres, 256 otherwise)")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--quant", choices=["int8_fwd", "int8", "int8_sb"], default=None,
                         help="run under MMLEARN_QUANT=<mode> (default: the variable as set)")
     args = parser.parse_args(argv)
+    if args.batch is None:
+        args.batch = 64 if args.path == "highres" else 256
     if args.quant:
         os.environ["MMLEARN_QUANT"] = args.quant
     if not torch.cuda.is_available():

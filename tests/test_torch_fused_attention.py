@@ -99,8 +99,12 @@ def test_supports_fused_matches_jax_at_slice_shapes(heads, head_dim, seq):
 
 
 def test_supports_fused_rule():
-    assert fa.supports_fused(2, 64, 2048)
-    assert not fa.supports_fused(2, 64, 2049)  # long sequences: flash kernel
+    # the JAX package's byte model: one head group's backward within 20 MiB
+    assert fa.supports_fused(2, 64, 768)
+    assert not fa.supports_fused(2, 64, 769)  # long sequences: flash kernel
+    assert fa.supports_fused(4, 32, 512)
+    assert not fa.supports_fused(4, 32, 513)
+    assert not fa.supports_fused(2, 64, 2049)
     assert not fa.supports_fused(3, 64, 197)  # heads not a multiple of 2
     assert not fa.supports_fused(6, 32, 197)  # heads not a multiple of 4
 
