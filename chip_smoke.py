@@ -9,13 +9,18 @@ Phases, each fatal on failure:
 1. build the hand-written kernels from the sources in the checkout, one
    ``nvcc`` a source, all at once: K1 forward and backward
    (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
-   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), and K5, the
-   quantizing int8 product (``csrc/int8_matmul.cu``), CUDA C++ for
-   sm_90a, into ``build/kernels/``; K2 forward and backward (Triton,
+   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K5, the
+   quantizing int8 product (``csrc/int8_matmul.cu``), and K3
+   (``csrc/flash_attention.cu``; it shares ``csrc/attention_tiles.cuh``
+   with K1), CUDA C++ for sm_90a, into ``build/kernels/``; K2 forward and
+   backward (Triton,
    ``mmlearn_tpu_torch/ops/fused_norm.py``) build at their first call;
 2. hold each kernel against its plain PyTorch version on the card, with
    the tolerance printed on each line: at batch 8 over every case (masks,
-   head dims, f32 and bf16; K5 at ragged M, N and K, forward and dgrad
+   head dims, f32 and bf16; K1 also at the lengths where its code branches,
+   up to ``supports_fused``'s N = 768 at D = 64 and 512 at D = 32, its
+   output and gradients also as a whole, ||got - want|| / ||want||; K5 at
+   ragged M, N and K, forward and dgrad
    through ``switchback_matmul``, with its shape routing), and at batch 256
    in bf16 at the paths' shapes (K5 at all 16 projection shapes),
    so at the grids the training step launches; then time the kernel, its
@@ -149,16 +154,21 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # each set about 2x above the least atol a sound run reads (printed on every
 # check; the readings and those of faulty copies are in PERF.md). bf16: rtol
 # 2^-7 is one rounding of the output (an ulp); atol covers what a kernel
-# rounds elsewhere than its plain version -- K1 forward rounds unnormalised
-# p where the plain version rounds p / l (reads 7.4e-3), K1 backward rounds
-# p and ds from f32 values that differ in their last bits (2.6e-3), K2 only
-# its output (2e-7). f32: summation order (reads 1.4e-6).
-# The head-grouped K1f-p/K1b-p compute K1's function with K1's roundings and
-# take K1's limits. K5 and its plain version round x / sx to the same ints
+# rounds elsewhere than its plain version -- K1f rounds p / l as the plain
+# version does from f32 scores that the tensor cores sum in another order,
+# so a p that rounds the other way moves a row of the output by an ulp of p
+# times v (reads up to 6.6e-3 over the text grid's draws; 7.4e-3 before, when
+# it rounded unnormalised p); K1f-p rounds unnormalised p (reads 5.6e-3);
+# K1b takes p and ds bit for bit as the plain version (reads 1.8e-7: only
+# the output's rounding of f32 sums in another order, near zero); K1b-p
+# rounds p and ds from f32 values that differ in their last bits (1.1e-3),
+# K2 only its output (2e-7). f32: summation order (reads 1.4e-6).
+# The head-grouped K1f-p/K1b-p keep the limits K1 had before its
+# tensor-core kernels. K5 and its plain version round x / sx to the same ints
 # and dequantize in the same order: only the output's rounding can differ.
-# K3 rounds where K1 does (unnormalised p in the forward, reads 5.6e-3; p
+# K3 rounds where K1f does (unnormalised p in the forward, reads 5.6e-3; p
 # and ds in the backward, 1.7e-3).
-BF16_ATOL = {"fused_mha_fwd": 1.5e-2, "fused_mha_bwd": 5e-3, "layernorm_fwd": 1e-4,
+BF16_ATOL = {"fused_mha_fwd": 1.3e-2, "fused_mha_bwd": 4e-7, "layernorm_fwd": 1e-4,
              "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.5e-2,
              "fused_mha_packed_bwd": 5e-3, "int8_qmm": 1e-6,
              "flash_attention_fwd": 1.2e-2, "flash_attention_bwd": 4e-3}
@@ -178,6 +188,13 @@ MASKED_ROW_TOL = (1e-6, 2 ** -7)
 # (rounded once from f32 sums); f32 1.3e-6 and 2.7e-7
 FLASH_REL_TOL = {"flash_attention_fwd": {"bfloat16": 7e-3, "float32": 3e-6},
                  "flash_attention_bwd": {"bfloat16": 8e-4, "float32": 6e-7}}
+# K1's outputs and gradients as a whole, for the same reason. Reads: bf16 out
+# 1.1e-4 (p / l rounded from tensor-core sums), dqkv 9.1e-5 (the output's
+# rounding of tensor-core sums); f32 3.6e-7 and 1.3e-7
+K1_REL_TOL = {"fused_mha_fwd": {"bfloat16": 2.5e-4, "float32": 8e-7},
+              "fused_mha_bwd": {"bfloat16": 2e-4, "float32": 3e-7}}
+# draws of K1 at the text grid (k1_draws)
+K1_DRAWS = 12
 # K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
 # in another order, of values up to ~1,000 (reads 2.3e-5 at this rtol)
 SUM_TOL = (1e-4, 1e-4)
@@ -337,11 +354,30 @@ def tol(kernel: str, dtype_name: str) -> tuple[float, float]:
     return (BF16_ATOL[kernel], 2 ** -7) if dtype_name == "bfloat16" else F32_TOL
 
 
+def k1_check(tag: str, x, mask, h: int, causal: bool, out, dqkv, dout, err: dict) -> None:
+    """K1f's output and K1b's dqkv for the head-major packed ``x`` against
+    their plain versions (the backward's from the kernel's own output, as the
+    autograd Function saves it), each element-wise and as a whole; the
+    largest errors join ``err``."""
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    d = x.shape[-1] // (3 * h)
+    scale, dn = d ** -0.5, _dtype_name(x.dtype)
+    err["fused_mha_fwd"] = max(err["fused_mha_fwd"], compare(
+        f"K1f fused_mha {tag}", out, fa.mha_reference(x, mask, h, scale, causal),
+        tol("fused_mha_fwd", dn), K1_REL_TOL["fused_mha_fwd"][dn]))
+    want_b = fa.mha_bwd_reference(x, mask, out, dout, h, scale, causal)
+    err["fused_mha_bwd"] = max(err["fused_mha_bwd"], compare(
+        f"K1b fused_mha dqkv {tag}", dqkv, want_b, tol("fused_mha_bwd", dn),
+        K1_REL_TOL["fused_mha_bwd"][dn]))
+
+
 def kernel_checks(device, gen) -> dict:
     """Every kernel against its plain version on the card at batch 8: K1
-    forward and backward on the image and text attention cases (with a
-    ragged and a left-padded mask), K2 forward and backward, both variants,
-    at the towers' widths. Returns each kernel's largest error."""
+    forward and backward (through ``fused_mha`` and autograd) on the image
+    and text attention cases (with a ragged and a left-padded mask) and at
+    the lengths where its bf16 code branches, K2 forward and backward, both
+    variants, at the towers' widths. Returns each kernel's largest error."""
     import torch
 
     from mmlearn_tpu_torch.flagship import ragged_text_batch
@@ -362,28 +398,30 @@ def kernel_checks(device, gen) -> dict:
         ("f32 D=32 causal+mask", 77, 8, 32, mask.bool(), True, torch.float32),
         ("f32 causal+left-pad mask", 77, 8, 64, left, True, torch.float32),
     ]
+    # where K1's bf16 code branches: its forward instances hold whole rows
+    # of up to 128 and 224 keys, and take two sweeps past 224; and the
+    # longest that supports_fused admits at each head dim (768 at D=64, 512
+    # at D=32: 231,168 and 87,552 bytes of shared memory a forward block)
+    lens = mask.sum(1, keepdim=True)
+    for n, h, d in ((128, 2, 64), (129, 2, 64), (224, 2, 64), (225, 2, 64), (256, 2, 64),
+                    (257, 2, 64), (768, 4, 64), (512, 4, 32)):
+        edge_left = (torch.arange(n, device=device)[None] < (lens * n) // 77).flip(1)
+        cases += [("edge", n, h, d, None, False, torch.bfloat16),
+                  ("edge causal", n, h, d, None, True, torch.bfloat16),
+                  ("edge causal+left-pad mask", n, h, d, edge_left, True, torch.bfloat16)]
     err = {"fused_mha_fwd": 0.0, "fused_mha_bwd": 0.0, "layernorm_fwd": 0.0,
            "layernorm_bwd": 0.0}
     for label, n, h, d, m, causal, dtype in cases:
-        dn = _dtype_name(dtype)
         x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
         dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
         x.requires_grad_()
         out = fa.fused_mha(x, m, num_heads=h, causal=causal)
         (dqkv,) = torch.autograd.grad(out, x, dout)
         x = x.detach()
-        want = fa.mha_reference(x, m, h, d ** -0.5, causal)
-        # the backward's plain version from the kernel's own saved output,
-        # as the TPU kernel's backward takes the forward's
-        want_b = fa.mha_bwd_reference(x, m, out.detach(), dout, h, d ** -0.5, causal)
         torch.cuda.synchronize()
-        tag = f"{label} B={b} N={n} H={h} D={d} {dn}"
-        err["fused_mha_fwd"] = max(err["fused_mha_fwd"],
-                                   compare(f"K1f fused_mha {tag}", out, want,
-                                           tol("fused_mha_fwd", dn)))
-        err["fused_mha_bwd"] = max(err["fused_mha_bwd"],
-                                   compare(f"K1b fused_mha dqkv {tag}", dqkv, want_b,
-                                           tol("fused_mha_bwd", dn)))
+        k1_check(f"{label} B={b} N={n} H={h} D={d} {_dtype_name(dtype)}", x, m, h, causal,
+                 out.detach(), dqkv, dout, err)
+        del x, dout, out, dqkv
 
     for n, c in ((197, 768), (77, 512), (118, 384)):  # 384: the I-JEPA predictor's
         for dtype in (torch.bfloat16, torch.float32):
@@ -422,6 +460,28 @@ def kernel_checks(device, gen) -> dict:
     return err
 
 
+def k1_draws(device, err: dict) -> None:
+    """K1f and K1b at the text tower's grid (B=256, N=77, H=8, causal),
+    where the early rows see few keys and p and ds are largest, over
+    ``K1_DRAWS`` draws of a generator of their own, each held to K1's
+    limits; the largest errors join ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    n, h, d = 77, 8, 64
+    for i in range(K1_DRAWS):
+        qkv = torch.randn(BATCH, n, 3 * h * d, generator=gen, device=device).bfloat16()
+        dout = torch.randn(BATCH, n, h * d, generator=gen, device=device).bfloat16()
+        out = fa._fused_mha_cuda(qkv, None, h, d ** -0.5, True)
+        dqkv = fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, d ** -0.5, True)
+        torch.cuda.synchronize()
+        k1_check(f"text N={n} H={h} causal B={BATCH} D={d} bf16 draw {i}", qkv, None, h, True,
+                 out, dqkv, dout, err)
+    reset_counts()
+
+
 def kernels_at_batch(device, gen, err: dict) -> dict:
     """At batch 256, bf16, at the paths' shapes and so at the grids the
     training step launches: each kernel against its plain version (its
@@ -439,7 +499,6 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
     def worst(kernel: str, *errors: float) -> None:
         err[kernel] = max(err[kernel], *errors)
 
-    attn_fwd, attn_bwd = tol("fused_mha_fwd", "bfloat16"), tol("fused_mha_bwd", "bfloat16")
     ln_fwd, ln_bwd = tol("layernorm_fwd", "bfloat16"), tol("layernorm_bwd", "bfloat16")
     rows = {}
     text_mask = ragged_text_batch(BATCH, gen, device)["text_attention_mask"]
@@ -451,14 +510,10 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
         d, scale = 64, 0.125
         qkv = torch.randn(BATCH, n, 3 * h * d, generator=gen, device=device).bfloat16()
         dout = torch.randn(BATCH, n, h * d, generator=gen, device=device).bfloat16()
-        out = fa.fused_mha(qkv, mask, num_heads=h, causal=causal)
+        out = fa._fused_mha_cuda(qkv, mask, h, scale, causal)
         dqkv = fa._fused_mha_bwd_cuda(qkv, mask, out, dout, h, scale, causal)
-        tag = f"{label} B={BATCH} D={d} bf16"
-        worst("fused_mha_fwd", compare(f"K1f fused_mha {tag}", out,
-                                       fa.mha_reference(qkv, mask, h, scale, causal), attn_fwd))
-        worst("fused_mha_bwd", compare(
-            f"K1b fused_mha dqkv {tag}", dqkv,
-            fa.mha_bwd_reference(qkv, mask, out, dout, h, scale, causal), attn_bwd))
+        torch.cuda.synchronize()
+        k1_check(f"{label} B={BATCH} D={d} bf16", qkv, mask, h, causal, out, dqkv, dout, err)
         pairs = attention_pairs(BATCH, n, mask, causal)
         # the library call on the same values laid out (B, H, N, D)
         q, k, v = (t.contiguous().requires_grad_() for t in
@@ -613,16 +668,21 @@ def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
                                                       retain_graph=True))
         plain_fwd = cuda_ms(lambda: fa.mha_reference(qkv, None, h, scale, False), iters=5)
         for packed, name in ((True, "K1f-p"), (False, "K1f")):
-            kernel = "fused_mha_packed" if packed else "fused_mha"
             out = fa._fused_mha_cuda(qkv, None, h, scale, False, packed)
             dqkv = fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False, packed)
-            want_b = fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False)
+            torch.cuda.synchronize()
             tag = f"{label} B={b} bf16"
-            err[f"{kernel}_fwd"] = max(err.get(f"{kernel}_fwd", 0.0), compare(
-                f"{name} fused_mha {tag}", out, want, tol(f"{kernel}_fwd", "bfloat16")))
-            err[f"{kernel}_bwd"] = max(err.get(f"{kernel}_bwd", 0.0), compare(
-                f"{name.replace('f', 'b', 1)} fused_mha dqkv {tag}", dqkv, want_b,
-                tol(f"{kernel}_bwd", "bfloat16")))
+            if packed:
+                want_b = fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False)
+                err["fused_mha_packed_fwd"] = max(err.get("fused_mha_packed_fwd", 0.0), compare(
+                    f"{name} fused_mha {tag}", out, want, tol("fused_mha_packed_fwd",
+                                                               "bfloat16")))
+                err["fused_mha_packed_bwd"] = max(err.get("fused_mha_packed_bwd", 0.0), compare(
+                    f"K1b-p fused_mha dqkv {tag}", dqkv, want_b,
+                    tol("fused_mha_packed_bwd", "bfloat16")))
+                del want_b
+            else:
+                k1_check(tag, qkv, None, h, False, out, dqkv, dout, err)
             rows[f"{name} {label} B={b}"] = (
                 cuda_ms(lambda: fa._fused_mha_cuda(qkv, None, h, scale, False, packed)),
                 plain_fwd, lib_fwd,
@@ -636,7 +696,7 @@ def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
                 lib_bwd,
                 *bound(nbytes(qkv, out, dout, qkv), 10 * h * d * pairs, "bfloat16"),
             )
-        del qkv, dout, want, want_b, q, k, v, lib_out, lib_dout, out, dqkv
+        del qkv, dout, want, q, k, v, lib_out, lib_dout, out, dqkv
         torch.cuda.empty_cache()
     for label, (ms, plain, lib, bnd, by) in rows.items():
         print(f"time {label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
@@ -1313,12 +1373,11 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False
 
 def flagship_launches(task, int8_qmm: int) -> dict:
     """Launches a step of the flagship train step: per block K1 forward once
-    and each of K1 backward's two kernels once, K2 forward and each of K2
+    and K1 backward's two kernels once each, K2 forward and each of K2
     backward's two passes twice, K5 ``int8_qmm`` times."""
     depth = sum(len(enc.blocks) for enc in task.encoders.values())
-    return {"fused_mha_fwd": depth, "fused_mha_bwd_dq": depth, "fused_mha_bwd_dkv": depth,
-            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
-            "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
+    return {"fused_mha_fwd": depth, "fused_mha_bwd": 2 * depth, "fused_mha_packed_fwd": 0,
+            "fused_mha_packed_bwd_dq": 0, "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
             "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth,
             "int8_qmm": int8_qmm * depth, **NO_FLASH}
 
@@ -1363,11 +1422,15 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
 
     fwd = sum(len(m.blocks) for m in (task.teacher, task.encoder, task.predictor))
     bwd = len(task.encoder.blocks) + len(task.predictor.blocks)
-    on, off = ("fused_mha_packed", "fused_mha") if packed else ("fused_mha", "fused_mha_packed")
-    want = {f"{on}_fwd": fwd, f"{on}_bwd_dq": bwd, f"{on}_bwd_dkv": bwd,
-            f"{off}_fwd": 0, f"{off}_bwd_dq": 0, f"{off}_bwd_dkv": 0,
-            "layernorm_fwd": 2 * fwd, "layernorm_bwd_rows": 2 * bwd,
-            "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0, **NO_FLASH}
+    on = "fused_mha_packed" if packed else "fused_mha"
+    # K1's backward is two kernels (p and ds, then the products); K1b-p's two
+    # are dQ and dK/dV
+    k1, k1p = (0, 1) if packed else (1, 0)
+    want = {"fused_mha_fwd": k1 * fwd, "fused_mha_bwd": k1 * 2 * bwd,
+            "fused_mha_packed_fwd": k1p * fwd, "fused_mha_packed_bwd_dq": k1p * bwd,
+            "fused_mha_packed_bwd_dkv": k1p * bwd, "layernorm_fwd": 2 * fwd,
+            "layernorm_bwd_rows": 2 * bwd, "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0,
+            **NO_FLASH}
     print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
         f"{k} {counts[k]} ({counts[k] / state.step:g} a step, want {v})"
         for k, v in want.items()))
@@ -1577,8 +1640,8 @@ def highres_path(device) -> dict:
     task = step_parity(device, "448 ", LOSS_RTOL, MIN_GRAD_COSINE, highres=True)
     want = {**flagship_launches(task, 0), "flash_fwd": depth, "flash_bwd_dkv": depth,
             "flash_bwd_dq": depth}
-    for key in ("fused_mha_fwd", "fused_mha_bwd_dq", "fused_mha_bwd_dkv"):
-        want[key] = len(task.encoders["text"].blocks)  # K1 on the text tower only
+    text_depth = len(task.encoders["text"].blocks)  # K1 on the text tower only
+    want["fused_mha_fwd"], want["fused_mha_bwd"] = text_depth, 2 * text_depth
     training, _ = fit_flagship(task, device, "448 ", want, highres=True)
     print(f"448 training path done in {time.perf_counter() - t0:.1f} s")
     del task
@@ -1630,7 +1693,11 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_kernel_checks(device, gen, errors)
     print(f"K5 checks done in {time.perf_counter() - t0:.1f} s")
-    times = kernels_at_batch(device, gen, errors)
+    # the batch-256 grids of K1 and K2 draw from a generator of their own, so
+    # that cases added to the batch-8 checks do not change their data
+    times = kernels_at_batch(device, torch.Generator(device=device).manual_seed(SEED + 10),
+                             errors)
+    k1_draws(device, errors)
     times.update(ijepa_attention_at_batch(device, gen, errors))
     times.update(int8_at_batch(device, gen))
     times.update(flash_at_grids(device, gen, errors))
@@ -1670,7 +1737,7 @@ def main() -> int:
                           ("fused_mha_fwd",)),
         "fused_mha_bwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
                           "mmlearn_tpu/ops/fused_attention.py:207", "K1b image N=197 H=12",
-                          ("fused_mha_bwd_dq", "fused_mha_bwd_dkv")),
+                          ("fused_mha_bwd",)),
         "layernorm_fwd": ("triton", "mmlearn_tpu_torch/ops/fused_norm.py",
                           "mmlearn_tpu/ops/fused_norm.py:126", "K2f add+layernorm N=197 C=768",
                           ("layernorm_fwd",)),

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. :func:`load_library`
 compiles it at first use into ``build/kernels/`` at the root of the checkout
-(``-gencode arch=compute_90a,code=sm_90a``), named by a hash of the source
-and flags so that an edited source is rebuilt and an unchanged one is
-reused, and loads it with :mod:`ctypes`. A missing ``nvcc`` or a failed
+(``-gencode arch=compute_90a,code=sm_90a``), named by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, so that an edited source or
+header is rebuilt and an unchanged one is reused, and loads it with
+:mod:`ctypes`. A missing ``nvcc`` or a failed
 build raises: there is no fallback.
 
 Binding rule: the wrapper of every entry point declares ``argtypes`` with
@@ -49,9 +50,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its content and flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to, keyed by its content, that of every
+    header in ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for file in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, file), "rb") as f:
+            digest.update(file.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -40,8 +40,9 @@
 // bf16 uses the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums), B
 // operands from shared memory by ldmatrix (transposed where the product
 // contracts over rows), and the score accumulators reused in registers as
-// the A operand of the next product (P V, P^T dO, dS K, dS^T Q). f32 keeps
-// full f32 arithmetic: a scalar kernel, one thread a row (or key).
+// the A operand of the next product (P V, P^T dO, dS K, dS^T Q); those
+// helpers are in attention_tiles.cuh, shared with K1. f32 keeps full f32
+// arithmetic: a scalar kernel, one thread a row (or key).
 //
 // What bounds it on the H100. At B = 64, H = 12, N = 785, D = 64 the forward
 // is 4 B H N^2 D = 1.2e11 operations (0.12 ms at 989 TFLOP/s) against q, k,
@@ -57,13 +58,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-// -0.7 * FLT_MAX rounded to f32 (bits 0xff333332), the JAX package's
-// DEFAULT_MASK_VALUE and the port's NEG, bit for bit
-constexpr float kNeg = -0x1.666664p+127f;
 constexpr int kTile = 64;              // query rows and keys a tile
 constexpr int kWarps = 4;              // 16 rows (or keys) each
 constexpr int kThreads = 32 * kWarps;
@@ -86,104 +84,6 @@ struct Problem {
 
 __device__ __forceinline__ bool causal_hidden(const Problem& pr, int row, int col) {
   return pr.causal && col > row + pr.off;
-}
-
-// ---------------------------------------------------------------- helpers
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a0 * b0 + a1 * b1 of two packed bf16 pairs, in f32
-__device__ __forceinline__ float dot_pair(uint32_t a, uint32_t b) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
-  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
-  return fmaf(x.x, y.x, x.y * y.y);
-}
-
-// B operands of two n8 tiles (b[0..1] for rows n0..n0+7, b[2..3] for
-// n0+8..n0+15) from a row-major tile whose rows are the product's n and
-// columns its k (k0..k0+15): S = Q K^T reads K this way.
-__device__ __forceinline__ void load_b_rows(uint32_t* b, const bf16* x, int ld, int n0, int k0,
-                                            int lane) {
-  const int r = n0 + (lane & 7) + ((lane >> 4) << 3);
-  const int c = k0 + (((lane >> 3) & 1) << 3);
-  ldsm_x4(b, x + r * ld + c);
-}
-
-// B operands of two n8 tiles (columns n0..n0+7 and n0+8..n0+15) from a
-// row-major tile whose rows are the product's k (k0..k0+15): O = P V reads V
-// this way, transposed by ldmatrix.
-__device__ __forceinline__ void load_b_cols(uint32_t* b, const bf16* x, int ld, int k0, int n0,
-                                            int lane) {
-  const int r = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int c = n0 + ((lane >> 4) << 3);
-  ldsm_x4_trans(b, x + r * ld + c);
-}
-
-// Two bf16 of row `row` at column `col` (even) of a (rows, D) operand, 0
-// past its rows.
-__device__ __forceinline__ uint32_t load_pair(const bf16* x, long long ld, int row, int col,
-                                              int rows) {
-  return row < rows ? *reinterpret_cast<const uint32_t*>(x + row * ld + col) : 0u;
-}
-
-// A operands (16 rows r0..r0+15 by D) of a (rows, D) operand in registers:
-// a[kc] covers columns 16 kc .. 16 kc + 15.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (*a)[4], const bf16* x, long long ld, int r0,
-                                       int rows, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = 16 * kc + 2 * t;
-    a[kc][0] = load_pair(x, ld, r0 + g, c, rows);
-    a[kc][1] = load_pair(x, ld, r0 + g + 8, c, rows);
-    a[kc][2] = load_pair(x, ld, r0 + g, c + 8, rows);
-    a[kc][3] = load_pair(x, ld, r0 + g + 8, c + 8, rows);
-  }
-}
-
-// A operand of keys (or queries) 16 kc .. 16 kc + 15 from the f32 score
-// accumulators of a warp's 16 rows (two n8 tiles), rounded to bf16.
-__device__ __forceinline__ void scores_as_a(uint32_t* a, float (*s)[4], int kc) {
-  a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-  a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-  a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-  a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 }
 
 // Start copying rows r0..r0+63 of a (rows, D) bf16 operand into a padded

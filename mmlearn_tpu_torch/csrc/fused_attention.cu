@@ -1,72 +1,919 @@
-// Fused short-sequence multi-head attention, forward (Hopper, sm_90a).
+// Fused short-sequence multi-head attention, forward and backward (kernel
+// K1), Hopper sm_90a.
 //
-// Replaces the TPU kernel mmlearn_tpu/ops/fused_attention.py `_fwd_kernel`
-// (:173, launched by `_fwd_pallas` :655). Same function: exact softmax
-// attention over a sequence of N <= 2048 tokens that reads the head-major
-// packed projection in place -- for head h, q at column h*3D, k at h*3D+D,
-// v at h*3D+2D, row stride H*3*D -- and writes (B, N, H*D) with no permute
-// before or after. Scores and softmax statistics are f32; masked and
-// causal-excluded scores take the finite value NEG = -0.7 * FLT_MAX (the TPU
-// kernel's `_NEG`), so a row whose every key is masked averages V over all N
-// keys, as the TPU kernel does.
+// Replaces the TPU kernels of mmlearn_tpu/ops/fused_attention.py:
+//   K1f `_fwd_kernel` (:173, launched by `_fwd_pallas` :655);
+//   K1b `_bwd_kernel` (:207, launched by `_bwd_pallas` :683).
+// Same functions, on the head-major packed projection read in place -- for
+// head h, q at column h*3D, k at h*3D+D, v at h*3D+2D, row stride H*3*D --
+// writing (B, N, H*D) and, in the backward, dqkv in qkv's packing, with no
+// permute before or after:
+//   s   = (q . k) * scale in f32; masked and causal-excluded scores take the
+//         finite NEG = -0.7 * FLT_MAX (the TPU kernel's `_NEG`), so a row
+//         that sees no key averages V over all N keys; keys past N are left
+//         out (-inf), never padded;
+//   K1f p = softmax(s) over the whole row in f32, rounded to the input type
+//       as p / l (the TPU kernel's p.astype(v.dtype)), out = p V summed in
+//       f32;
+//   K1b p = exp(s - m) / l, dv = p^T dout (p rounded to the input type),
+//       dp = dout v^T, ds = p (dp - delta) scale (rounded), dq = ds k,
+//       dk = ds^T q, delta = rowsum(dout * out) in f32. ds is zero at every
+//       masked score: exact autodiff of the masked softmax, the gradient the
+//       JAX package computes off the TPU (its TPU kernel differs only on rows
+//       that see no key). Such a row has m = NEG and l = N, so its p is
+//       1 / N at every key, masked scores taken at NEG.
 //
-// Design. One thread block per (sample, head, tile of 64 query rows). K and V
-// stream through shared memory in tiles of 64 keys, with an online softmax in
-// f32 across the tiles, so every N the dispatch admits runs: K/V of one head
-// at N = 2048 (2048 x 64 x 2 B x 2 = 512 KB) would not fit the SM's 227 KB.
-// The TPU kernel normalises p / l and rounds it to the input type before the
-// PV product; this kernel rounds the unnormalised p to the input type, sums
-// P V in f32 and divides by l at the end, the same function to within one
-// rounding of the input type. Ragged edges (N = 197, 77) are masked on every
-// load and store; keys past N score -inf so they drop out exactly. Under a
-// causal mask with no key mask, key tiles wholly above the diagonal are
-// skipped: each row then still sees key 0, so they add exp(NEG - m) = 0. With
-// a key mask no tile is skipped, because a row whose visible keys are all
-// masked must average V over all N keys.
+// What bounds it on the H100. At the paths' lengths the work is small
+// against the bytes: a head of the image tower (N = 197, D = 64) is 4 N^2 D
+// = 9.9 MFLOP forward against q, k, v read and out written once, about 100
+// KB in bf16 -- 99 operations a byte, a third of the 295 at which the
+// tensor cores and not the memory would bound it. The forward reads each
+// operand once, keeps the scores on the chip and leaves the arithmetic to
+// the tensor cores. The backward is bound by something else: p and ds are
+// rounded to bf16, and a last-bit difference from the plain version moves
+// a rounding (below), so K1b computes them with the plain version's own
+// f32 arithmetic, 2 N^2 D FMAs a head on the FP32 pipes (18.3 G FMA for the
+// image layer at b256: 0.62 ms at the H100's 29.7 T FMA/s), plus an IEEE
+// exp and division a score.
 //
-// The arithmetic is scalar f32 FMAs: each of the 256 threads owns a 4 x 4
-// block of the 64 x 64 score tile and 4 rows x D/16 columns of the output.
-// What bounds it on the H100: at N = 197, D = 64 a head costs about
-// 4 * 197^2 * 64 = 9.9 MFLOP against about 197 * 64 * 2 B * 4 = 100 KB moved,
-// so it is far from the memory roof; the scalar loops and their shared-memory
-// reads bound it, with occupancy. Tensor-core `mma.sync`/`wgmma` tiles are
-// later work.
+// K1f (bf16). One block of 4 warps per (head, sample), grid (H, B):
+//   - the head's K and V are copied whole into shared memory once, by
+//     cp.async 16-byte copies, rows padded to D + 8 bf16 so ldmatrix is free
+//     of bank conflicts and their count to a multiple of 32 with zeros: 2 x
+//     224 x 72 x 2 B = 63 KB at N = 197, D = 64, and 216 KB at N = 768,
+//     D = 64, the longest that supports_fused admits (allowed with
+//     cudaFuncSetAttribute);
+//   - each warp takes strips of 16 query rows, round robin, so a ragged
+//     length costs at most 31 padded keys and 15 padded rows of work (224
+//     keys for 197, 96 for 77 and 84, 128 for 118), not most of a 64-row
+//     tile; a warp stages its next strip of Q in shared memory by cp.async
+//     while it computes the current one;
+//   - both products are mma.sync m16n8k16 (bf16 in, f32 sums) with ldmatrix
+//     B operands and the score accumulators packed in registers as P V's A
+//     operand, the helpers of attention_tiles.cuh, shared with K3. Keys go
+//     in pairs of 16-groups, so a pair's loads and products issue with no
+//     check between them;
+//   - a warp holds its 16 rows' scores over the whole row in registers (up
+//     to 128 or 224 keys, by instance), so the softmax is taken over the
+//     whole row as the TPU kernel does and p / l is rounded before P V.
+//     Past 224 keys, a first sweep over 64-key chunks takes each row's max
+//     and sum (online rescale), and a second recomputes the scores and forms
+//     p / l: the same rounding, at 1.5x the score work, off the paths'
+//     shapes;
+//   - causal with no key mask: a query strip stops at its diagonal (each
+//     row still sees key 0, so the skipped keys add exp(NEG - m) = 0). With
+//     a key mask nothing is skipped: a row that sees no key averages V over
+//     all N.
+// K1f is bound by latency: mma.sync with few warps an SM (the whole-row
+// scores take 128-168 registers a thread, so 3-4 blocks of 4 warps fit) and
+// blocks that load before they compute. wgmma from shared memory, and TMA
+// loads overlapped across heads, are later work.
+//
+// K1b (bf16): two kernels on the stream, nothing accumulated across blocks,
+// so dqkv is deterministic (the K1b section below says how p and ds are
+// taken bit for bit): the first computes p and ds for every (query, key)
+// pair, one block of 8 warps per (head, sample), K and V whole in shared
+// memory, and writes them in bf16 to (B, H, nq, nq) planes (4 B H nq^2
+// bytes of scratch, 0.53 GB at the image layer's b256); the second reads the
+// planes back and forms dv = p^T dout and dk = ds^T q over 16-key strips and
+// dq = ds k over 16-row strips on mma.sync (q, dout and k transposed in
+// shared memory; 8 x 8 transposes of the planes' fragments by movmatrix),
+// with the causal diagonal skip of K1f. No statistics pass: the rows' max
+// and sum come from the first kernel's own scores, whole rows in registers.
+//
+// The f32 route is scalar f32 FMAs (tensor cores would round to TF32): 64 x
+// 64 tiles, 4 x 4 values a thread; its backward recomputes the rows' max
+// and sum in a first sweep of its dQ kernel and passes them, with delta, to
+// its dK/dV kernel through an f32 (3, B, H, N) scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;    // query rows per thread block
-constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
+// ------------------------------------------------- bf16: tensor-core kernels
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+// Shared-memory rows of a head's operand: n rounded up to 32, zeros past n,
+// so that the products run over pairs of 16-key (16-row) groups with no
+// check between the two.
+__host__ __device__ __forceinline__ int kv_rows(int n) { return (n + 31) & ~31; }
+
+// Bytes of shared memory for two whole (kv_rows(n), D) bf16 operands and
+// `extra` bytes a row.
+template <int D>
+size_t operands_bytes(int n, int extra) {
+  return static_cast<size_t>(kv_rows(n)) * (2 * (D + 8) * sizeof(bf16) + extra);
+}
+
+// Start copying rows 0 .. kv_rows(n) - 1 of a (n, D) operand with row
+// stride `ld` into shared memory rows of D + 8; rows past n are zeros.
+template <int D>
+__device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, long long ld, int n,
+                                           int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  const int total = kv_rows(n) * kChunks;
+  for (int i = tid; i < total; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r < n;
+    cp_async16(dst + r * (D + 8) + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
+  }
+}
+
+// A warp starts copying rows r0 .. r0 + 15 of a (n, D) operand into its own
+// 16 shared-memory rows of D + 8 (zeros past n).
+template <int D>
+__device__ __forceinline__ void strip_async(bf16* dst, const bf16* src, long long ld, int r0,
+                                            int n, int lane) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * (D + 8) + c, ok ? src + (r0 + r) * ld + c : src, ok ? 16 : 0);
+  }
+}
+
+// A operands of a warp's 16 staged rows by D, by ldmatrix: a[kc] covers
+// columns 16 kc .. 16 kc + 15 (lanes 0-15 address rows 0-15 at column 16 kc,
+// lanes 16-31 the same rows at 16 kc + 8).
+template <int D>
+__device__ __forceinline__ void strip_a(uint32_t (*a)[4], const bf16* stage, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldsm_x4(a[kc], stage + (lane & 15) * (D + 8) + 16 * kc + ((lane >> 4) << 3));
+}
+
+// The largest of each row's values in s[0 .. 2 cg), over the four lanes of
+// the row.
+template <int G>
+__device__ __forceinline__ void row_max(const float (&s)[2 * G][4], int cg, float& mx_lo,
+                                        float& mx_hi) {
+  mx_lo = mx_hi = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < 2 * G; ++nt) {
+    if (nt < 2 * cg) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, m));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, m));
+  }
+}
+
+// s = exp(s - m) in place over s[0 .. 2 cg); this lane's part of each row's
+// sum is added to sum_lo / sum_hi.
+template <int G>
+__device__ __forceinline__ void exp_sum(float (&s)[2 * G][4], int cg, float m_lo, float m_hi,
+                                        float& sum_lo, float& sum_hi) {
+#pragma unroll
+  for (int nt = 0; nt < 2 * G; ++nt) {
+    if (nt < 2 * cg) {
+      s[nt][0] = expf(s[nt][0] - m_lo);
+      s[nt][1] = expf(s[nt][1] - m_lo);
+      s[nt][2] = expf(s[nt][2] - m_hi);
+      s[nt][3] = expf(s[nt][3] - m_hi);
+      sum_lo += s[nt][0] + s[nt][1];
+      sum_hi += s[nt][2] + s[nt][3];
+    }
+  }
+}
+
+// What a warp's forward strip needs to score its rows: the strip's Q in A
+// fragments, the head's K and key flags in shared memory, and the mask rule.
+template <int D>
+struct FwdStrip {
+  uint32_t qa[D / 16][4];
+  const bf16* k_s;
+  const uint8_t* valid_s;
+  int n, row_lo;
+  bool plain;  // no key mask and not causal: only keys past n are left out
+  int causal;
+  float scale;
+};
+
+// s = the scaled scores of the strip's 16 rows against keys 16 g0 .. 16 (g0
+// + cg) - 1 (cg <= G, even): NEG where the key is masked or causal-hidden,
+// -inf past n.
+template <int D, int G>
+__device__ __forceinline__ void score_chunk(float (&s)[2 * G][4], const FwdStrip<D>& st, int g0,
+                                            int cg, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2 * G; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+  // groups in pairs: a pair's 8 B loads and 16 products, four accumulator
+  // chains, issue with no check between them
+#pragma unroll
+  for (int j = 0; j < G; j += 2) {
+    if (j < cg) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+        for (int jj = j; jj < j + 2; ++jj) {
+          uint32_t bb[4];
+          load_b_rows(bb, st.k_s, D + 8, (g0 + jj) * 16, kc * 16, lane);
+          mma_bf16(s[2 * jj], st.qa[kc], bb);
+          mma_bf16(s[2 * jj + 1], st.qa[kc], bb + 2);
+        }
+      }
+    }
+  }
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2 * G; ++nt) {
+    if (nt < 2 * cg) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = g0 * 16 + nt * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? st.row_lo : st.row_lo + 8;
+        float x;
+        if (col >= st.n) {
+          x = -INFINITY;
+        } else if (!st.plain && (!st.valid_s[col] || (st.causal && col > row))) {
+          x = kNeg;
+        } else {
+          x = s[nt][e] * st.scale;
+        }
+        s[nt][e] = x;
+      }
+    }
+  }
+}
+
+// acc += round(p * inv) V over keys 16 g0 .. 16 (g0 + cg) - 1 (cg even),
+// where s holds p = exp(s - m): p / l is rounded to bf16, as the TPU kernel
+// rounds.
+template <int D, int G>
+__device__ __forceinline__ void pv_chunk(float (&acc)[D / 8][4], const float (&s)[2 * G][4],
+                                         int g0, int cg, float inv_lo, float inv_hi,
+                                         const bf16* v_s, int lane) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if ((j & ~1) < cg) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * j][0] * inv_lo, s[2 * j][1] * inv_lo);
+      pa[1] = pack_bf16(s[2 * j][2] * inv_hi, s[2 * j][3] * inv_hi);
+      pa[2] = pack_bf16(s[2 * j + 1][0] * inv_lo, s[2 * j + 1][1] * inv_lo);
+      pa[3] = pack_bf16(s[2 * j + 1][2] * inv_hi, s[2 * j + 1][3] * inv_hi);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bb[4];
+        load_b_cols(bb, v_s, D + 8, (g0 + j) * 16, dp * 16, lane);
+        mma_bf16(acc[2 * dp], pa, bb);
+        mma_bf16(acc[2 * dp + 1], pa, bb + 2);
+      }
+    }
+  }
+}
+
+// K1f. G: the 16-key groups of scores a warp holds in registers; with
+// kOneSweep (N <= 16 G) a strip's whole rows, else chunks of G groups in two
+// sweeps. The instances and their register budgets (launch_fwd_bf16) were
+// chosen by timing on the H100 at the paths' shapes: three blocks an SM where
+// the scores fit 168 registers a thread (14 groups: the image tower and the
+// I-JEPA teacher; 64-key chunks past 224 keys), else the compiler's choice.
+template <int D, int G, bool kOneSweep>
+__global__ void __launch_bounds__(kThreads, (G == 14 || !kOneSweep) ? 3 : 1)
+    fused_mha_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                         bf16* __restrict__ out, int n, int heads, float scale, int causal) {
+  constexpr int kLd = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = kv_rows(n);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + rows * kLd;
+  uint8_t* valid_s = reinterpret_cast<uint8_t*>(v_s + rows * kLd);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long row_stride = 3LL * heads * D;
+  const long long o_stride = static_cast<long long>(heads) * D;
+  const bf16* head = qkv + static_cast<long long>(b) * n * row_stride + 3LL * h * D;
+  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * n : nullptr;
+  // the warp's next query strip, copied while it computes the current one
+  bf16* q_stage = reinterpret_cast<bf16*>(valid_s + rows) + warp * 16 * kLd;
+
+  rows_async<D>(k_s, head + D, row_stride, n, tid);
+  rows_async<D>(v_s, head + 2 * D, row_stride, n, tid);
+  cp_async_commit();
+  strip_async<D>(q_stage, head, row_stride, warp * 16, n, lane);
+  cp_async_commit();
+  for (int i = tid; i < rows; i += kThreads) valid_s[i] = i < n && (!valid || valid[i]);
+
+  FwdStrip<D> st;
+  st.k_s = k_s;
+  st.valid_s = valid_s;
+  st.n = n;
+  st.plain = !valid && !causal;
+  st.causal = causal;
+  st.scale = scale;
+  const bool skip = causal && !valid;
+  bf16* oh = out + static_cast<long long>(b) * n * o_stride + static_cast<long long>(h) * D;
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int r0 = warp * 16; r0 < n; r0 += kWarps * 16) {
+    cp_async_wait<0>();
+    __syncwarp();
+    strip_a<D>(st.qa, q_stage, lane);
+    __syncwarp();  // every lane has read the stage before it is refilled
+    if (r0 + kWarps * 16 < n)
+      strip_async<D>(q_stage, head, row_stride, r0 + kWarps * 16, n, lane);
+    cp_async_commit();
+    st.row_lo = r0 + g;
+    // key groups this strip sees, even
+    const int ng = kv_rows(skip ? min(n, r0 + 16) : n) >> 4;
+
+    // each row's max m and sum l: over the whole row, or a first sweep over
+    // chunks of G groups with an online rescale
+    float s[2 * G][4];
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    for (int g0 = 0; g0 < ng; g0 += G) {
+      const int cg = kOneSweep ? ng : min(G, ng - g0);
+      score_chunk<D, G>(s, st, g0, cg, lane);
+      float mx_lo, mx_hi;
+      row_max<G>(s, cg, mx_lo, mx_hi);
+      // key 0 is in the first chunk, so the max is finite (at least NEG)
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      l_lo *= expf(m_lo - mn_lo);
+      l_hi *= expf(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      exp_sum<G>(s, cg, m_lo, m_hi, l_lo, l_hi);
+      if (kOneSweep) break;
+    }
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
+    }
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+
+    // acc = round(p / l) V: from the scores held, or a second sweep that
+    // recomputes them chunk by chunk
+    float acc[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    if constexpr (kOneSweep) {
+      pv_chunk<D, G>(acc, s, 0, ng, inv_lo, inv_hi, v_s, lane);
+    } else {
+      for (int g0 = 0; g0 < ng; g0 += G) {
+        const int cg = min(G, ng - g0);
+        score_chunk<D, G>(s, st, g0, cg, lane);
+        float unused_lo = 0.f, unused_hi = 0.f;
+        exp_sum<G>(s, cg, m_lo, m_hi, unused_lo, unused_hi);
+        pv_chunk<D, G>(acc, s, g0, cg, inv_lo, inv_hi, v_s, lane);
+      }
+    }
+
+    const int row_lo = r0 + g, row_hi = row_lo + 8;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      if (row_lo < n)
+        *reinterpret_cast<uint32_t*>(oh + row_lo * o_stride + c) =
+            pack_bf16(acc[dn][0], acc[dn][1]);
+      if (row_hi < n)
+        *reinterpret_cast<uint32_t*>(oh + row_hi * o_stride + c) =
+            pack_bf16(acc[dn][2], acc[dn][3]);
+    }
+  }
+}
+
+// ------------------------------------------------------- K1b (bf16)
+//
+// The plain version rounds p and ds to bf16 from f32 values, and a
+// last-bit difference in either moves a rounding: in an early causal row
+// (p ~ 1/2, ds ~ 1) that is a whole ulp of ds times a row of q in dK (up to
+// 6.5e-3 at the text tower's grid). So K1b's first kernel computes p and ds
+// bit for bit as the plain version does on the card, and only the products
+// after the roundings go to the tensor cores, in its second kernel:
+//   - s = q . k and dp = dout . v as f32 FMA chains over d = 0 .. D - 1 from
+//     0, the order of cuBLAS's f32 GEMM (not mma.sync, whose sums round
+//     elsewhere), s then times scale;
+//   - m the row's max, e = expf(s - m), l summed as PyTorch's warp softmax
+//     sums a row (lane L of 32 adds keys L, L + 32, ... in order, then an
+//     xor butterfly 16 .. 1), p = e / l;
+//   - delta = rowsum(dout * out) as PyTorch sums 64 (32) products over a
+//     warp: lane L adds columns L and L + 32, then the same butterfly;
+//   - ds = (p (dp - delta)) scale, zero where masked; p and ds rounded to
+//     nearest even.
+// A warp of the first kernel takes TM rows at a time, lane L the keys L, L +
+// 32, ..., so a lane's part of a row's sum, and the butterfly, are
+// PyTorch's as they stand. The statistics come from the chains: the
+// forward's tensor-core scores (another last bit) are not used, and K1f
+// saves nothing for K1b.
+
+// Query and key rows of the backward's p and ds planes: n rounded up to 16.
+// A transposed operand xt[d * ldt + row] in shared memory has rows of ldt =
+// a multiple of 64 plus 8 bf16, so the words of an mma B operand (lane 4 g
+// + t: row g, word t) lie in 32 different banks; zeros past n.
+__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
+__host__ __device__ __forceinline__ int t_ld(int n) { return ((n + 63) & ~63) + 8; }
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// two bf16 at p (4-byte aligned), shared or device memory
+__device__ __forceinline__ uint32_t word_at(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two consecutive values of a row of K or V in shared memory as f32: kept
+// in f32 (one 8-byte load), or in bf16 past 224 keys (one 4-byte load).
+__device__ __forceinline__ float2 pair_at(const float* y) {
+  return *reinterpret_cast<const float2*>(y);
+}
+__device__ __forceinline__ float2 pair_at(const bf16* y) {
+  const uint32_t w = word_at(y);
+  return make_float2(bf16_lo(w), bf16_hi(w));
+}
+
+// c[r][it] = sum over d of x[d][r] y[lane + 32 it][d], each an f32 FMA chain
+// over d = 0 .. D - 1 from 0. x: TM rows transposed in f32 (x[d * TM + r]);
+// y: rows of D + 2 values in shared memory (so that the 32 lanes' rows lie
+// in different banks).
+template <int D, int TM, int ITS, typename T>
+__device__ __forceinline__ void chain_rows(float (&c)[TM][ITS], const float* x, const T* y,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int it = 0; it < ITS; ++it) c[r][it] = 0.f;
+  const T* yl = y + lane * (D + 2);
+#pragma unroll 4
+  for (int d = 0; d < D; d += 2) {
+    float2 yv[ITS];
+#pragma unroll
+    for (int it = 0; it < ITS; ++it) yv[it] = pair_at(yl + it * 32 * (D + 2) + d);
+    float x0[TM], x1[TM];
+#pragma unroll
+    for (int r = 0; r < TM; r += 2) {
+      const float2 a = *reinterpret_cast<const float2*>(x + d * TM + r);
+      const float2 z = *reinterpret_cast<const float2*>(x + (d + 1) * TM + r);
+      x0[r] = a.x;
+      x0[r + 1] = a.y;
+      x1[r] = z.x;
+      x1[r + 1] = z.y;
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) c[r][it] = __fmaf_rn(x0[r], yv[it].x, c[r][it]);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) c[r][it] = __fmaf_rn(x1[r], yv[it].y, c[r][it]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+constexpr int kDsWarps = 8;  // warps of a block of K1b's first kernel
+constexpr int kDsThreads = 32 * kDsWarps;
+
+__device__ __forceinline__ void store_pair(float* dst, uint32_t w) {
+  *reinterpret_cast<float2*>(dst) = make_float2(bf16_lo(w), bf16_hi(w));
+}
+__device__ __forceinline__ void store_pair(bf16* dst, uint32_t w) {
+  *reinterpret_cast<uint32_t*>(dst) = w;
+}
+// 8 bf16 (16 bytes) into a row of K or V in shared memory
+template <typename T>
+__device__ __forceinline__ void store_eight(T* dst, uint4 x) {
+  store_pair(dst, x.x);
+  store_pair(dst + 2, x.y);
+  store_pair(dst + 4, x.z);
+  store_pair(dst + 6, x.w);
+}
+
+// Copy an (n, D) operand with row stride ld into shared memory transposed,
+// xt[d * ldt + row], zeros for rows n .. ldt - 1: a thread takes two rows
+// and 8 columns (two 16-byte loads, eight 4-byte stores).
+template <int D, int kThreadsT>
+__device__ __forceinline__ void load_transposed(bf16* xt, int ldt, const bf16* src, long long ld,
+                                                int n, int tid) {
+  const int pairs = ldt / 2, total = pairs * (D / 8);
+  for (int base = 0; base < total; base += 4 * kThreadsT) {  // 4 pairs a thread in flight
+    uint4 x0[4], x1[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + tid + u * kThreadsT, k0 = 2 * (i % pairs), c = (i / pairs) * 8;
+      x0[u] = x1[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < total && k0 < n) x0[u] = *reinterpret_cast<const uint4*>(src + k0 * ld + c);
+      if (i < total && k0 + 1 < n)
+        x1[u] = *reinterpret_cast<const uint4*>(src + (k0 + 1) * ld + c);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + tid + u * kThreadsT, k0 = 2 * (i % pairs), c = (i / pairs) * 8;
+      if (i >= total) continue;
+      const uint32_t a[4] = {x0[u].x, x0[u].y, x0[u].z, x0[u].w};
+      const uint32_t z[4] = {x1[u].x, x1[u].y, x1[u].z, x1[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // columns c + 2 j and c + 2 j + 1 of both rows
+        *reinterpret_cast<uint32_t*>(xt + (c + 2 * j) * ldt + k0) =
+            __byte_perm(a[j], z[j], 0x5410);
+        *reinterpret_cast<uint32_t*>(xt + (c + 2 * j + 1) * ldt + k0) =
+            __byte_perm(a[j], z[j], 0x7632);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// dst rows r and r + 8 (columns 2 t, 2 t + 1 of 8 dn + ...) of a warp's 16 x D
+// f32 accumulators, into a bf16 (rows, D) operand with row stride ld.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n,
+                                           const float (&acc)[D / 8][4], int t) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (r < n) *reinterpret_cast<uint32_t*>(dst + r * ld + c) = pack_bf16(acc[dn][0], acc[dn][1]);
+    if (r + 8 < n)
+      *reinterpret_cast<uint32_t*>(dst + (r + 8) * ld + c) = pack_bf16(acc[dn][2], acc[dn][3]);
+  }
+}
+
+// K1b, second kernel: dv = p^T dout and dk = ds^T q over key strips (q and
+// dout transposed in shared memory), then dq = ds k over query strips (k
+// transposed), all on the tensor cores from the planes of the first kernel.
+// With causal and no key mask a key strip starts, and a query strip stops,
+// at its diagonal.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_mha_bwd_grad_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                              const bf16* __restrict__ p_s, const bf16* __restrict__ ds_s,
+                              bf16* __restrict__ dqkv, int n, int heads, int skip) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldt = t_ld(n), nq = round16(n);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  bf16* xa = reinterpret_cast<bf16*>(smem);
+  bf16* xb = xa + D * ldt;
+
+  const long long row_stride = 3LL * heads * D;
+  const long long o_stride = static_cast<long long>(heads) * D;
+  const long long head_off = static_cast<long long>(b) * n * row_stride + 3LL * h * D;
+  const bf16* head = qkv + head_off;
+  bf16* dh = dqkv + head_off;
+  const bf16* doh = dout + static_cast<long long>(b) * n * o_stride + static_cast<long long>(h) * D;
+  const long long plane = (static_cast<long long>(b) * heads + h) * nq * nq;
+  const bf16* pp = p_s + plane;
+  const bf16* dsp = ds_s + plane;
+
+  load_transposed<D, kThreads>(xa, ldt, head, row_stride, n, tid);  // q^T
+  load_transposed<D, kThreads>(xb, ldt, doh, o_stride, n, tid);     // dout^T
+  __syncthreads();
+  for (int k0 = warp * 16; k0 < n; k0 += kWarps * 16) {
+    float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
+      dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+    }
+#pragma unroll 4
+    for (int r0 = skip ? k0 : 0; r0 < nq; r0 += 16) {
+      // the (rows r0.., keys k0..) blocks of p and ds, transposed by 8 x 8
+      // into A operands of p^T and ds^T (keys by rows)
+      const long long at = static_cast<long long>(r0 + g) * nq + k0 + 2 * t;
+      const uint32_t pa[4] = {transpose8x8(word_at(pp + at)), transpose8x8(word_at(pp + at + 8)),
+                              transpose8x8(word_at(pp + at + 8 * nq)),
+                              transpose8x8(word_at(pp + at + 8 * nq + 8))};
+      const uint32_t da[4] = {transpose8x8(word_at(dsp + at)),
+                              transpose8x8(word_at(dsp + at + 8)),
+                              transpose8x8(word_at(dsp + at + 8 * nq)),
+                              transpose8x8(word_at(dsp + at + 8 * nq + 8))};
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {  // columns 16 j .. 16 j + 15 of dv and dk
+        uint32_t bd[4], bq[4];
+        load_b_rows(bd, xb, ldt, 16 * j, r0, lane);
+        load_b_rows(bq, xa, ldt, 16 * j, r0, lane);
+        mma_bf16(dv[2 * j], pa, bd);
+        mma_bf16(dv[2 * j + 1], pa, bd + 2);
+        mma_bf16(dk[2 * j], da, bq);
+        mma_bf16(dk[2 * j + 1], da, bq + 2);
+      }
+    }
+    store_rows<D>(dh + D, row_stride, k0 + g, n, dk, t);
+    store_rows<D>(dh + 2 * D, row_stride, k0 + g, n, dv, t);
+  }
+
+  __syncthreads();  // every warp is done with q^T
+  load_transposed<D, kThreads>(xa, ldt, head + D, row_stride, n, tid);  // k^T
+  __syncthreads();
+  for (int r0 = warp * 16; r0 < n; r0 += kWarps * 16) {
+    float acc[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    const int kend = skip ? r0 + 16 : nq;
+#pragma unroll 4
+    for (int key0 = 0; key0 < kend; key0 += 16) {
+      const long long at = static_cast<long long>(r0 + g) * nq + key0 + 2 * t;
+      const uint32_t da[4] = {word_at(dsp + at), word_at(dsp + at + 8 * nq), word_at(dsp + at + 8),
+                              word_at(dsp + at + 8 * nq + 8)};
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bk[4];
+        load_b_rows(bk, xa, ldt, 16 * j, key0, lane);
+        mma_bf16(acc[2 * j], da, bk);
+        mma_bf16(acc[2 * j + 1], da, bk + 2);
+      }
+    }
+    store_rows<D>(dh, row_stride, r0 + g, n, acc, t);
+  }
+}
+
+// K1b, first kernel: p and ds of every (query, key) pair, rounded to bf16,
+// into the query-major planes p_s and ds_s, (B, H, nq, nq), nq = n rounded
+// up to 16 (rows and keys past n hold finite values, ds = 0). One block of
+// 8 warps per (head, sample) holds the head's K and V in shared memory, in
+// f32 (T = float) or, past 224 keys, bf16; a warp takes TM query rows at a
+// time, lane L keys L + 32 it, it < ITS.
+template <int D, int TM, int ITS, typename T>
+__global__ void __launch_bounds__(kDsThreads, 1)
+    fused_mha_bwd_ds_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                            const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                            bf16* __restrict__ p_s, bf16* __restrict__ ds_s, int n, int heads,
+                            float scale, int causal) {
+  constexpr int kLd = D + 2;
+  constexpr int kKeys = 32 * ITS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nq = round16(n);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, b = blockIdx.y;
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + kKeys * kLd;
+  float* strips = reinterpret_cast<float*>(v_s + kKeys * kLd);
+  float* qt = strips + warp * 2 * D * TM;
+  float* dot = qt + D * TM;
+  // each warp's p and ds rows in bf16, copied out as 16-byte chunks (not past
+  // 224 keys, where shared memory holds K and V in bf16 and no more)
+  constexpr int kStage = sizeof(T) == sizeof(float) ? 2 * TM * kKeys : 0;
+  bf16* stage = reinterpret_cast<bf16*>(strips + kDsWarps * 2 * D * TM) + warp * kStage;
+  uint8_t* valid_s = reinterpret_cast<uint8_t*>(stage + (kDsWarps - warp) * kStage);
+
+  const long long row_stride = 3LL * heads * D;
+  const long long o_stride = static_cast<long long>(heads) * D;
+  const bf16* head = qkv + static_cast<long long>(b) * n * row_stride + 3LL * h * D;
+  const long long o_off = static_cast<long long>(b) * n * o_stride + static_cast<long long>(h) * D;
+  const bf16* oh = out + o_off;
+  const bf16* doh = dout + o_off;
+  const long long plane = (static_cast<long long>(b) * heads + h) * nq * nq;
+  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * n : nullptr;
+  const bool plain = !valid && !causal;
+
+  // K and V: 16-byte chunks, 8 a thread loaded before any is stored
+  constexpr int kChunks = kKeys * (D / 8);
+  for (int base = 0; base < kChunks; base += 8 * kDsThreads) {
+    uint4 kc[8], vc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = base + tid + j * kDsThreads, r = i / (D / 8), c = 8 * (i % (D / 8));
+      kc[j] = vc[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < kChunks && r < n) {
+        kc[j] = *reinterpret_cast<const uint4*>(head + r * row_stride + D + c);
+        vc[j] = *reinterpret_cast<const uint4*>(head + r * row_stride + 2 * D + c);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = base + tid + j * kDsThreads, r = i / (D / 8), c = 8 * (i % (D / 8));
+      if (i < kChunks) {
+        store_eight(k_s + r * kLd + c, kc[j]);
+        store_eight(v_s + r * kLd + c, vc[j]);
+      }
+    }
+  }
+  for (int i = tid; i < kKeys; i += kDsThreads) valid_s[i] = i < n && (!valid || valid[i]);
+  __syncthreads();
+
+  // a lane's words of a set of TM rows of q and dout (the next set's are
+  // loaded while the current one is computed)
+  constexpr int kWords = TM * D / 64;
+  uint32_t qw[kWords], dw[kWords];
+  auto fetch = [&](int rs) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
+      const bool ok = rs + r < n;
+      qw[k] = ok ? word_at(head + (rs + r) * row_stride + c) : 0u;
+      dw[k] = ok ? word_at(doh + (rs + r) * o_stride + c) : 0u;
+    }
+  };
+  fetch(warp * TM);
+  for (int r0 = warp * TM; r0 < nq; r0 += kDsWarps * TM) {
+    __syncwarp();  // every lane is done with the last rows
+    if (r0 >= n) {  // rows past n: p = ds = 0
+      for (int i = lane; i < 2 * TM * (nq / 8); i += 32) {
+        const int row = i / (nq / 8), c = 8 * (i % (nq / 8));
+        *reinterpret_cast<uint4*>((row < TM ? p_s : ds_s) + plane +
+                                  static_cast<long long>(r0 + row % TM) * nq + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
+      qt[c * TM + r] = bf16_lo(qw[k]);
+      qt[(c + 1) * TM + r] = bf16_hi(qw[k]);
+      dot[c * TM + r] = bf16_lo(dw[k]);
+      dot[(c + 1) * TM + r] = bf16_hi(dw[k]);
+    }
+    __syncwarp();  // the rows are written
+    if (r0 + kDsWarps * TM < nq) fetch(r0 + kDsWarps * TM);
+    // out at columns lane, lane + 32, for delta
+    float ov[TM][D / 32];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j)
+        ov[r][j] = r0 + r < n ? __bfloat162float(oh[(r0 + r) * o_stride + lane + 32 * j]) : 0.f;
+
+    float s[TM][ITS];
+    chain_rows<D, TM, ITS>(s, qt, k_s, lane);
+    // delta of each row as PyTorch sums it: lane L adds dout * out at
+    // columns L (and L + 32), then the butterfly
+    float delta[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j)
+        part = __fadd_rn(part, __fmul_rn(dot[(lane + 32 * j) * TM + r], ov[r][j]));
+      delta[r] = warp_sum(part);
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int row = r0 + r;
+      float m = -INFINITY;
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) {
+        const int key = lane + 32 * it;
+        float x;
+        if (key >= n) {
+          x = -INFINITY;
+        } else if (!plain && (!valid_s[key] || (causal && key > row))) {
+          x = kNeg;
+        } else {
+          x = __fmul_rn(s[r][it], scale);
+        }
+        s[r][it] = x;
+        m = fmaxf(m, x);
+      }
+      m = warp_max(m);
+      float part = 0.f;
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) {
+        s[r][it] = expf(__fsub_rn(s[r][it], m));
+        part = __fadd_rn(part, s[r][it]);
+      }
+      const float l = warp_sum(part);
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) s[r][it] = __fdiv_rn(s[r][it], l);
+    }
+
+    float dp[TM][ITS];
+    chain_rows<D, TM, ITS>(dp, dot, v_s, lane);
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int row = r0 + r;
+#pragma unroll
+      for (int it = 0; it < ITS; ++it) {
+        const int key = lane + 32 * it;
+        const bool vis = key < n && (plain || (valid_s[key] && !(causal && key > row)));
+        const float ds =
+            vis ? __fmul_rn(__fmul_rn(s[r][it], __fsub_rn(dp[r][it], delta[r])), scale) : 0.f;
+        if constexpr (kStage > 0) {
+          stage[r * kKeys + key] = __float2bfloat16_rn(s[r][it]);
+          stage[(TM + r) * kKeys + key] = __float2bfloat16_rn(ds);
+        } else if (key < nq) {
+          const long long at = plane + static_cast<long long>(row) * nq + key;
+          p_s[at] = __float2bfloat16_rn(s[r][it]);
+          ds_s[at] = __float2bfloat16_rn(ds);
+        }
+      }
+    }
+    __syncwarp();
+    // rows of nq keys of each plane, 8 keys a chunk
+    for (int i = lane; kStage > 0 && i < 2 * TM * (nq / 8); i += 32) {
+      const int row = i / (nq / 8), c = 8 * (i % (nq / 8));  // row: plane * TM + r
+      bf16* dst = (row < TM ? p_s : ds_s) + plane +
+                  static_cast<long long>(r0 + row % TM) * nq + c;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(stage + row * kKeys + c);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int D, int G, bool kOneSweep>
+cudaError_t launch_fwd_bf16_g(const void* qkv, const void* mask, void* out, int batch, int n,
+                              int heads, float scale, int causal, cudaStream_t stream) {
+  // K, V and the key flags, and each warp's staged query strip
+  const size_t smem = operands_bytes<D>(n, 1) + kWarps * 16 * (D + 8) * sizeof(bf16);
+  cudaError_t err = allow_smem(fused_mha_fwd_kernel<D, G, kOneSweep>, smem);
+  if (err != cudaSuccess) return err;
+  fused_mha_fwd_kernel<D, G, kOneSweep><<<dim3(heads, batch), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      n, heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_bf16(const void* qkv, const void* mask, void* out, int batch,
+                            int n, int heads, float scale, int causal, cudaStream_t stream) {
+  const int groups = kv_rows(n) / 16;
+#define K1F_LAUNCH(G, ONE) \
+  launch_fwd_bf16_g<D, G, ONE>(qkv, mask, out, batch, n, heads, scale, causal, stream)
+  if (groups <= 8) return K1F_LAUNCH(8, true);      // text, I-JEPA student and predictor
+  if (groups <= 14) return K1F_LAUNCH(14, true);    // image (197), I-JEPA teacher (196)
+  return K1F_LAUNCH(4, false);                      // past 224 keys: two sweeps
+#undef K1F_LAUNCH
+}
+
+template <int D, int TM, int ITS, typename T>
+cudaError_t launch_bwd_ds(const void* qkv, const void* mask, const void* out, const void* dout,
+                          bf16* p_s, bf16* ds_s, int batch, int n, int heads, float scale,
+                          int causal, cudaStream_t stream) {
+  // K and V in rows of D + 2, each warp's q and dout rows in f32 and its p and
+  // ds rows in bf16, the key flags
+  const size_t smem = 2 * 32 * ITS * (D + 2) * sizeof(T) +
+                      kDsWarps * 2 * D * TM * sizeof(float) +
+                      (sizeof(T) == sizeof(float) ? kDsWarps * 2 * TM * 32 * ITS * sizeof(bf16)
+                                                  : 0) +
+                      32 * ITS;
+  cudaError_t err = allow_smem(fused_mha_bwd_ds_kernel<D, TM, ITS, T>, smem);
+  if (err != cudaSuccess) return err;
+  fused_mha_bwd_ds_kernel<D, TM, ITS, T><<<dim3(heads, batch), kDsThreads, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), p_s, ds_s, n, heads, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const void* qkv, const void* mask, const void* out,
+                            const void* dout, void* dqkv, void* scratch, int batch, int n,
+                            int heads, float scale, int causal, cudaStream_t stream) {
+  const int nq = round16(n);
+  bf16* p_s = static_cast<bf16*>(scratch);
+  bf16* ds_s = p_s + static_cast<long long>(batch) * heads * nq * nq;
+  // the first kernel's instances: a lane's keys in registers, ITS of them (up
+  // to 128, 224 and 768 keys), for 4 rows at a time with K and V in f32,
+  // past 224 keys 2 rows with K and V in bf16
+#define K1B_DS(TM, ITS, T)                                                                  \
+  launch_bwd_ds<D, TM, ITS, T>(qkv, mask, out, dout, p_s, ds_s, batch, n, heads, scale, \
+                               causal, stream)
+  cudaError_t err = n <= 128 ? K1B_DS(4, 4, float) : n <= 224 ? K1B_DS(4, 7, float)
+                                                              : K1B_DS(2, 24, bf16);
+#undef K1B_DS
+  if (err != cudaSuccess) return err;
+  // then the products, from the planes: q and dout (then k) transposed
+  const size_t smem = 2 * static_cast<size_t>(D) * t_ld(n) * sizeof(bf16);
+  err = allow_smem(fused_mha_bwd_grad_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  fused_mha_bwd_grad_kernel<D><<<dim3(heads, batch), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), p_s, ds_s,
+      static_cast<bf16*>(dqkv), n, heads, causal && !mask);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- f32: scalar kernels
+
+constexpr int kBlockQ = 64;          // query rows per thread block
+constexpr int kBlockK = 64;          // keys per shared-memory tile
+constexpr int kScalarThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kLdP = kBlockK + 1;
-constexpr float kNeg = -0.7f * FLT_MAX;
-
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -76,16 +923,16 @@ constexpr size_t smem_bytes() {
          (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * kLdP);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fused_mha_fwd_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                         T* __restrict__ out, int n, int num_heads, float scale,
-                         int causal) {
+template <int D>
+__global__ void __launch_bounds__(kScalarThreads)
+    fused_mha_fwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                             float* __restrict__ out, int n,
+                             int num_heads, float scale, int causal) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
+  extern __shared__ float smem_f[];
+  float* q_s = smem_f;
   float* k_s = q_s + kBlockQ * kLd;
   float* v_s = k_s + kBlockK * kLd;
   float* p_s = v_s + kBlockK * D;
@@ -98,14 +945,14 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid >> 4;  // rows 4 ty .. 4 ty + 3
 
   const int64_t row_stride = static_cast<int64_t>(num_heads) * 3 * D;
-  const T* head = qkv + static_cast<int64_t>(b) * n * row_stride +
-                  static_cast<int64_t>(h) * 3 * D;
+  const float* head = qkv + static_cast<int64_t>(b) * n * row_stride +
+                      static_cast<int64_t>(h) * 3 * D;
   const uint8_t* key_valid = mask ? mask + static_cast<int64_t>(b) * n : nullptr;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
+  for (int i = tid; i < kBlockQ * D; i += kScalarThreads) {
     const int r = i / D, c = i % D;
     const int row = q0 + r;
-    q_s[r * kLd + c] = row < n ? to_float(head[row * row_stride + c]) : 0.f;
+    q_s[r * kLd + c] = row < n ? head[row * row_stride + c] : 0.f;
   }
 
   float m_run[4], l_run[4], acc[4][kCols];
@@ -120,14 +967,14 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = (causal && !key_valid) ? min(n, q0 + kBlockQ) : n;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k_s / v_s / p_s are consumed
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
+    for (int i = tid; i < kBlockK * D; i += kScalarThreads) {
       const int r = i / D, c = i % D;
       const int row = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (row < n) {
-        const T* src = head + row * row_stride;
-        kv = to_float(src[D + c]);
-        vv = to_float(src[2 * D + c]);
+        const float* src = head + row * row_stride;
+        kv = src[D + c];
+        vv = src[2 * D + c];
       }
       k_s[r * kLd + c] = kv;
       v_s[r * D + c] = vv;
@@ -182,8 +1029,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         row_sum += p;
-        // P V runs on p rounded to the input type, as the TPU kernel's does
-        p_s[(4 * ty + i) * kLdP + tx + 16 * j] = to_float(from_float<T>(p));
+        p_s[(4 * ty + i) * kLdP + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -213,77 +1059,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qrow = q0 + 4 * ty + i;
     if (qrow >= n) continue;
-    T* dst = out + (static_cast<int64_t>(b) * n + qrow) * num_heads * D +
-             static_cast<int64_t>(h) * D;
+    float* dst = out + (static_cast<int64_t>(b) * n + qrow) * num_heads * D +
+                 static_cast<int64_t>(h) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      dst[tx + 16 * c] = from_float<T>(acc[i][c] / l_run[i]);
+    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = acc[i][c] / l_run[i];
   }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* qkv, const void* mask, void* out, int batch, int n,
-                   int num_heads, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(fused_mha_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  fused_mha_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), n, num_heads, scale, causal);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ backward
-//
-// Replaces the TPU kernel mmlearn_tpu/ops/fused_attention.py `_bwd_kernel`
-// (:207, launched by `_bwd_pallas` :683). Same function: dqkv, head-major
-// packed like qkv, from qkv, the saved forward output, its cotangent dout and
-// the mask. Like the TPU kernel it keeps no log-sum-exp from the forward: the
-// softmax is recomputed from the scores, in f32. p is rounded to the input
-// type before dV = p^T dout, and ds = p (dp - delta) scale is rounded to the
-// input type before dQ = ds K and dK = ds^T Q, where the TPU kernel rounds.
-//
-// One difference, on purpose: ds is zeroed where the score was masked (key
-// mask or causal). That is exact autodiff of the masked softmax, the gradient
-// the JAX package computes off the TPU. It changes only rows whose every key
-// is masked (left padding, an empty sample): there p = 1/N over all keys, the
-// TPU kernel's ds is nonzero at masked scores and its dQ/dK are not zero.
-// Elsewhere masked p is exactly 0, so ds is 0 there anyway.
-//
-// Design: two kernels on the stream, nothing accumulated across blocks, so
-// dqkv is deterministic.
-// 1. dQ, one block per (sample, head, 64-row query tile). A first sweep over
-//    the key tiles recomputes the row max m and sum l with the forward's online
-//    loop; delta = sum(dout * out) is taken in f32. The block writes m, l and
-//    delta of its rows to a small (3, B, H, N) f32 scratch, then sweeps the key
-//    tiles again: s, p = exp(s - m) / l, dp = dout V^T, ds, and dQ += ds K.
-// 2. dK/dV, one block per (sample, head, 64-key tile), looping over the query
-//    tiles: s^T and dp^T from the tiles, p and ds from the scratch statistics,
-//    dV += p^T dout and dK += ds^T Q.
-// The arithmetic is scalar f32 FMAs on 64 x 64 tiles in shared memory, 4 x 4
-// values a thread, as in the forward. It does eight N^2 D products against the
-// forward's two, so it takes about four times the forward's time; like the
-// forward it is bound by the FMA loops and their shared-memory reads, far from
-// the memory roof (the image layer at batch 256 moves 620 MB, 0.185 ms at
-// 3.35 TB/s). Tensor-core tiles are later work.
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
 }
 
 // rows row0 .. row0 + 63 of a (n, D) slice with row stride `stride` into a
 // tile padded to D + 1 floats a row; rows past n read as 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t stride,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t stride,
                                           int row0, int n, int tid) {
-  for (int i = tid; i < 64 * D; i += kThreads) {
+  for (int i = tid; i < 64 * D; i += kScalarThreads) {
     const int r = i / D, c = i % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < n ? to_float(src[row * stride + c]) : 0.f;
+    dst[r * (D + 1) + c] = row < n ? src[row * stride + c] : 0.f;
   }
 }
 
@@ -334,16 +1125,21 @@ constexpr size_t bwd_dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * kBlockK * kLdP + 3 * kBlockQ);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fused_mha_bwd_dq_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                            const T* __restrict__ out, const T* __restrict__ dout,
-                            T* __restrict__ dqkv, float* __restrict__ stats, int n,
-                            int num_heads, float scale, int causal) {
+// dQ: one block per (sample, head, 64-row query tile). A first sweep over
+// the key tiles recomputes the row max m and sum l with the forward's online
+// loop; delta = sum(dout * out). The block writes m, l and delta of its rows
+// to the (3, B, H, N) scratch, then sweeps the key tiles again: s, p = exp(s
+// - m) / l, dp = dout V^T, ds, and dQ += ds K.
+template <int D>
+__global__ void __launch_bounds__(kScalarThreads)
+    fused_mha_bwd_dq_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                                const float* __restrict__ out, const float* __restrict__ dout,
+                                float* __restrict__ dqkv, float* __restrict__ stats, int n,
+                                int num_heads, float scale, int causal) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
+  extern __shared__ float smem_f[];
+  float* q_s = smem_f;
   float* do_s = q_s + kBlockQ * kLd;
   float* k_s = do_s + kBlockQ * kLd;
   float* v_s = k_s + kBlockK * kLd;
@@ -358,13 +1154,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t row_stride = static_cast<int64_t>(num_heads) * 3 * D;
   const int64_t o_stride = static_cast<int64_t>(num_heads) * D;
-  const T* head = qkv + static_cast<int64_t>(b) * n * row_stride +
-                  static_cast<int64_t>(h) * 3 * D;
+  const float* head = qkv + static_cast<int64_t>(b) * n * row_stride +
+                      static_cast<int64_t>(h) * 3 * D;
   const int64_t o_off = static_cast<int64_t>(b) * n * o_stride + static_cast<int64_t>(h) * D;
   const uint8_t* key_valid = mask ? mask + static_cast<int64_t>(b) * n : nullptr;
 
-  load_tile<T, D>(q_s, head, row_stride, q0, n, tid);
-  load_tile<T, D>(do_s, dout + o_off, o_stride, q0, n, tid);
+  load_tile<D>(q_s, head, row_stride, q0, n, tid);
+  load_tile<D>(do_s, dout + o_off, o_stride, q0, n, tid);
   __syncthreads();
 
   // delta = sum(dout * out) over the head dim, f32
@@ -377,7 +1173,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         part += do_s[(4 * ty + i) * kLd + tx + 16 * c] *
-                to_float(out[o_off + qrow * o_stride + tx + 16 * c]);
+                out[o_off + qrow * o_stride + tx + 16 * c];
     }
     delta[i] = half_warp_sum(part);
   }
@@ -393,7 +1189,7 @@ __global__ void __launch_bounds__(kThreads)
   float s[4][4];
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();
-    load_tile<T, D>(k_s, head + D, row_stride, k0, n, tid);
+    load_tile<D>(k_s, head + D, row_stride, k0, n, tid);
     __syncthreads();
     tile_dot<D>(q_s, k_s, ty, tx, s);
 #pragma unroll
@@ -444,8 +1240,8 @@ __global__ void __launch_bounds__(kThreads)
   float dp[4][4];
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k_s / v_s / ds_s are consumed
-    load_tile<T, D>(k_s, head + D, row_stride, k0, n, tid);
-    load_tile<T, D>(v_s, head + 2 * D, row_stride, k0, n, tid);
+    load_tile<D>(k_s, head + D, row_stride, k0, n, tid);
+    load_tile<D>(v_s, head + 2 * D, row_stride, k0, n, tid);
     __syncthreads();
     tile_dot<D>(q_s, k_s, ty, tx, s);
     tile_dot<D>(do_s, v_s, ty, tx, dp);
@@ -460,7 +1256,7 @@ __global__ void __launch_bounds__(kThreads)
           const float p = expf(s[i][j] * scale - m_run[i]) / l_run[i];
           ds = p * (dp[i][j] - delta[i]) * scale;
         }
-        ds_s[(4 * ty + i) * kLdP + tx + 16 * j] = round_to<T>(ds);
+        ds_s[(4 * ty + i) * kLdP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -482,23 +1278,27 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qrow = q0 + 4 * ty + i;
     if (qrow >= n) continue;
-    T* dst = dqkv + static_cast<int64_t>(b) * n * row_stride + qrow * row_stride +
-             static_cast<int64_t>(h) * 3 * D;
+    float* dst = dqkv + static_cast<int64_t>(b) * n * row_stride + qrow * row_stride +
+                 static_cast<int64_t>(h) * 3 * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = from_float<T>(dq[i][c]);
+    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = dq[i][c];
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fused_mha_bwd_dkv_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                             const T* __restrict__ dout, T* __restrict__ dqkv,
-                             const float* __restrict__ stats, int n, int num_heads,
-                             float scale, int causal) {
+// dK/dV: one block per (sample, head, 64-key tile), looping over the query
+// tiles: s^T and dp^T from the tiles, p and ds from the scratch statistics,
+// dV += p^T dout and dK += ds^T Q.
+template <int D>
+__global__ void __launch_bounds__(kScalarThreads)
+    fused_mha_bwd_dkv_f32_kernel(const float* __restrict__ qkv,
+                                 const uint8_t* __restrict__ mask,
+                                 const float* __restrict__ dout, float* __restrict__ dqkv,
+                                 const float* __restrict__ stats, int n, int num_heads,
+                                 float scale, int causal) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;
+  extern __shared__ float smem_f[];
+  float* k_s = smem_f;
   float* v_s = k_s + kBlockK * kLd;
   float* q_s = v_s + kBlockK * kLd;
   float* do_s = q_s + kBlockQ * kLd;
@@ -517,16 +1317,16 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t row_stride = static_cast<int64_t>(num_heads) * 3 * D;
   const int64_t o_stride = static_cast<int64_t>(num_heads) * D;
-  const T* head = qkv + static_cast<int64_t>(b) * n * row_stride +
-                  static_cast<int64_t>(h) * 3 * D;
-  const T* do_head =
+  const float* head = qkv + static_cast<int64_t>(b) * n * row_stride +
+                      static_cast<int64_t>(h) * 3 * D;
+  const float* do_head =
       dout + static_cast<int64_t>(b) * n * o_stride + static_cast<int64_t>(h) * D;
   const uint8_t* key_valid = mask ? mask + static_cast<int64_t>(b) * n : nullptr;
   const int64_t plane = static_cast<int64_t>(gridDim.z) * num_heads * n;
   const int64_t row_base = (static_cast<int64_t>(b) * num_heads + h) * n;
 
-  load_tile<T, D>(k_s, head + D, row_stride, k0, n, tid);
-  load_tile<T, D>(v_s, head + 2 * D, row_stride, k0, n, tid);
+  load_tile<D>(k_s, head + D, row_stride, k0, n, tid);
+  load_tile<D>(v_s, head + 2 * D, row_stride, k0, n, tid);
 
   float dk[4][kCols], dv[4][kCols];
 #pragma unroll
@@ -541,8 +1341,8 @@ __global__ void __launch_bounds__(kThreads)
   float st[4][4], dpt[4][4];
   for (int q0 = q_begin; q0 < n; q0 += kBlockQ) {
     __syncthreads();  // the previous tile's q_s / do_s / pt_s / dst_s are consumed
-    load_tile<T, D>(q_s, head, row_stride, q0, n, tid);
-    load_tile<T, D>(do_s, do_head, o_stride, q0, n, tid);
+    load_tile<D>(q_s, head, row_stride, q0, n, tid);
+    load_tile<D>(do_s, do_head, o_stride, q0, n, tid);
     if (tid < kBlockQ) {
       const int qrow = q0 + tid;
       const bool live = qrow < n;
@@ -567,8 +1367,8 @@ __global__ void __launch_bounds__(kThreads)
           p = expf(v - m_s[qj]) / l_s[qj];
           if (!masked) ds = p * (dpt[i][j] - d_s[qj]) * scale;
         }
-        pt_s[(4 * ty + i) * kLdP + qj] = round_to<T>(p);
-        dst_s[(4 * ty + i) * kLdP + qj] = round_to<T>(ds);
+        pt_s[(4 * ty + i) * kLdP + qj] = p;
+        dst_s[(4 * ty + i) * kLdP + qj] = ds;
       }
     }
     __syncthreads();
@@ -599,41 +1399,52 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int krow = k0 + 4 * ty + i;
     if (krow >= n) continue;
-    T* dst = dqkv + static_cast<int64_t>(b) * n * row_stride + krow * row_stride +
-             static_cast<int64_t>(h) * 3 * D;
+    float* dst = dqkv + static_cast<int64_t>(b) * n * row_stride + krow * row_stride +
+                 static_cast<int64_t>(h) * 3 * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      dst[D + tx + 16 * c] = from_float<T>(dk[i][c]);
-      dst[2 * D + tx + 16 * c] = from_float<T>(dv[i][c]);
+      dst[D + tx + 16 * c] = dk[i][c];
+      dst[2 * D + tx + 16 * c] = dv[i][c];
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* qkv, const void* mask, const void* out,
-                       const void* dout, void* dqkv, void* stats, int batch, int n,
-                       int num_heads, float scale, int causal, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fwd_f32(const void* qkv, const void* mask, void* out, int batch,
+                           int n, int num_heads, float scale, int causal,
+                           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = allow_smem(fused_mha_fwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, num_heads, batch);
+  fused_mha_fwd_f32_kernel<D><<<grid, kScalarThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), n, num_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_f32(const void* qkv, const void* mask, const void* out,
+                           const void* dout, void* dqkv, void* stats, int batch, int n,
+                           int num_heads, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem_dq = bwd_dq_smem_bytes<D>();
   constexpr size_t smem_dkv = bwd_dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(fused_mha_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_dq));
+  cudaError_t err = allow_smem(fused_mha_bwd_dq_f32_kernel<D>, smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused_mha_bwd_dkv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_dkv));
+  err = allow_smem(fused_mha_bwd_dkv_f32_kernel<D>, smem_dkv);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, num_heads, batch);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  fused_mha_bwd_dq_kernel<T, D><<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const T*>(qkv), m, static_cast<const T*>(out),
-      static_cast<const T*>(dout), static_cast<T*>(dqkv), static_cast<float*>(stats), n,
-      num_heads, scale, causal);
+  fused_mha_bwd_dq_f32_kernel<D><<<grid, kScalarThreads, smem_dq, stream>>>(
+      static_cast<const float*>(qkv), m, static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<float*>(dqkv), static_cast<float*>(stats),
+      n, num_heads, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused_mha_bwd_dkv_kernel<T, D><<<grid, kThreads, smem_dkv, stream>>>(
-      static_cast<const T*>(qkv), m, static_cast<const T*>(dout), static_cast<T*>(dqkv),
-      static_cast<const float*>(stats), n, num_heads, scale, causal);
+  fused_mha_bwd_dkv_f32_kernel<D><<<grid, kScalarThreads, smem_dkv, stream>>>(
+      static_cast<const float*>(qkv), m, static_cast<const float*>(dout),
+      static_cast<float*>(dqkv), static_cast<const float*>(stats), n, num_heads, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -641,48 +1452,49 @@ cudaError_t launch_bwd(const void* qkv, const void* mask, const void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. mask: (batch, n) bytes, 1 = attend, or
-// null. Launches on `stream` without synchronising; returns the launch's
-// cudaError_t (0 on success).
-int mmlearn_fused_mha_fwd(const void* qkv, const void* mask, void* out, int batch,
-                          int n, int num_heads, int head_dim, int dtype, float scale,
-                          int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
-  if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
-  if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(qkv, mask, out, batch, n, num_heads, scale,
-                                     causal, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(qkv, mask, out, batch, n, num_heads, scale,
-                                     causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The backward: dqkv (same shape, type and packing as qkv) from qkv, the
-// forward's output `out` and its cotangent `dout` (batch, n, heads * head_dim),
-// and the mask. `stats` is f32 scratch of 3 * batch * heads * n values. Two
-// launches on `stream`, no synchronisation; returns the first failing
-// launch's cudaError_t (0 on success).
-int mmlearn_fused_mha_bwd(const void* qkv, const void* mask, const void* out,
-                          const void* dout, void* dqkv, void* stats, int batch, int n,
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32 or 64. mask: (batch, n)
+// bytes, 1 = attend, or null. bf16 needs qkv 16-byte aligned. Launches on
+// `stream` without synchronising; returns the launch's cudaError_t (0 on
+// success).
+int mmlearn_fused_mha_fwd(const void* qkv, const void* mask, void* out, int batch, int n,
                           int num_heads, int head_dim, int dtype, float scale, int causal,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 32)
-    return launch_bwd<float, 32>(qkv, mask, out, dout, dqkv, stats, batch, n, num_heads,
-                                 scale, causal, s);
+    return launch_fwd_f32<32>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
   if (dtype == 0 && head_dim == 64)
-    return launch_bwd<float, 64>(qkv, mask, out, dout, dqkv, stats, batch, n, num_heads,
-                                 scale, causal, s);
+    return launch_fwd_f32<64>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
   if (dtype == 1 && head_dim == 32)
-    return launch_bwd<__nv_bfloat16, 32>(qkv, mask, out, dout, dqkv, stats, batch, n,
-                                         num_heads, scale, causal, s);
+    return launch_fwd_bf16<32>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_bwd<__nv_bfloat16, 64>(qkv, mask, out, dout, dqkv, stats, batch, n,
-                                         num_heads, scale, causal, s);
+    return launch_fwd_bf16<64>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: dqkv (same shape, type and packing as qkv) from qkv, the
+// forward's output `out`, the cotangent `dout` (batch, n, heads * head_dim)
+// and the mask. `scratch`: in bf16, 2 * batch * heads * nq * nq bf16 (nq =
+// n rounded up to 16: p and ds, query-major; qkv and dout 16-byte aligned),
+// in f32, 3 * batch * heads * n floats (max, sum, delta). Two launches on
+// `stream`, no synchronisation; returns the first failing launch's
+// cudaError_t (0 on success).
+int mmlearn_fused_mha_bwd(const void* qkv, const void* mask, const void* out,
+                          const void* dout, void* dqkv, void* scratch, int batch, int n,
+                          int num_heads, int head_dim, int dtype, float scale, int causal,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 32)
+    return launch_bwd_f32<32>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
+                              causal, s);
+  if (dtype == 0 && head_dim == 64)
+    return launch_bwd_f32<64>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
+                              causal, s);
+  if (dtype == 1 && head_dim == 32)
+    return launch_bwd_bf16<32>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
+                               causal, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_bwd_bf16<64>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
+                               causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,9 +7,11 @@ reads the qkv Linear's output in place and writes ``(B, N, H * D)`` with no
 transpose; the backward writes ``dqkv`` in the same packing, so the qkv
 Linear's backward reads it with no permute. The CUDA kernels are
 ``csrc/fused_attention.cu`` (built by :mod:`mmlearn_tpu_torch._build` at first
-use); their plain PyTorch versions are :func:`mha_reference`, the math of the
-JAX package's ``_mha_reference_xla``, and :func:`mha_bwd_reference`, the math
-of its ``_bwd_kernel``.
+use): in bf16 on tensor cores, with each head's operands whole in shared
+memory, in f32 scalar. Their plain PyTorch versions are :func:`mha_reference`,
+the math of the JAX package's ``_mha_reference_xla``, and
+:func:`mha_bwd_reference`, the math of its ``_bwd_kernel``; the bf16
+backward computes p and ds bit for bit as the latter does on the card.
 
 :func:`fused_mha` runs through :class:`FusedMHAFunction`, which saves ``qkv``,
 the output and the mask (no log-sum-exp, as the TPU kernel) and recomputes the
@@ -33,13 +35,12 @@ from mmlearn_tpu_torch import _build
 #: masked then averages V over all keys instead of producing NaN
 NEG = -0.7 * float(np.finfo(np.float32).max)
 
-#: launches of the CUDA kernels, one count each: the forward by
-#: :func:`fused_mha`; the backward's dQ kernel (which also writes the rows'
-#: softmax statistics) and dK/dV kernel by
-#: :class:`FusedMHAFunction`; the same three for the head-grouped kernels
-LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd_dq": 0, "fused_mha_bwd_dkv": 0,
-            "fused_mha_packed_fwd": 0, "fused_mha_packed_bwd_dq": 0,
-            "fused_mha_packed_bwd_dkv": 0}
+#: launches of the CUDA kernels: K1's forward by :func:`fused_mha`; K1's
+#: backward's two by :class:`FusedMHAFunction` (bf16: p and ds, then the
+#: three products; f32: dQ, then dK/dV); the head-grouped kernels' forward,
+#: dQ and dK/dV kernels
+LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_packed_fwd": 0,
+            "fused_mha_packed_bwd_dq": 0, "fused_mha_packed_bwd_dkv": 0}
 
 _MAX_SEQ = 2048
 _KERNEL_HEAD_DIMS = (32, 64)
@@ -283,10 +284,11 @@ def _raise_on(error_string, err: int, what: str) -> None:
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The head-grouped kernels load and store 16-byte vectors."""
+    """K1's bf16 kernels copy qkv's (and dout's) rows, and the head-grouped
+    kernels every operand, as 16-byte vectors."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError("fused_mha head-grouped kernels need 16-byte aligned tensors")
+            raise ValueError("fused_mha kernels need 16-byte aligned tensors")
 
 
 def _fused_mha_cuda(
@@ -296,7 +298,7 @@ def _fused_mha_cuda(
     d = three_c // (3 * num_heads)
     out = torch.empty(b, n, num_heads * d, dtype=qkv.dtype, device=qkv.device)
     fwd, _, error_string, prefix = _library(packed)
-    if packed:
+    if packed or qkv.dtype == torch.bfloat16:
         _check_aligned(qkv)
     with torch.cuda.device(qkv.device):
         err = fwd(
@@ -317,19 +319,30 @@ def _fused_mha_bwd_cuda(
     dout = dout.to(qkv.dtype).contiguous()
     if packed:
         _check_aligned(qkv, out, dout)
+    elif qkv.dtype == torch.bfloat16:
+        _check_aligned(qkv, dout)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(3 * b * num_heads * n, dtype=torch.float32, device=qkv.device)
+    if qkv.dtype == torch.bfloat16 and not packed:
+        # K1's p and ds in bf16, (2, B, H, nq, nq) query-major, nq = n rounded
+        # up to 16
+        nq = -(-n // 16) * 16
+        scratch = torch.empty(2 * b * num_heads * nq * nq, dtype=qkv.dtype, device=qkv.device)
+    else:  # each row's max, sum and delta in f32
+        scratch = torch.empty(3 * b * num_heads * n, dtype=torch.float32, device=qkv.device)
     _, bwd, error_string, prefix = _library(packed)
     with torch.cuda.device(qkv.device):
         err = bwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(),
             b, n, num_heads, d, _DTYPE_CODES[qkv.dtype], float(scale), int(causal),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(error_string, err, f"{prefix} backward")
-    LAUNCHES[f"{prefix}_bwd_dq"] += 1
-    LAUNCHES[f"{prefix}_bwd_dkv"] += 1
+    if packed:
+        LAUNCHES[f"{prefix}_bwd_dq"] += 1
+        LAUNCHES[f"{prefix}_bwd_dkv"] += 1
+    else:
+        LAUNCHES[f"{prefix}_bwd"] += 2
     return dqkv
 
 

@@ -43,7 +43,7 @@ TOP = 15  # kernels listed by name
 
 # kernel-name patterns, first match wins
 GROUPS = [
-    ("K1f attention forward", r"fused_mha_fwd_kernel"),
+    ("K1f attention forward", r"fused_mha_fwd_(f32_)?kernel"),
     ("K1b attention backward", r"fused_mha_bwd_"),
     ("K1f-p attention forward, head-grouped", r"packed_fwd_kernel"),
     ("K1b-p attention backward, head-grouped", r"packed_bwd_"),

@@ -7,6 +7,8 @@ plain version on the card (the ``cuda`` test below, and ``chip_smoke.py``).
 Inputs are made from a seed with numpy and fed to both packages in f32.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 from mmlearn_tpu.ops.fused_attention import fused_mha_interpret
 from mmlearn_tpu.ops.fused_attention import interleave_qkv_heads as jax_interleave
 from mmlearn_tpu.ops.fused_attention import supports_fused as jax_supports_fused
+from mmlearn_tpu_torch import _build, profile_step
 from mmlearn_tpu_torch.ops import fused_attention as fa
 
 # the JAX package's own tolerance for this kernel against its reference
@@ -34,13 +37,22 @@ def _mask(kind, b, n, seed):
     mask = rng.random((b, n)) > 0.3
     if kind == "random":
         mask[:, 0] = True
-    else:  # "all_masked": rows whose every visible key is masked
+    elif kind == "all_masked":  # rows whose every visible key is masked
         mask[0, : n // 3] = False  # left padding: early causal rows see none
         mask[1] = False  # a sample with no valid key at all
+    else:
+        mask[:] = True
+        if kind == "right_pad":
+            mask[0, n // 2:] = False
+        elif kind == "left_pad":  # early causal rows see no key
+            mask[0, : n // 3] = False
+        else:  # "empty_sample"
+            mask[1] = False
     return mask
 
 
-@pytest.mark.parametrize("mask_kind", ["none", "random", "all_masked"])
+@pytest.mark.parametrize("mask_kind", ["none", "random", "all_masked", "right_pad", "left_pad",
+                                       "empty_sample"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("n", [77, 197])
@@ -136,3 +148,53 @@ def test_cuda_kernel_matches_plain(d, causal, masked):
         assert fa.LAUNCHES["fused_mha_fwd"] == before + 1
         want = fa.mha_reference(x, mask, h, d ** -0.5, causal)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("source", ["fused_attention", "flash_attention"])
+def test_library_path_follows_the_shared_header(tmp_path, monkeypatch, source):
+    """Both attention sources include ``attention_tiles.cuh``: an edit of the
+    header moves their built library, on a copy of ``csrc``; the same files
+    keep their path, and an edit of one source moves only its own."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    assert '#include "attention_tiles.cuh"' in (csrc / f"{source}.cu").read_text()
+    before = _build.library_path(source)
+    assert _build.library_path(source) == before
+    other = "int8_matmul"
+    other_before = _build.library_path(other)
+    header = csrc / "attention_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build.library_path(source)
+    assert after != before and after.startswith(_build.BUILD_DIR)
+    with open(csrc / f"{source}.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.library_path(source) != after
+    assert _build.library_path(other) != other_before  # every header is in every key
+
+
+def _kernel_names(source: str) -> list[str]:
+    with open(f"{_build.CSRC_DIR}/{source}.cu") as f:
+        return re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", f.read())
+
+
+@pytest.mark.parametrize("source,groups", [
+    ("fused_attention", {"K1f attention forward", "K1b attention backward"}),
+    ("fused_attention_packed", {"K1f-p attention forward, head-grouped",
+                                "K1b-p attention backward, head-grouped"}),
+    ("flash_attention", {"K3f flash attention forward", "K3b flash attention backward"}),
+])
+def test_profile_groups_name_every_attention_kernel(source, groups):
+    """``profile_step`` attributes each attention kernel's device time by its
+    name: every kernel of the source falls in its own forward or backward
+    group, as the profiler prints it (a template instance in the anonymous
+    namespace)."""
+    names = _kernel_names(source)
+    assert names
+    got = {name: profile_step._group(f"void (anonymous namespace)::{name}<64>(int)")
+           for name in names}
+    assert set(got.values()) == groups, got
+    for name, group in got.items():
+        assert ("forward" in group) == ("fwd" in name), (name, group)
