@@ -83,10 +83,13 @@ Phases, each fatal on failure:
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
 checks that K5 never launched there; so does the eighth.
 
-The packed kernels are held to their plain versions (K1's) at batch 8 over
-every case and at the I-JEPA step's grids (teacher and student at batch 256,
-the predictor at 1,024 rows), and timed there beside K1, the plain version,
-SDPA and their bound; K2 is held at the predictor's width 384 too. K3
+The packed kernels are held to their plain versions (K1's) at K1's limits,
+element-wise and as a whole, at batch 8 over every case and at the lengths
+where their code branches (``PACKED_LENGTHS``), and at the I-JEPA step's
+grids (teacher and student at batch 256, the predictor at 1,024 rows); in
+bf16 their output and dqkv also equal K1's on the same input bit for bit.
+They are timed at those grids beside K1, the plain version, SDPA and their
+bound; K2 is held at the predictor's width 384 too. K3
 (``mmlearn_tpu_torch/csrc/flash_attention.cu``) is held to its plain
 versions at batch 8 over every case (N 785, 1,000 and 2,049; no mask,
 right and left padding, a wholly masked sample; causal or not; D 32 and 64;
@@ -136,6 +139,21 @@ IJEPA_ATTENTION = (
     ("student N=84 H=12 D=64", 256, 84, 12, 64),
     ("predictor N=118 H=12 D=32", 1024, 118, 12, 32),
 )
+# K1f-p/K1b-p at batch 8, (N, D): the I-JEPA lengths; where K1's routines
+# branch (whole rows of up to 128 and 224 keys, two sweeps past 224; the
+# backward's first kernel holds 96, 128 or 224 keys in f32 with the next head
+# prefetched, 768 in bf16 without); both sides of every length where K1f-p's
+# plan (ops.fused_attention.packed_fwd_plan: warps a block and ring buffers)
+# changes; the longest that use_packed admits (768 at D=64, 512 at D=32)
+PACKED_LENGTHS = (
+    (118, 32), (196, 64), (84, 64),
+    (64, 64), (65, 64), (96, 64), (97, 64), (128, 64), (129, 64), (160, 64), (161, 64),
+    (224, 64), (225, 64), (256, 64), (257, 64), (384, 64), (385, 64), (768, 64),
+    (128, 32), (129, 32), (160, 32), (161, 32), (192, 32), (193, 32), (224, 32), (225, 32),
+    (288, 32), (289, 32), (352, 32), (353, 32), (480, 32), (481, 32), (512, 32),
+)
+# the f32 route (scalar, PR 3's) at the I-JEPA lengths and the longest
+PACKED_F32_LENGTHS = ((118, 32), (196, 64), (512, 32), (768, 64))
 
 # the flagship's block projections at batch 256: (label, rows, in, out); the
 # dgrad of each is the same product with in and out swapped
@@ -158,19 +176,21 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # version does from f32 scores that the tensor cores sum in another order,
 # so a p that rounds the other way moves a row of the output by an ulp of p
 # times v (reads up to 6.6e-3 over the text grid's draws; 7.4e-3 before, when
-# it rounded unnormalised p); K1f-p rounds unnormalised p (reads 5.6e-3);
-# K1b takes p and ds bit for bit as the plain version (reads 1.8e-7: only
-# the output's rounding of f32 sums in another order, near zero); K1b-p
-# rounds p and ds from f32 values that differ in their last bits (1.1e-3),
-# K2 only its output (2e-7). f32: summation order (reads 1.4e-6).
-# The head-grouped K1f-p/K1b-p keep the limits K1 had before its
-# tensor-core kernels. K5 and its plain version round x / sx to the same ints
-# and dequantize in the same order: only the output's rounding can differ.
+# it rounded unnormalised p); K1b takes p and ds bit for bit as the plain
+# version (reads 1.8e-7: only the output's rounding of f32 sums in another
+# order, near zero); the head-grouped K1f-p/K1b-p compute K1's bits (and are
+# held to equal K1 exactly besides), so they take K1's limits but K1b-p's,
+# which also covers longer rows under a ragged key mask than K1's checks
+# hold (at N=768 K1b and K1b-p read up to 8.7e-7 over 8 draws, bit for bit
+# alike: tools/k1_masked_readings.py); K2 only its output (2e-7). f32:
+# summation order (reads 1.4e-6). K5 and its plain version round x / sx to
+# the same ints and dequantize in the same order: only the output's rounding
+# can differ.
 # K3 rounds where K1f does (unnormalised p in the forward, reads 5.6e-3; p
 # and ds in the backward, 1.7e-3).
 BF16_ATOL = {"fused_mha_fwd": 1.3e-2, "fused_mha_bwd": 4e-7, "layernorm_fwd": 1e-4,
-             "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.5e-2,
-             "fused_mha_packed_bwd": 5e-3, "int8_qmm": 1e-6,
+             "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.3e-2,
+             "fused_mha_packed_bwd": 2e-6, "int8_qmm": 1e-6,
              "flash_attention_fwd": 1.2e-2, "flash_attention_bwd": 4e-3}
 F32_TOL = (5e-6, 0.0)
 # K3's f32 log-sum-exp, values up to ~15: the scores summed in another order
@@ -193,6 +213,11 @@ FLASH_REL_TOL = {"flash_attention_fwd": {"bfloat16": 7e-3, "float32": 3e-6},
 # rounding of tensor-core sums); f32 3.6e-7 and 1.3e-7
 K1_REL_TOL = {"fused_mha_fwd": {"bfloat16": 2.5e-4, "float32": 8e-7},
               "fused_mha_bwd": {"bfloat16": 2e-4, "float32": 3e-7}}
+# K1-p's as a whole: in bf16 K1's (the same bits; reads 1.3e-4 and 8.7e-5);
+# in f32 its own, as its f32 route is PR 3's scalar kernels, which sum in
+# another order than K1's (reads 7.2e-7 and 2.0e-7)
+K1P_REL_TOL = {"fused_mha_packed_fwd": {**K1_REL_TOL["fused_mha_fwd"], "float32": 1.5e-6},
+               "fused_mha_packed_bwd": {**K1_REL_TOL["fused_mha_bwd"], "float32": 4e-7}}
 # draws of K1 at the text grid (k1_draws)
 K1_DRAWS = 12
 # K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
@@ -370,6 +395,37 @@ def k1_check(tag: str, x, mask, h: int, causal: bool, out, dqkv, dout, err: dict
     err["fused_mha_bwd"] = max(err["fused_mha_bwd"], compare(
         f"K1b fused_mha dqkv {tag}", dqkv, want_b, tol("fused_mha_bwd", dn),
         K1_REL_TOL["fused_mha_bwd"][dn]))
+
+
+def k1p_check(tag: str, x, mask, h: int, causal: bool, out, dqkv, dout, err: dict) -> None:
+    """K1f-p's output and K1b-p's dqkv for ``x`` against their plain versions
+    (K1's), element-wise and as a whole; in bf16 also against K1 on the same
+    input (K1b from K1-p's output): equal bit for bit. The largest errors
+    join ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    d = x.shape[-1] // (3 * h)
+    scale, dn = d ** -0.5, _dtype_name(x.dtype)
+    err["fused_mha_packed_fwd"] = max(err.get("fused_mha_packed_fwd", 0.0), compare(
+        f"K1f-p fused_mha {tag}", out, fa.mha_reference(x, mask, h, scale, causal),
+        tol("fused_mha_packed_fwd", dn), K1P_REL_TOL["fused_mha_packed_fwd"][dn]))
+    err["fused_mha_packed_bwd"] = max(err.get("fused_mha_packed_bwd", 0.0), compare(
+        f"K1b-p fused_mha dqkv {tag}", dqkv,
+        fa.mha_bwd_reference(x, mask, out, dout, h, scale, causal),
+        tol("fused_mha_packed_bwd", dn), K1P_REL_TOL["fused_mha_packed_bwd"][dn]))
+    if dn != "bfloat16":
+        return
+    k1_out = fa._fused_mha_cuda(x, mask, h, scale, causal)
+    k1_dqkv = fa._fused_mha_bwd_cuda(x, mask, out, dout, h, scale, causal)
+    torch.cuda.synchronize()
+    diff_out = float((out.float() - k1_out.float()).abs().max())
+    diff_dqkv = float((dqkv.float() - k1_dqkv.float()).abs().max())
+    same = diff_out == 0 and diff_dqkv == 0
+    print(f"K1-p vs K1 {tag}: max |diff| out {diff_out:.3e}, dqkv {diff_dqkv:.3e} "
+          f"(want 0) {'ok' if same else 'FAIL'}")
+    check(same, f"K1-p {tag} is not K1 bit for bit")
 
 
 def kernel_checks(device, gen) -> dict:
@@ -600,53 +656,49 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
 
 def packed_kernel_checks(device, gen, err: dict) -> None:
     """K1f-p and K1b-p, reached through ``fused_mha`` with the variable set,
-    against their plain versions (K1's) at batch 8 over every case: head dim
-    32 and 64; no mask, a ragged key mask, causal, causal with a left-padded
-    mask; f32 and bf16. Their largest errors join ``err``."""
+    at batch 8 over every case at each of ``PACKED_LENGTHS`` in bf16 (and
+    ``PACKED_F32_LENGTHS`` in f32), two head groups: no mask, a ragged key
+    mask, causal, causal with a left-padded mask (early rows see no key);
+    each against its plain version and, in bf16, against K1
+    (:func:`k1p_check`). Their largest errors join ``err``."""
     import torch
 
     from mmlearn_tpu_torch.flagship import ragged_text_batch
     from mmlearn_tpu_torch.ops import fused_attention as fa
 
     b = 8
-    for n, d in ((118, 32), (196, 64)):
+    cases = [(n, d, torch.bfloat16) for n, d in PACKED_LENGTHS]
+    cases += [(n, d, torch.float32) for n, d in PACKED_F32_LENGTHS]
+    for n, d, dtype in cases:
         lens = ragged_text_batch(b, gen, device)["text_attention_mask"].sum(1, keepdim=True)
         ragged = torch.arange(n, device=device)[None] < (lens * n) // 77
         for label, mask, causal in (("", None, False), ("mask", ragged, False),
                                     ("causal", None, True),
                                     ("causal+left-pad mask", ragged.flip(1), True)):
-            for dtype in (torch.bfloat16, torch.float32):
-                dn, h = _dtype_name(dtype), 12
-                x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
-                dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
-                reset_counts()
-                with packed_attention(True):
-                    leaf = x.clone().requires_grad_()
-                    out = fa.fused_mha(leaf, mask, num_heads=h, causal=causal)
-                    (dqkv,) = torch.autograd.grad(out, leaf, dout)
-                torch.cuda.synchronize()
-                check(fa.LAUNCHES["fused_mha_packed_fwd"] == 1
-                      and fa.LAUNCHES["fused_mha_packed_bwd_dq"] == 1
-                      and fa.LAUNCHES["fused_mha_fwd"] == 0,
-                      f"fused_mha with {PACKED_ENV}=1 launched {fa.LAUNCHES}")
-                scale = d ** -0.5
-                tag = f"{label or 'no mask'} B={b} N={n} H={h} D={d} {dn}"
-                err["fused_mha_packed_fwd"] = max(err.get("fused_mha_packed_fwd", 0.0), compare(
-                    f"K1f-p fused_mha {tag}", out, fa.mha_reference(x, mask, h, scale, causal),
-                    tol("fused_mha_packed_fwd", dn)))
-                err["fused_mha_packed_bwd"] = max(err.get("fused_mha_packed_bwd", 0.0), compare(
-                    f"K1b-p fused_mha dqkv {tag}", dqkv,
-                    fa.mha_bwd_reference(x, mask, out.detach(), dout, h, scale, causal),
-                    tol("fused_mha_packed_bwd", dn)))
+            dn, h = _dtype_name(dtype), 2 * fa._head_group(d)
+            x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
+            dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
+            reset_counts()
+            with packed_attention(True):
+                leaf = x.clone().requires_grad_()
+                out = fa.fused_mha(leaf, mask, num_heads=h, causal=causal)
+                (dqkv,) = torch.autograd.grad(out, leaf, dout)
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES["fused_mha_packed_fwd"] == 1
+                  and fa.LAUNCHES["fused_mha_packed_bwd"] == 2
+                  and fa.LAUNCHES["fused_mha_fwd"] == 0 and fa.LAUNCHES["fused_mha_bwd"] == 0,
+                  f"fused_mha with {PACKED_ENV}=1 launched {fa.LAUNCHES}")
+            k1p_check(f"{label or 'no mask'} B={b} N={n} H={h} D={d} {dn}", x, mask, h, causal,
+                      out.detach(), dqkv, dout, err)
     reset_counts()
 
 
 def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
     """At the I-JEPA step's attention shapes and grids, bf16: K1f-p/K1b-p
-    and K1f/K1b (K1 runs there by default) against their plain version,
-    then the times of each beside the plain version's, SDPA's (a yardstick
-    the port never calls) and the bound. Returns rows as
-    :func:`kernels_at_batch`."""
+    and K1f/K1b (K1 runs there by default) against their plain version, and
+    K1-p against K1 bit for bit, then the times of each beside the plain
+    version's, SDPA's (a yardstick the port never calls) and the bound.
+    Returns rows as :func:`kernels_at_batch`."""
     import torch
     import torch.nn.functional as F
 
@@ -672,17 +724,8 @@ def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
             dqkv = fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False, packed)
             torch.cuda.synchronize()
             tag = f"{label} B={b} bf16"
-            if packed:
-                want_b = fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False)
-                err["fused_mha_packed_fwd"] = max(err.get("fused_mha_packed_fwd", 0.0), compare(
-                    f"{name} fused_mha {tag}", out, want, tol("fused_mha_packed_fwd",
-                                                               "bfloat16")))
-                err["fused_mha_packed_bwd"] = max(err.get("fused_mha_packed_bwd", 0.0), compare(
-                    f"K1b-p fused_mha dqkv {tag}", dqkv, want_b,
-                    tol("fused_mha_packed_bwd", "bfloat16")))
-                del want_b
-            else:
-                k1_check(tag, qkv, None, h, False, out, dqkv, dout, err)
+            check_kernels = k1p_check if packed else k1_check
+            check_kernels(tag, qkv, None, h, False, out, dqkv, dout, err)
             rows[f"{name} {label} B={b}"] = (
                 cuda_ms(lambda: fa._fused_mha_cuda(qkv, None, h, scale, False, packed)),
                 plain_fwd, lib_fwd,
@@ -1377,7 +1420,7 @@ def flagship_launches(task, int8_qmm: int) -> dict:
     backward's two passes twice, K5 ``int8_qmm`` times."""
     depth = sum(len(enc.blocks) for enc in task.encoders.values())
     return {"fused_mha_fwd": depth, "fused_mha_bwd": 2 * depth, "fused_mha_packed_fwd": 0,
-            "fused_mha_packed_bwd_dq": 0, "fused_mha_packed_bwd_dkv": 0, "layernorm_fwd": 2 * depth,
+            "fused_mha_packed_bwd": 0, "layernorm_fwd": 2 * depth,
             "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth,
             "int8_qmm": int8_qmm * depth, **NO_FLASH}
 
@@ -1423,12 +1466,11 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
     fwd = sum(len(m.blocks) for m in (task.teacher, task.encoder, task.predictor))
     bwd = len(task.encoder.blocks) + len(task.predictor.blocks)
     on = "fused_mha_packed" if packed else "fused_mha"
-    # K1's backward is two kernels (p and ds, then the products); K1b-p's two
-    # are dQ and dK/dV
+    # each backward is two kernels (p and ds, then the products)
     k1, k1p = (0, 1) if packed else (1, 0)
     want = {"fused_mha_fwd": k1 * fwd, "fused_mha_bwd": k1 * 2 * bwd,
-            "fused_mha_packed_fwd": k1p * fwd, "fused_mha_packed_bwd_dq": k1p * bwd,
-            "fused_mha_packed_bwd_dkv": k1p * bwd, "layernorm_fwd": 2 * fwd,
+            "fused_mha_packed_fwd": k1p * fwd, "fused_mha_packed_bwd": k1p * 2 * bwd,
+            "layernorm_fwd": 2 * fwd,
             "layernorm_bwd_rows": 2 * bwd, "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0,
             **NO_FLASH}
     print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
@@ -1540,7 +1582,7 @@ def ijepa_path(device) -> dict:
             total[k] = total.get(k, 0) + v
     rel = abs(first[True] - first[False]) / abs(first[False])
     print(f"I-JEPA first loss, K1 {first[False]:.6f} vs head-grouped {first[True]:.6f}: "
-          f"rel diff {rel:.3e} (tol {LOSS_RTOL})")
+          f"rel diff {rel:.3e} (tol {LOSS_RTOL}; 0 where K1-p computes K1's bits)")
     check(rel <= LOSS_RTOL, "the two attention kernels give different I-JEPA losses")
     return total
 
@@ -1751,7 +1793,7 @@ def main() -> int:
         "fused_mha_packed_bwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention_packed.cu",
                                  "mmlearn_tpu/ops/fused_attention.py:448",
                                  "K1b-p predictor N=118 H=12 D=32 B=1024",
-                                 ("fused_mha_packed_bwd_dq", "fused_mha_packed_bwd_dkv")),
+                                 ("fused_mha_packed_bwd",)),
         "int8_qmm": ("cuda", "mmlearn_tpu_torch/csrc/int8_matmul.cu",
                      "mmlearn_tpu/ops/int8_matmul.py:63", "K5 image fc1 fwd M=50432 K=768 N=3072",
                      ("int8_qmm",)),

@@ -70,8 +70,8 @@
 // loads overlapped across heads, are later work.
 //
 // K1b (bf16): two kernels on the stream, nothing accumulated across blocks,
-// so dqkv is deterministic (the K1b section below says how p and ds are
-// taken bit for bit): the first computes p and ds for every (query, key)
+// so dqkv is deterministic (the backward section of k1_arithmetic.cuh says
+// how p and ds are taken bit for bit): the first computes p and ds for every (query, key)
 // pair, one block of 8 warps per (head, sample), K and V whole in shared
 // memory, and writes them in bf16 to (B, H, nq, nq) planes (4 B H nq^2
 // bytes of scratch, 0.53 GB at the image layer's b256); the second reads the
@@ -85,6 +85,10 @@
 // 64 tiles, 4 x 4 values a thread; its backward recomputes the rows' max
 // and sum in a first sweep of its dQ kernel and passes them, with delta, to
 // its dK/dV kernel through an f32 (3, B, H, N) scratch.
+//
+// The bf16 kernels' per-strip and per-head work (fwd_strip, ds_head,
+// grad_head) lives in k1_arithmetic.cuh, shared with the head-grouped
+// K1f-p/K1b-p (csrc/fused_attention_packed.cu), which compute the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,18 +96,11 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "k1_arithmetic.cuh"
 
 namespace {
 
 // ------------------------------------------------- bf16: tensor-core kernels
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-
-// Shared-memory rows of a head's operand: n rounded up to 32, zeros past n,
-// so that the products run over pairs of 16-key (16-row) groups with no
-// check between the two.
-__host__ __device__ __forceinline__ int kv_rows(int n) { return (n + 31) & ~31; }
 
 // Bytes of shared memory for two whole (kv_rows(n), D) bf16 operands and
 // `extra` bytes a row.
@@ -112,174 +109,14 @@ size_t operands_bytes(int n, int extra) {
   return static_cast<size_t>(kv_rows(n)) * (2 * (D + 8) * sizeof(bf16) + extra);
 }
 
-// Start copying rows 0 .. kv_rows(n) - 1 of a (n, D) operand with row
-// stride `ld` into shared memory rows of D + 8; rows past n are zeros.
-template <int D>
-__device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, long long ld, int n,
-                                           int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  const int total = kv_rows(n) * kChunks;
-  for (int i = tid; i < total; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r < n;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
-  }
-}
-
-// A warp starts copying rows r0 .. r0 + 15 of a (n, D) operand into its own
-// 16 shared-memory rows of D + 8 (zeros past n).
-template <int D>
-__device__ __forceinline__ void strip_async(bf16* dst, const bf16* src, long long ld, int r0,
-                                            int n, int lane) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + (r0 + r) * ld + c : src, ok ? 16 : 0);
-  }
-}
-
-// A operands of a warp's 16 staged rows by D, by ldmatrix: a[kc] covers
-// columns 16 kc .. 16 kc + 15 (lanes 0-15 address rows 0-15 at column 16 kc,
-// lanes 16-31 the same rows at 16 kc + 8).
-template <int D>
-__device__ __forceinline__ void strip_a(uint32_t (*a)[4], const bf16* stage, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldsm_x4(a[kc], stage + (lane & 15) * (D + 8) + 16 * kc + ((lane >> 4) << 3));
-}
-
-// The largest of each row's values in s[0 .. 2 cg), over the four lanes of
-// the row.
-template <int G>
-__device__ __forceinline__ void row_max(const float (&s)[2 * G][4], int cg, float& mx_lo,
-                                        float& mx_hi) {
-  mx_lo = mx_hi = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < 2 * G; ++nt) {
-    if (nt < 2 * cg) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-  }
-#pragma unroll
-  for (int m = 1; m < 4; m <<= 1) {
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, m));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, m));
-  }
-}
-
-// s = exp(s - m) in place over s[0 .. 2 cg); this lane's part of each row's
-// sum is added to sum_lo / sum_hi.
-template <int G>
-__device__ __forceinline__ void exp_sum(float (&s)[2 * G][4], int cg, float m_lo, float m_hi,
-                                        float& sum_lo, float& sum_hi) {
-#pragma unroll
-  for (int nt = 0; nt < 2 * G; ++nt) {
-    if (nt < 2 * cg) {
-      s[nt][0] = expf(s[nt][0] - m_lo);
-      s[nt][1] = expf(s[nt][1] - m_lo);
-      s[nt][2] = expf(s[nt][2] - m_hi);
-      s[nt][3] = expf(s[nt][3] - m_hi);
-      sum_lo += s[nt][0] + s[nt][1];
-      sum_hi += s[nt][2] + s[nt][3];
-    }
-  }
-}
-
-// What a warp's forward strip needs to score its rows: the strip's Q in A
-// fragments, the head's K and key flags in shared memory, and the mask rule.
-template <int D>
-struct FwdStrip {
-  uint32_t qa[D / 16][4];
-  const bf16* k_s;
-  const uint8_t* valid_s;
-  int n, row_lo;
-  bool plain;  // no key mask and not causal: only keys past n are left out
-  int causal;
-  float scale;
-};
-
-// s = the scaled scores of the strip's 16 rows against keys 16 g0 .. 16 (g0
-// + cg) - 1 (cg <= G, even): NEG where the key is masked or causal-hidden,
-// -inf past n.
-template <int D, int G>
-__device__ __forceinline__ void score_chunk(float (&s)[2 * G][4], const FwdStrip<D>& st, int g0,
-                                            int cg, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2 * G; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-  // groups in pairs: a pair's 8 B loads and 16 products, four accumulator
-  // chains, issue with no check between them
-#pragma unroll
-  for (int j = 0; j < G; j += 2) {
-    if (j < cg) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-        for (int jj = j; jj < j + 2; ++jj) {
-          uint32_t bb[4];
-          load_b_rows(bb, st.k_s, D + 8, (g0 + jj) * 16, kc * 16, lane);
-          mma_bf16(s[2 * jj], st.qa[kc], bb);
-          mma_bf16(s[2 * jj + 1], st.qa[kc], bb + 2);
-        }
-      }
-    }
-  }
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 2 * G; ++nt) {
-    if (nt < 2 * cg) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = g0 * 16 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? st.row_lo : st.row_lo + 8;
-        float x;
-        if (col >= st.n) {
-          x = -INFINITY;
-        } else if (!st.plain && (!st.valid_s[col] || (st.causal && col > row))) {
-          x = kNeg;
-        } else {
-          x = s[nt][e] * st.scale;
-        }
-        s[nt][e] = x;
-      }
-    }
-  }
-}
-
-// acc += round(p * inv) V over keys 16 g0 .. 16 (g0 + cg) - 1 (cg even),
-// where s holds p = exp(s - m): p / l is rounded to bf16, as the TPU kernel
-// rounds.
-template <int D, int G>
-__device__ __forceinline__ void pv_chunk(float (&acc)[D / 8][4], const float (&s)[2 * G][4],
-                                         int g0, int cg, float inv_lo, float inv_hi,
-                                         const bf16* v_s, int lane) {
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    if ((j & ~1) < cg) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0] * inv_lo, s[2 * j][1] * inv_lo);
-      pa[1] = pack_bf16(s[2 * j][2] * inv_hi, s[2 * j][3] * inv_hi);
-      pa[2] = pack_bf16(s[2 * j + 1][0] * inv_lo, s[2 * j + 1][1] * inv_lo);
-      pa[3] = pack_bf16(s[2 * j + 1][2] * inv_hi, s[2 * j + 1][3] * inv_hi);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bb[4];
-        load_b_cols(bb, v_s, D + 8, (g0 + j) * 16, dp * 16, lane);
-        mma_bf16(acc[2 * dp], pa, bb);
-        mma_bf16(acc[2 * dp + 1], pa, bb + 2);
-      }
-    }
-  }
-}
-
-// K1f. G: the 16-key groups of scores a warp holds in registers; with
-// kOneSweep (N <= 16 G) a strip's whole rows, else chunks of G groups in two
-// sweeps. The instances and their register budgets (launch_fwd_bf16) were
-// chosen by timing on the H100 at the paths' shapes: three blocks an SM where
-// the scores fit 168 registers a thread (14 groups: the image tower and the
-// I-JEPA teacher; 64-key chunks past 224 keys), else the compiler's choice.
+// K1f: one block of 4 warps per (head, sample), each warp a 16-row strip at
+// a time (fwd_strip). G: the 16-key groups of scores a warp holds in
+// registers; with kOneSweep (N <= 16 G) a strip's whole rows, else chunks of
+// G groups in two sweeps. The instances and their register budgets
+// (launch_fwd_bf16) were chosen by timing on the H100 at the paths' shapes:
+// three blocks an SM where the scores fit 168 registers a thread (14
+// groups: the image tower and the I-JEPA teacher; 64-key chunks past 224
+// keys), else the compiler's choice.
 template <int D, int G, bool kOneSweep>
 __global__ void __launch_bounds__(kThreads, (G == 14 || !kOneSweep) ? 3 : 1)
     fused_mha_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
@@ -292,7 +129,6 @@ __global__ void __launch_bounds__(kThreads, (G == 14 || !kOneSweep) ? 3 : 1)
   uint8_t* valid_s = reinterpret_cast<uint8_t*>(v_s + rows * kLd);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y;
   const long long row_stride = 3LL * heads * D;
   const long long o_stride = static_cast<long long>(heads) * D;
@@ -329,331 +165,29 @@ __global__ void __launch_bounds__(kThreads, (G == 14 || !kOneSweep) ? 3 : 1)
     if (r0 + kWarps * 16 < n)
       strip_async<D>(q_stage, head, row_stride, r0 + kWarps * 16, n, lane);
     cp_async_commit();
-    st.row_lo = r0 + g;
-    // key groups this strip sees, even
-    const int ng = kv_rows(skip ? min(n, r0 + 16) : n) >> 4;
-
-    // each row's max m and sum l: over the whole row, or a first sweep over
-    // chunks of G groups with an online rescale
-    float s[2 * G][4];
-    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-    for (int g0 = 0; g0 < ng; g0 += G) {
-      const int cg = kOneSweep ? ng : min(G, ng - g0);
-      score_chunk<D, G>(s, st, g0, cg, lane);
-      float mx_lo, mx_hi;
-      row_max<G>(s, cg, mx_lo, mx_hi);
-      // key 0 is in the first chunk, so the max is finite (at least NEG)
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      l_lo *= expf(m_lo - mn_lo);
-      l_hi *= expf(m_hi - mn_hi);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      exp_sum<G>(s, cg, m_lo, m_hi, l_lo, l_hi);
-      if (kOneSweep) break;
-    }
-#pragma unroll
-    for (int m = 1; m < 4; m <<= 1) {
-      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
-      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
-    }
-    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-
-    // acc = round(p / l) V: from the scores held, or a second sweep that
-    // recomputes them chunk by chunk
-    float acc[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    if constexpr (kOneSweep) {
-      pv_chunk<D, G>(acc, s, 0, ng, inv_lo, inv_hi, v_s, lane);
-    } else {
-      for (int g0 = 0; g0 < ng; g0 += G) {
-        const int cg = min(G, ng - g0);
-        score_chunk<D, G>(s, st, g0, cg, lane);
-        float unused_lo = 0.f, unused_hi = 0.f;
-        exp_sum<G>(s, cg, m_lo, m_hi, unused_lo, unused_hi);
-        pv_chunk<D, G>(acc, s, g0, cg, inv_lo, inv_hi, v_s, lane);
-      }
-    }
-
-    const int row_lo = r0 + g, row_hi = row_lo + 8;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int c = dn * 8 + 2 * t;
-      if (row_lo < n)
-        *reinterpret_cast<uint32_t*>(oh + row_lo * o_stride + c) =
-            pack_bf16(acc[dn][0], acc[dn][1]);
-      if (row_hi < n)
-        *reinterpret_cast<uint32_t*>(oh + row_hi * o_stride + c) =
-            pack_bf16(acc[dn][2], acc[dn][3]);
-    }
+    fwd_strip<D, G, kOneSweep, kLd>(st, v_s, r0, skip, oh, o_stride, lane);
   }
 }
 
 // ------------------------------------------------------- K1b (bf16)
 //
-// The plain version rounds p and ds to bf16 from f32 values, and a
-// last-bit difference in either moves a rounding: in an early causal row
-// (p ~ 1/2, ds ~ 1) that is a whole ulp of ds times a row of q in dK (up to
-// 6.5e-3 at the text tower's grid). So K1b's first kernel computes p and ds
-// bit for bit as the plain version does on the card, and only the products
-// after the roundings go to the tensor cores, in its second kernel:
-//   - s = q . k and dp = dout . v as f32 FMA chains over d = 0 .. D - 1 from
-//     0, the order of cuBLAS's f32 GEMM (not mma.sync, whose sums round
-//     elsewhere), s then times scale;
-//   - m the row's max, e = expf(s - m), l summed as PyTorch's warp softmax
-//     sums a row (lane L of 32 adds keys L, L + 32, ... in order, then an
-//     xor butterfly 16 .. 1), p = e / l;
-//   - delta = rowsum(dout * out) as PyTorch sums 64 (32) products over a
-//     warp: lane L adds columns L and L + 32, then the same butterfly;
-//   - ds = (p (dp - delta)) scale, zero where masked; p and ds rounded to
-//     nearest even.
-// A warp of the first kernel takes TM rows at a time, lane L the keys L, L +
-// 32, ..., so a lane's part of a row's sum, and the butterfly, are
-// PyTorch's as they stand. The statistics come from the chains: the
-// forward's tensor-core scores (another last bit) are not used, and K1f
-// saves nothing for K1b.
+// Two kernels on the stream, nothing accumulated across blocks (the
+// backward section of k1_arithmetic.cuh says how p and ds are taken bit for
+// bit): one block per (head, sample) each.
 
-// Query and key rows of the backward's p and ds planes: n rounded up to 16.
-// A transposed operand xt[d * ldt + row] in shared memory has rows of ldt =
-// a multiple of 64 plus 8 bf16, so the words of an mma B operand (lane 4 g
-// + t: row g, word t) lie in 32 different banks; zeros past n.
-__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-__host__ __device__ __forceinline__ int t_ld(int n) { return ((n + 63) & ~63) + 8; }
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-// two bf16 at p (4-byte aligned), shared or device memory
-__device__ __forceinline__ uint32_t word_at(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two consecutive values of a row of K or V in shared memory as f32: kept
-// in f32 (one 8-byte load), or in bf16 past 224 keys (one 4-byte load).
-__device__ __forceinline__ float2 pair_at(const float* y) {
-  return *reinterpret_cast<const float2*>(y);
-}
-__device__ __forceinline__ float2 pair_at(const bf16* y) {
-  const uint32_t w = word_at(y);
-  return make_float2(bf16_lo(w), bf16_hi(w));
-}
-
-// c[r][it] = sum over d of x[d][r] y[lane + 32 it][d], each an f32 FMA chain
-// over d = 0 .. D - 1 from 0. x: TM rows transposed in f32 (x[d * TM + r]);
-// y: rows of D + 2 values in shared memory (so that the 32 lanes' rows lie
-// in different banks).
-template <int D, int TM, int ITS, typename T>
-__device__ __forceinline__ void chain_rows(float (&c)[TM][ITS], const float* x, const T* y,
-                                           int lane) {
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int it = 0; it < ITS; ++it) c[r][it] = 0.f;
-  const T* yl = y + lane * (D + 2);
-#pragma unroll 4
-  for (int d = 0; d < D; d += 2) {
-    float2 yv[ITS];
-#pragma unroll
-    for (int it = 0; it < ITS; ++it) yv[it] = pair_at(yl + it * 32 * (D + 2) + d);
-    float x0[TM], x1[TM];
-#pragma unroll
-    for (int r = 0; r < TM; r += 2) {
-      const float2 a = *reinterpret_cast<const float2*>(x + d * TM + r);
-      const float2 z = *reinterpret_cast<const float2*>(x + (d + 1) * TM + r);
-      x0[r] = a.x;
-      x0[r + 1] = a.y;
-      x1[r] = z.x;
-      x1[r + 1] = z.y;
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) c[r][it] = __fmaf_rn(x0[r], yv[it].x, c[r][it]);
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) c[r][it] = __fmaf_rn(x1[r], yv[it].y, c[r][it]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-constexpr int kDsWarps = 8;  // warps of a block of K1b's first kernel
-constexpr int kDsThreads = 32 * kDsWarps;
-
-__device__ __forceinline__ void store_pair(float* dst, uint32_t w) {
-  *reinterpret_cast<float2*>(dst) = make_float2(bf16_lo(w), bf16_hi(w));
-}
-__device__ __forceinline__ void store_pair(bf16* dst, uint32_t w) {
-  *reinterpret_cast<uint32_t*>(dst) = w;
-}
-// 8 bf16 (16 bytes) into a row of K or V in shared memory
-template <typename T>
-__device__ __forceinline__ void store_eight(T* dst, uint4 x) {
-  store_pair(dst, x.x);
-  store_pair(dst + 2, x.y);
-  store_pair(dst + 4, x.z);
-  store_pair(dst + 6, x.w);
-}
-
-// Copy an (n, D) operand with row stride ld into shared memory transposed,
-// xt[d * ldt + row], zeros for rows n .. ldt - 1: a thread takes two rows
-// and 8 columns (two 16-byte loads, eight 4-byte stores).
-template <int D, int kThreadsT>
-__device__ __forceinline__ void load_transposed(bf16* xt, int ldt, const bf16* src, long long ld,
-                                                int n, int tid) {
-  const int pairs = ldt / 2, total = pairs * (D / 8);
-  for (int base = 0; base < total; base += 4 * kThreadsT) {  // 4 pairs a thread in flight
-    uint4 x0[4], x1[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + tid + u * kThreadsT, k0 = 2 * (i % pairs), c = (i / pairs) * 8;
-      x0[u] = x1[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < total && k0 < n) x0[u] = *reinterpret_cast<const uint4*>(src + k0 * ld + c);
-      if (i < total && k0 + 1 < n)
-        x1[u] = *reinterpret_cast<const uint4*>(src + (k0 + 1) * ld + c);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + tid + u * kThreadsT, k0 = 2 * (i % pairs), c = (i / pairs) * 8;
-      if (i >= total) continue;
-      const uint32_t a[4] = {x0[u].x, x0[u].y, x0[u].z, x0[u].w};
-      const uint32_t z[4] = {x1[u].x, x1[u].y, x1[u].z, x1[u].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // columns c + 2 j and c + 2 j + 1 of both rows
-        *reinterpret_cast<uint32_t*>(xt + (c + 2 * j) * ldt + k0) =
-            __byte_perm(a[j], z[j], 0x5410);
-        *reinterpret_cast<uint32_t*>(xt + (c + 2 * j + 1) * ldt + k0) =
-            __byte_perm(a[j], z[j], 0x7632);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
-// dst rows r and r + 8 (columns 2 t, 2 t + 1 of 8 dn + ...) of a warp's 16 x D
-// f32 accumulators, into a bf16 (rows, D) operand with row stride ld.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n,
-                                           const float (&acc)[D / 8][4], int t) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
-    if (r < n) *reinterpret_cast<uint32_t*>(dst + r * ld + c) = pack_bf16(acc[dn][0], acc[dn][1]);
-    if (r + 8 < n)
-      *reinterpret_cast<uint32_t*>(dst + (r + 8) * ld + c) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
-}
-
-// K1b, second kernel: dv = p^T dout and dk = ds^T q over key strips (q and
-// dout transposed in shared memory), then dq = ds k over query strips (k
-// transposed), all on the tensor cores from the planes of the first kernel.
-// With causal and no key mask a key strip starts, and a query strip stops,
-// at its diagonal.
+// K1b, second kernel: the products from the planes (grad_head).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_mha_bwd_grad_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                               const bf16* __restrict__ p_s, const bf16* __restrict__ ds_s,
                               bf16* __restrict__ dqkv, int n, int heads, int skip) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldt = t_ld(n), nq = round16(n);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
-  bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* xb = xa + D * ldt;
-
-  const long long row_stride = 3LL * heads * D;
-  const long long o_stride = static_cast<long long>(heads) * D;
-  const long long head_off = static_cast<long long>(b) * n * row_stride + 3LL * h * D;
-  const bf16* head = qkv + head_off;
-  bf16* dh = dqkv + head_off;
-  const bf16* doh = dout + static_cast<long long>(b) * n * o_stride + static_cast<long long>(h) * D;
-  const long long plane = (static_cast<long long>(b) * heads + h) * nq * nq;
-  const bf16* pp = p_s + plane;
-  const bf16* dsp = ds_s + plane;
-
-  load_transposed<D, kThreads>(xa, ldt, head, row_stride, n, tid);  // q^T
-  load_transposed<D, kThreads>(xb, ldt, doh, o_stride, n, tid);     // dout^T
-  __syncthreads();
-  for (int k0 = warp * 16; k0 < n; k0 += kWarps * 16) {
-    float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-      dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-    }
-#pragma unroll 4
-    for (int r0 = skip ? k0 : 0; r0 < nq; r0 += 16) {
-      // the (rows r0.., keys k0..) blocks of p and ds, transposed by 8 x 8
-      // into A operands of p^T and ds^T (keys by rows)
-      const long long at = static_cast<long long>(r0 + g) * nq + k0 + 2 * t;
-      const uint32_t pa[4] = {transpose8x8(word_at(pp + at)), transpose8x8(word_at(pp + at + 8)),
-                              transpose8x8(word_at(pp + at + 8 * nq)),
-                              transpose8x8(word_at(pp + at + 8 * nq + 8))};
-      const uint32_t da[4] = {transpose8x8(word_at(dsp + at)),
-                              transpose8x8(word_at(dsp + at + 8)),
-                              transpose8x8(word_at(dsp + at + 8 * nq)),
-                              transpose8x8(word_at(dsp + at + 8 * nq + 8))};
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {  // columns 16 j .. 16 j + 15 of dv and dk
-        uint32_t bd[4], bq[4];
-        load_b_rows(bd, xb, ldt, 16 * j, r0, lane);
-        load_b_rows(bq, xa, ldt, 16 * j, r0, lane);
-        mma_bf16(dv[2 * j], pa, bd);
-        mma_bf16(dv[2 * j + 1], pa, bd + 2);
-        mma_bf16(dk[2 * j], da, bq);
-        mma_bf16(dk[2 * j + 1], da, bq + 2);
-      }
-    }
-    store_rows<D>(dh + D, row_stride, k0 + g, n, dk, t);
-    store_rows<D>(dh + 2 * D, row_stride, k0 + g, n, dv, t);
-  }
-
-  __syncthreads();  // every warp is done with q^T
-  load_transposed<D, kThreads>(xa, ldt, head + D, row_stride, n, tid);  // k^T
-  __syncthreads();
-  for (int r0 = warp * 16; r0 < n; r0 += kWarps * 16) {
-    float acc[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    const int kend = skip ? r0 + 16 : nq;
-#pragma unroll 4
-    for (int key0 = 0; key0 < kend; key0 += 16) {
-      const long long at = static_cast<long long>(r0 + g) * nq + key0 + 2 * t;
-      const uint32_t da[4] = {word_at(dsp + at), word_at(dsp + at + 8 * nq), word_at(dsp + at + 8),
-                              word_at(dsp + at + 8 * nq + 8)};
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        uint32_t bk[4];
-        load_b_rows(bk, xa, ldt, 16 * j, key0, lane);
-        mma_bf16(acc[2 * j], da, bk);
-        mma_bf16(acc[2 * j + 1], da, bk + 2);
-      }
-    }
-    store_rows<D>(dh, row_stride, r0 + g, n, acc, t);
-  }
+  grad_head<D>(smem, qkv, dout, p_s, ds_s, dqkv, n, heads, skip, blockIdx.x, blockIdx.y);
 }
 
-// K1b, first kernel: p and ds of every (query, key) pair, rounded to bf16,
-// into the query-major planes p_s and ds_s, (B, H, nq, nq), nq = n rounded
-// up to 16 (rows and keys past n hold finite values, ds = 0). One block of
-// 8 warps per (head, sample) holds the head's K and V in shared memory, in
-// f32 (T = float) or, past 224 keys, bf16; a warp takes TM query rows at a
-// time, lane L keys L + 32 it, it < ITS.
+// K1b, first kernel: p and ds of every (query, key) pair into the planes
+// (ds_head). One block of 8 warps per (head, sample) holds the head's K and
+// V in shared memory, in f32 (T = float) or, past 224 keys, bf16.
 template <int D, int TM, int ITS, typename T>
 __global__ void __launch_bounds__(kDsThreads, 1)
     fused_mha_bwd_ds_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
@@ -681,159 +215,14 @@ __global__ void __launch_bounds__(kDsThreads, 1)
   const long long o_stride = static_cast<long long>(heads) * D;
   const bf16* head = qkv + static_cast<long long>(b) * n * row_stride + 3LL * h * D;
   const long long o_off = static_cast<long long>(b) * n * o_stride + static_cast<long long>(h) * D;
-  const bf16* oh = out + o_off;
-  const bf16* doh = dout + o_off;
   const long long plane = (static_cast<long long>(b) * heads + h) * nq * nq;
   const uint8_t* valid = mask ? mask + static_cast<long long>(b) * n : nullptr;
-  const bool plain = !valid && !causal;
 
-  // K and V: 16-byte chunks, 8 a thread loaded before any is stored
-  constexpr int kChunks = kKeys * (D / 8);
-  for (int base = 0; base < kChunks; base += 8 * kDsThreads) {
-    uint4 kc[8], vc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = base + tid + j * kDsThreads, r = i / (D / 8), c = 8 * (i % (D / 8));
-      kc[j] = vc[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < kChunks && r < n) {
-        kc[j] = *reinterpret_cast<const uint4*>(head + r * row_stride + D + c);
-        vc[j] = *reinterpret_cast<const uint4*>(head + r * row_stride + 2 * D + c);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = base + tid + j * kDsThreads, r = i / (D / 8), c = 8 * (i % (D / 8));
-      if (i < kChunks) {
-        store_eight(k_s + r * kLd + c, kc[j]);
-        store_eight(v_s + r * kLd + c, vc[j]);
-      }
-    }
-  }
-  for (int i = tid; i < kKeys; i += kDsThreads) valid_s[i] = i < n && (!valid || valid[i]);
+  load_kv_rows<D, ITS>(k_s, v_s, valid_s, head, row_stride, valid, n, tid);
   __syncthreads();
-
-  // a lane's words of a set of TM rows of q and dout (the next set's are
-  // loaded while the current one is computed)
-  constexpr int kWords = TM * D / 64;
-  uint32_t qw[kWords], dw[kWords];
-  auto fetch = [&](int rs) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
-      const bool ok = rs + r < n;
-      qw[k] = ok ? word_at(head + (rs + r) * row_stride + c) : 0u;
-      dw[k] = ok ? word_at(doh + (rs + r) * o_stride + c) : 0u;
-    }
-  };
-  fetch(warp * TM);
-  for (int r0 = warp * TM; r0 < nq; r0 += kDsWarps * TM) {
-    __syncwarp();  // every lane is done with the last rows
-    if (r0 >= n) {  // rows past n: p = ds = 0
-      for (int i = lane; i < 2 * TM * (nq / 8); i += 32) {
-        const int row = i / (nq / 8), c = 8 * (i % (nq / 8));
-        *reinterpret_cast<uint4*>((row < TM ? p_s : ds_s) + plane +
-                                  static_cast<long long>(r0 + row % TM) * nq + c) =
-            make_uint4(0u, 0u, 0u, 0u);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
-      qt[c * TM + r] = bf16_lo(qw[k]);
-      qt[(c + 1) * TM + r] = bf16_hi(qw[k]);
-      dot[c * TM + r] = bf16_lo(dw[k]);
-      dot[(c + 1) * TM + r] = bf16_hi(dw[k]);
-    }
-    __syncwarp();  // the rows are written
-    if (r0 + kDsWarps * TM < nq) fetch(r0 + kDsWarps * TM);
-    // out at columns lane, lane + 32, for delta
-    float ov[TM][D / 32];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j)
-        ov[r][j] = r0 + r < n ? __bfloat162float(oh[(r0 + r) * o_stride + lane + 32 * j]) : 0.f;
-
-    float s[TM][ITS];
-    chain_rows<D, TM, ITS>(s, qt, k_s, lane);
-    // delta of each row as PyTorch sums it: lane L adds dout * out at
-    // columns L (and L + 32), then the butterfly
-    float delta[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j)
-        part = __fadd_rn(part, __fmul_rn(dot[(lane + 32 * j) * TM + r], ov[r][j]));
-      delta[r] = warp_sum(part);
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = r0 + r;
-      float m = -INFINITY;
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) {
-        const int key = lane + 32 * it;
-        float x;
-        if (key >= n) {
-          x = -INFINITY;
-        } else if (!plain && (!valid_s[key] || (causal && key > row))) {
-          x = kNeg;
-        } else {
-          x = __fmul_rn(s[r][it], scale);
-        }
-        s[r][it] = x;
-        m = fmaxf(m, x);
-      }
-      m = warp_max(m);
-      float part = 0.f;
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) {
-        s[r][it] = expf(__fsub_rn(s[r][it], m));
-        part = __fadd_rn(part, s[r][it]);
-      }
-      const float l = warp_sum(part);
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) s[r][it] = __fdiv_rn(s[r][it], l);
-    }
-
-    float dp[TM][ITS];
-    chain_rows<D, TM, ITS>(dp, dot, v_s, lane);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = r0 + r;
-#pragma unroll
-      for (int it = 0; it < ITS; ++it) {
-        const int key = lane + 32 * it;
-        const bool vis = key < n && (plain || (valid_s[key] && !(causal && key > row)));
-        const float ds =
-            vis ? __fmul_rn(__fmul_rn(s[r][it], __fsub_rn(dp[r][it], delta[r])), scale) : 0.f;
-        if constexpr (kStage > 0) {
-          stage[r * kKeys + key] = __float2bfloat16_rn(s[r][it]);
-          stage[(TM + r) * kKeys + key] = __float2bfloat16_rn(ds);
-        } else if (key < nq) {
-          const long long at = plane + static_cast<long long>(row) * nq + key;
-          p_s[at] = __float2bfloat16_rn(s[r][it]);
-          ds_s[at] = __float2bfloat16_rn(ds);
-        }
-      }
-    }
-    __syncwarp();
-    // rows of nq keys of each plane, 8 keys a chunk
-    for (int i = lane; kStage > 0 && i < 2 * TM * (nq / 8); i += 32) {
-      const int row = i / (nq / 8), c = 8 * (i % (nq / 8));  // row: plane * TM + r
-      bf16* dst = (row < TM ? p_s : ds_s) + plane +
-                  static_cast<long long>(r0 + row % TM) * nq + c;
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(stage + row * kKeys + c);
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  ds_head<D, TM, ITS>(k_s, v_s, qt, dot, stage, valid_s, head, out + o_off, dout + o_off,
+                      row_stride, o_stride, p_s, ds_s, plane, n, !valid && !causal, causal,
+                      scale, warp, lane);
 }
 
 template <int D, int G, bool kOneSweep>
@@ -865,13 +254,7 @@ template <int D, int TM, int ITS, typename T>
 cudaError_t launch_bwd_ds(const void* qkv, const void* mask, const void* out, const void* dout,
                           bf16* p_s, bf16* ds_s, int batch, int n, int heads, float scale,
                           int causal, cudaStream_t stream) {
-  // K and V in rows of D + 2, each warp's q and dout rows in f32 and its p and
-  // ds rows in bf16, the key flags
-  const size_t smem = 2 * 32 * ITS * (D + 2) * sizeof(T) +
-                      kDsWarps * 2 * D * TM * sizeof(float) +
-                      (sizeof(T) == sizeof(float) ? kDsWarps * 2 * TM * 32 * ITS * sizeof(bf16)
-                                                  : 0) +
-                      32 * ITS;
+  constexpr size_t smem = ds_smem_bytes<D, TM, ITS, T>();
   cudaError_t err = allow_smem(fused_mha_bwd_ds_kernel<D, TM, ITS, T>, smem);
   if (err != cudaSuccess) return err;
   fused_mha_bwd_ds_kernel<D, TM, ITS, T><<<dim3(heads, batch), kDsThreads, smem, stream>>>(
@@ -899,7 +282,7 @@ cudaError_t launch_bwd_bf16(const void* qkv, const void* mask, const void* out,
 #undef K1B_DS
   if (err != cudaSuccess) return err;
   // then the products, from the planes: q and dout (then k) transposed
-  const size_t smem = 2 * static_cast<size_t>(D) * t_ld(n) * sizeof(bf16);
+  const size_t smem = grad_smem_bytes<D>(n);
   err = allow_smem(fused_mha_bwd_grad_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   fused_mha_bwd_grad_kernel<D><<<dim3(heads, batch), kThreads, smem, stream>>>(

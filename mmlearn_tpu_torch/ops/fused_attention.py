@@ -8,7 +8,10 @@ transpose; the backward writes ``dqkv`` in the same packing, so the qkv
 Linear's backward reads it with no permute. The CUDA kernels are
 ``csrc/fused_attention.cu`` (built by :mod:`mmlearn_tpu_torch._build` at first
 use): in bf16 on tensor cores, with each head's operands whole in shared
-memory, in f32 scalar. Their plain PyTorch versions are :func:`mha_reference`,
+memory, in f32 scalar; the head-grouped ``csrc/fused_attention_packed.cu``
+computes the same bits in bf16 with K1's arithmetic (``csrc/k1_arithmetic.cuh``)
+and persistent blocks that load the next head while one computes. Their
+plain PyTorch versions are :func:`mha_reference`,
 the math of the JAX package's ``_mha_reference_xla``, and
 :func:`mha_bwd_reference`, the math of its ``_bwd_kernel``; the bf16
 backward computes p and ds bit for bit as the latter does on the card.
@@ -37,10 +40,10 @@ NEG = -0.7 * float(np.finfo(np.float32).max)
 
 #: launches of the CUDA kernels: K1's forward by :func:`fused_mha`; K1's
 #: backward's two by :class:`FusedMHAFunction` (bf16: p and ds, then the
-#: three products; f32: dQ, then dK/dV); the head-grouped kernels' forward,
-#: dQ and dK/dV kernels
+#: three products; f32: dQ, then dK/dV); the same for the head-grouped
+#: kernels K1f-p and K1b-p
 LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_packed_fwd": 0,
-            "fused_mha_packed_bwd_dq": 0, "fused_mha_packed_bwd_dkv": 0}
+            "fused_mha_packed_bwd": 0}
 
 _MAX_SEQ = 2048
 _KERNEL_HEAD_DIMS = (32, 64)
@@ -55,6 +58,10 @@ _BWD_VMEM_LIMIT = 20 * 1024 * 1024
 #: model falls back to the per-head kernel); the port routes the same layers
 _PACKED_MAX_SEQ = {16: 360, 32: 512, 64: 768}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: dynamic shared memory one block may use on the H100 (227 KB)
+_SMEM_PER_BLOCK = 232_448
+#: head buffers of K1f-p's ring at most (``kMaxStages``)
+_PACKED_MAX_STAGES = 8
 
 
 def _permute_qkv(arr, num_heads: int, src: int, dst: int):
@@ -132,6 +139,37 @@ def use_packed(num_heads: int, head_dim: int, seq: int) -> bool:
     if not (head_dim <= 64 and 128 % head_dim == 0):
         return False
     return num_heads % (128 // head_dim) == 0 and seq <= _PACKED_MAX_SEQ.get(head_dim, 0)
+
+
+def packed_fwd_plan(seq: int, head_dim: int) -> tuple[int, int]:
+    """``(warps, stages)`` of a K1f-p block (bf16) at this length.
+
+    The block holds a ring of ``stages`` head buffers, each the head's K and V
+    rows (``seq`` rounded up to 32, ``[k | v | 8 pad]`` bf16) and its key
+    flags, and each warp's 16-row Q strip, the buffers' barriers, counters
+    and tags and the block's item counter
+    (``slot_bytes`` and ``fwd_fixed_bytes`` in ``csrc/fused_attention_packed.cu``).
+    Warps by K1f's instance: 16 for whole rows of up to 128 keys at D=32, 12
+    for the other whole-row instances (up to 224 keys), 8 past them; as many
+    buffers as fit 227 KB, at most 8. At D=64 one buffer is left past 384
+    keys, so the next head no longer loads while one computes.
+    """
+    rows = -(-seq // 32) * 32
+    warps = (16 if head_dim == 32 and rows <= 128 else 12) if rows <= 224 else 8
+    slot = rows * (2 * (2 * head_dim + 8) + 1)
+    fixed = warps * 16 * (head_dim + 8) * 2 + _PACKED_MAX_STAGES * 16 + 16
+    return warps, min(_PACKED_MAX_STAGES, (_SMEM_PER_BLOCK - fixed) // slot)
+
+
+def _bwd_scratch(batch: int, seq: int, num_heads: int, dtype) -> tuple[int, torch.dtype]:
+    """``(numel, dtype)`` of the backward's scratch, K1's and K1b-p's alike:
+    in bf16 the p and ds planes, ``(2, B, H, nq, nq)`` query-major with nq =
+    ``seq`` rounded up to 16; in f32 each row's max, sum and delta, ``(3, B,
+    H, N)``."""
+    if dtype == torch.bfloat16:
+        nq = -(-seq // 16) * 16
+        return 2 * batch * num_heads * nq * nq, torch.bfloat16
+    return 3 * batch * num_heads * seq, torch.float32
 
 
 def _scores(qkv, mask, num_heads: int, scale: float, causal: bool):
@@ -215,6 +253,8 @@ _FWD_ARGTYPES = [
     ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
     ctypes.c_void_p,  # stream
 ]
+#: K1f-p's forward takes the ring's head buffers (``stages``) before the stream
+_PACKED_FWD_ARGTYPES = [*_FWD_ARGTYPES[:-1], ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dout, dqkv, stats
@@ -241,7 +281,8 @@ def _library(packed: bool = False):
     fwd, bwd, err = getattr(lib, fwd_name), getattr(lib, bwd_name), getattr(lib, err_name)
     if fwd.argtypes is None:
         fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes, bwd.argtypes = _FWD_ARGTYPES, _BWD_ARGTYPES
+        fwd.argtypes = _PACKED_FWD_ARGTYPES if packed else _FWD_ARGTYPES
+        bwd.argtypes = _BWD_ARGTYPES
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return fwd, bwd, err, prefix
 
@@ -300,11 +341,13 @@ def _fused_mha_cuda(
     fwd, _, error_string, prefix = _library(packed)
     if packed or qkv.dtype == torch.bfloat16:
         _check_aligned(qkv)
+    # K1f-p's ring of head buffers (its f32 route takes none)
+    plan = (packed_fwd_plan(n, d)[1],) if packed else ()
     with torch.cuda.device(qkv.device):
         err = fwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), b, n, num_heads, d, _DTYPE_CODES[qkv.dtype],
-            float(scale), int(causal), torch.cuda.current_stream().cuda_stream,
+            float(scale), int(causal), *plan, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(error_string, err, prefix)
     LAUNCHES[f"{prefix}_fwd"] += 1
@@ -322,13 +365,8 @@ def _fused_mha_bwd_cuda(
     elif qkv.dtype == torch.bfloat16:
         _check_aligned(qkv, dout)
     dqkv = torch.empty_like(qkv)
-    if qkv.dtype == torch.bfloat16 and not packed:
-        # K1's p and ds in bf16, (2, B, H, nq, nq) query-major, nq = n rounded
-        # up to 16
-        nq = -(-n // 16) * 16
-        scratch = torch.empty(2 * b * num_heads * nq * nq, dtype=qkv.dtype, device=qkv.device)
-    else:  # each row's max, sum and delta in f32
-        scratch = torch.empty(3 * b * num_heads * n, dtype=torch.float32, device=qkv.device)
+    numel, scratch_dtype = _bwd_scratch(b, n, num_heads, qkv.dtype)
+    scratch = torch.empty(numel, dtype=scratch_dtype, device=qkv.device)
     _, bwd, error_string, prefix = _library(packed)
     with torch.cuda.device(qkv.device):
         err = bwd(
@@ -338,11 +376,7 @@ def _fused_mha_bwd_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(error_string, err, f"{prefix} backward")
-    if packed:
-        LAUNCHES[f"{prefix}_bwd_dq"] += 1
-        LAUNCHES[f"{prefix}_bwd_dkv"] += 1
-    else:
-        LAUNCHES[f"{prefix}_bwd"] += 2
+    LAUNCHES[f"{prefix}_bwd"] += 2
     return dqkv
 
 

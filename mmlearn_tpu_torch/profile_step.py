@@ -45,7 +45,7 @@ TOP = 15  # kernels listed by name
 GROUPS = [
     ("K1f attention forward", r"fused_mha_fwd_(f32_)?kernel"),
     ("K1b attention backward", r"fused_mha_bwd_"),
-    ("K1f-p attention forward, head-grouped", r"packed_fwd_kernel"),
+    ("K1f-p attention forward, head-grouped", r"packed_fwd_"),
     ("K1b-p attention backward, head-grouped", r"packed_bwd_"),
     ("K3f flash attention forward", r"flash_fwd"),
     ("K3b flash attention backward", r"flash_bwd_"),
