@@ -11,8 +11,9 @@ Phases, each fatal on failure:
    (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
    variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K5, the
    quantizing int8 product (``csrc/int8_matmul.cu``), and K3
-   (``csrc/flash_attention.cu``; it shares ``csrc/attention_tiles.cuh``
-   with K1), CUDA C++ for sm_90a, into ``build/kernels/``; K2 forward and
+   (``csrc/flash_attention.cu``, on the wgmma, TMA and mbarrier helpers of
+   ``csrc/hopper_tiles.cuh``), CUDA C++ for sm_90a, into ``build/kernels/``;
+   K2 forward and
    backward (Triton,
    ``mmlearn_tpu_torch/ops/fused_norm.py``) build at their first call;
 2. hold each kernel against its plain PyTorch version on the card, with
@@ -96,7 +97,10 @@ right and left padding, a wholly masked sample; causal or not; D 32 and 64;
 f32 and bf16: output, log-sum-exp, dQ, dK, dV) and, in bf16, at the 448
 path's grid (B=64, H=12, N=785) and at B=1, N=16,385 (ViT-B/16 at 2,048 px,
 its plain version head by head), and timed there beside its plain version,
-SDPA, its bound and, at 16,385, both peak memories.
+SDPA, its bound and, at 16,385, both peak memories; and at the 448 training
+grid in the step's own layout (q, k, v read as views of the packed
+projection, the gradient of the projection written in place by K3b),
+checked, run twice on the same input for equal bits, and timed.
 
 The lines before the last give the card's name and power limit (from
 ``nvidia-smi``), the kernels' errors, times and bounds, ``encode``
@@ -186,8 +190,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # summation order (reads 1.4e-6). K5 and its plain version round x / sx to
 # the same ints and dequantize in the same order: only the output's rounding
 # can differ.
-# K3 rounds where K1f does (unnormalised p in the forward, reads 5.6e-3; p
-# and ds in the backward, 1.7e-3).
+# K3 rounds where K1f does (unnormalised p in the forward, reads 6.0e-3; p
+# and ds in the backward, 2.0e-3).
 BF16_ATOL = {"fused_mha_fwd": 1.3e-2, "fused_mha_bwd": 4e-7, "layernorm_fwd": 1e-4,
              "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.3e-2,
              "fused_mha_packed_bwd": 2e-6, "int8_qmm": 1e-6,
@@ -1048,6 +1052,125 @@ def flash_at_grids(device, gen, err: dict) -> dict:
     return rows
 
 
+def flash_packed_at_grid(device, gen, err: dict) -> dict:
+    """K3f and K3b in the 448 training step's own layout: q, k, v as strided
+    views of a packed ``(B, N, H * 3 * D)`` projection (B=64, N=785, H=12,
+    D=64, bf16) through ``flash_attention_qkv`` and autograd, the gradient of
+    the projection written in place by K3b; held to the plain versions on the
+    same views (element-wise and as a whole). Then each kernel twice on the
+    same input, which must give the same bits, once from a thread that has
+    made no CUDA call before, and the times of each beside
+    its plain version's, SDPA's on the same views (a yardstick the port never
+    calls; its backward through autograd into the packed leaf) and the bound.
+    Returns rows as :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+
+    b, h, n, d = HIGHRES_BATCH, 12, 785, 64
+    scale = d ** -0.5
+    fwd_tol, bwd_tol = tol("flash_attention_fwd", "bfloat16"), tol("flash_attention_bwd",
+                                                                  "bfloat16")
+    fwd_rel = FLASH_REL_TOL["flash_attention_fwd"]["bfloat16"]
+    bwd_rel = FLASH_REL_TOL["flash_attention_bwd"]["bfloat16"]
+    qkv = torch.randn(b, n, h * 3 * d, generator=gen, device=device).bfloat16()
+    dout = torch.randn(b, n, h * d, generator=gen, device=device).bfloat16()
+    x = qkv.clone().requires_grad_()
+    reset_counts()
+    out = fl.flash_attention_qkv(x, num_heads=h)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["flash_fwd"] == 1 and counts["flash_bwd_dq"] == 1
+          and counts["flash_bwd_dkv"] == 1, f"flash_attention_qkv launched {counts}")
+    q, k, v = fl.split_qkv(qkv, h)
+    do = dout.view(b, n, h, d).transpose(1, 2)
+    out_v = out.detach().view(b, n, h, d).transpose(1, 2)
+    _, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+    tag = f"448 train packed qkv N={n} B={b} H={h} D={d} bf16"
+
+    def plain_fwd():
+        return fl.flash_fwd_reference(q, k, v, None, scale, False)
+
+    def plain_bwd():
+        return fl.flash_bwd_reference(q, k, v, None, out_v, lse, do, scale, False)
+
+    want, want_lse = plain_fwd()
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], compare(
+        f"K3f flash out {tag}", out_v, want, fwd_tol, fwd_rel))
+    compare(f"K3f flash lse {tag}", lse, want_lse, LSE_TOL)
+    del want, want_lse
+    dqkv = x.grad.view(b, n, h, 3, d)
+    for i, w in enumerate(plain_bwd()):
+        err["flash_attention_bwd"] = max(err["flash_attention_bwd"], compare(
+            f"K3b flash d{'qkv'[i]} written in place {tag}", dqkv[:, :, :, i].transpose(1, 2), w,
+            bwd_tol, bwd_rel))
+    del x, dqkv
+    torch.cuda.empty_cache()
+
+    # the same input twice: the same bits (no atomics in either pass)
+    runs = []
+    for _ in range(2):
+        o, l = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+        grads = torch.empty(b, n, h, 3, d, dtype=qkv.dtype, device=device)
+        fl._flash_bwd_cuda(q, k, v, None, o, l, do, scale, False,
+                           grads=grads.permute(3, 0, 2, 1, 4).unbind(0))
+        runs.append((o, l, grads))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, z) for a, z in zip(*runs)]
+    print(f"K3f and K3b twice on the same input ({tag}): out, lse and dqkv bit-equal: {same}")
+    check(all(same), f"K3 is not reproducible: out, lse, dqkv equal {same}")
+    del runs, o, l, grads
+
+    # a thread that has made no CUDA call yet (as the autograd engine's, on a
+    # first backward) launches both: the tensor maps need its context bound
+    def fresh_thread(box: list) -> None:
+        try:
+            o, l = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+            fl._flash_bwd_cuda(q, k, v, None, o, l, do, scale, False)
+            torch.cuda.synchronize()
+            box.append("ok")
+        except Exception as exc:  # reported by the check below
+            box.append(repr(exc))
+
+    box: list = []
+    thread = threading.Thread(target=fresh_thread, args=(box,))
+    thread.start()
+    thread.join()
+    print(f"K3f and K3b from a thread with no CUDA call before: {box[0]}")
+    check(box == ["ok"], f"K3 from a new thread failed: {box}")
+    torch.cuda.empty_cache()
+
+    rows = {}
+    views = torch.empty(b, n, h, 3, d, dtype=qkv.dtype, device=device)
+    views = views.permute(3, 0, 2, 1, 4).unbind(0)
+    lx = qkv.clone().requires_grad_()
+    lq, lk, lv = fl.split_qkv(lx, h)
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+    pairs = b * n * n
+    rows["K3f image N=785 packed"] = (
+        cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False)),
+        cuda_ms(plain_fwd, iters=2, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        *bound(nbytes(q, k, v, out_v, lse), 4 * h * d * pairs, "bfloat16"),
+    )
+    rows["K3b image N=785 packed"] = (
+        cuda_ms(lambda: fl._flash_bwd_cuda(q, k, v, None, out_v, lse, do, scale, False,
+                                           grads=views)),
+        cuda_ms(plain_bwd, iters=2, warmup=1),
+        cuda_ms(lambda: torch.autograd.grad(lib_out, lx, do, retain_graph=True)),
+        *bound(nbytes(q, k, v, out_v, do, lse, q, k, v), 10 * h * d * pairs, "bfloat16"),
+    )
+    for label, (ms, plain, lib, bnd, by) in rows.items():
+        print(f"time {label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    del qkv, dout, out, lse, views, lx, lq, lk, lv, lib_out
+    torch.cuda.empty_cache()
+    reset_counts()
+    return rows
+
+
 # --------------------------------------------------------------- main path
 
 
@@ -1743,6 +1866,7 @@ def main() -> int:
     times.update(ijepa_attention_at_batch(device, gen, errors))
     times.update(int8_at_batch(device, gen))
     times.update(flash_at_grids(device, gen, errors))
+    times.update(flash_packed_at_grid(device, gen, errors))
     t0 = time.perf_counter()
     serving = main_path(device)
     check(launch_counts()["int8_qmm"] == 0, "K5 launched on the serving path without "
@@ -1798,11 +1922,11 @@ def main() -> int:
                      "mmlearn_tpu/ops/int8_matmul.py:63", "K5 image fc1 fwd M=50432 K=768 N=3072",
                      ("int8_qmm",)),
         "flash_attention_fwd": ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
-                                "mmlearn_tpu/ops/flash_attention.py:76", "K3f image N=785",
-                                ("flash_fwd",)),
+                                "mmlearn_tpu/ops/flash_attention.py:76",
+                                "K3f image N=785 packed", ("flash_fwd",)),
         "flash_attention_bwd": ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
-                                "mmlearn_tpu/ops/flash_attention.py:267", "K3b image N=785",
-                                ("flash_bwd_dkv", "flash_bwd_dq")),
+                                "mmlearn_tpu/ops/flash_attention.py:267",
+                                "K3b image N=785 packed", ("flash_bwd_dkv", "flash_bwd_dq")),
     }
     kernels = []
     for name, (route, source, replaces, row, counts) in rows.items():

@@ -1,13 +1,13 @@
-// Tensor-core building blocks shared by the port's bf16 attention kernels:
-// K1 (csrc/fused_attention.cu) and K3 (csrc/flash_attention.cu). Hopper,
+// Tensor-core building blocks shared by the port's bf16 short-sequence
+// attention kernels: K1 (csrc/fused_attention.cu) and K1-p
+// (csrc/fused_attention_packed.cu, through csrc/k1_arithmetic.cuh). Hopper,
 // sm_90a; included once by each source, inside no namespace of its own.
 //
 // cp.async 16-byte copies into shared memory, mma.sync m16n8k16 (bf16 in,
-// f32 sums), ldmatrix B operands (plain and transposed), A operands loaded
-// from device memory, and f32 score accumulators packed as the A operand of
-// the next product. Fragment layout of m16n8k16 for lane = 4 g + t: A rows g
-// and g + 8, columns 2 t, 2 t + 1 (+ 8); B column g, rows 2 t, 2 t + 1 (+ 8);
-// C rows g and g + 8, columns 2 t, 2 t + 1.
+// f32 sums) and ldmatrix B operands (plain and transposed). Fragment layout
+// of m16n8k16 for lane = 4 g + t: A rows g and g + 8, columns 2 t, 2 t + 1
+// (+ 8); B column g, rows 2 t, 2 t + 1 (+ 8); C rows g and g + 8, columns
+// 2 t, 2 t + 1.
 
 #pragma once
 
@@ -60,13 +60,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a0 * b0 + a1 * b1 of two packed bf16 pairs, in f32
-__device__ __forceinline__ float dot_pair(uint32_t a, uint32_t b) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
-  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
-  return fmaf(x.x, y.x, x.y * y.y);
-}
-
 // B operands of two n8 tiles (b[0..1] for rows n0..n0+7, b[2..3] for
 // n0+8..n0+15) from a row-major tile whose rows are the product's n and
 // columns its k (k0..k0+15): S = Q K^T reads K this way.
@@ -85,38 +78,6 @@ __device__ __forceinline__ void load_b_cols(uint32_t* b, const bf16* x, int ld, 
   const int r = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
   const int c = n0 + ((lane >> 4) << 3);
   ldsm_x4_trans(b, x + r * ld + c);
-}
-
-// Two bf16 of row `row` at column `col` (even) of a (rows, D) operand, 0
-// past its rows.
-__device__ __forceinline__ uint32_t load_pair(const bf16* x, long long ld, int row, int col,
-                                              int rows) {
-  return row < rows ? *reinterpret_cast<const uint32_t*>(x + row * ld + col) : 0u;
-}
-
-// A operands (16 rows r0..r0+15 by D) of a (rows, D) operand in registers:
-// a[kc] covers columns 16 kc .. 16 kc + 15.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (*a)[4], const bf16* x, long long ld, int r0,
-                                       int rows, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = 16 * kc + 2 * t;
-    a[kc][0] = load_pair(x, ld, r0 + g, c, rows);
-    a[kc][1] = load_pair(x, ld, r0 + g + 8, c, rows);
-    a[kc][2] = load_pair(x, ld, r0 + g, c + 8, rows);
-    a[kc][3] = load_pair(x, ld, r0 + g + 8, c + 8, rows);
-  }
-}
-
-// A operand of keys (or queries) 16 kc .. 16 kc + 15 from the f32 score
-// accumulators of a warp's 16 rows (two n8 tiles), rounded to bf16.
-__device__ __forceinline__ void scores_as_a(uint32_t* a, float (*s)[4], int kc) {
-  a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-  a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-  a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-  a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 }
 
 }  // namespace

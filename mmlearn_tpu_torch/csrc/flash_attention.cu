@@ -12,7 +12,8 @@
 //          masked or (causal) past the diagonal key <= row + N_k - N_q;
 //          keys at and past N_k are left out (-inf), not padded;
 //   K3f  out = softmax(s) v with an online max, normaliser and f32
-//        accumulator across key tiles; lse = m + log(l) (f32, (B, H, N_q));
+//        accumulator across key tiles, p rounded to the input type before
+//        its product with v; lse = m + log(l) (f32, (B, H, N_q));
 //   K3b  p = exp(s - lse), dv = p^T do (p rounded to the input type),
 //        dp = do v^T, ds = p (dp - delta) scale (rounded to the input type),
 //        dk = ds^T q, dq = ds k; delta = rowsum(do * out) in f32, which the
@@ -24,49 +25,82 @@
 // in the backward such a row (lse == NEG) has p = 1 / N_k at every key, and
 // ds is zero at every masked score, so its dq and its share of dk are zero.
 //
-// Design. Tiles of 64 query rows by 64 keys, 4 warps of 16 rows (or 16 keys)
-// each; nothing crosses a block, so every kernel needs one pass and no
-// atomics:
-//   K3f     one block per (q tile, head, sample); K and V tiles stream
-//           through two shared-memory buffers (cp.async, the next tile in
-//           flight while this one is used); the running max, normaliser and
-//           accumulator stay in registers; under a causal mask without a key
-//           mask, key tiles wholly above the diagonal are skipped;
-//   K3b-dq  one block per (q tile, head, sample), launched first: it sums
-//           delta for its rows (writing it out), then k and v stream over
-//           the key tiles; dQ stays in registers;
-//   K3b-dkv one block per (key tile, head, sample); q, do, lse, delta stream
-//           over the query tiles; dK and dV stay in registers.
-// bf16 uses the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums), B
-// operands from shared memory by ldmatrix (transposed where the product
-// contracts over rows), and the score accumulators reused in registers as
-// the A operand of the next product (P V, P^T dO, dS K, dS^T Q); those
-// helpers are in attention_tiles.cuh, shared with K1. f32 keeps full f32
-// arithmetic: a scalar kernel, one thread a row (or key).
+// What bounds it on the H100. At B = 64, H = 12, N = 785, D = 64 (the 448-px
+// step) the forward is 4 B H N^2 D = 1.21e11 operations, 0.1225 ms at 989
+// TFLOP/s, against q, k, v and out, 4 B H N D * 2 bytes = 309 MB, 0.092 ms at
+// 3.35 TB/s; the backward's five products are 3.03e11 operations (0.306 ms)
+// and K3b computes seven (the dQ pass recomputes s and dp: 0.429 ms). At B =
+// 1, N = 16,385 the forward is 8.25e11 operations (0.834 ms) against 101 MB
+// (0.030 ms). Bound by operations, by a margin that grows with N: the scores
+// never leave the chip. Beside the tensor cores, every score costs an
+// exponential on the SFUs (16 a clock an SM), and at D = 64 a 64 x 64 tile's
+// 4,096 exponentials take as long as its two products: the softmax has to
+// run while the tensor cores work, and its code has to be lean.
 //
-// What bounds it on the H100. At B = 64, H = 12, N = 785, D = 64 the forward
-// is 4 B H N^2 D = 1.2e11 operations (0.12 ms at 989 TFLOP/s) against q, k,
-// v and out, 4 B H N D * 2 bytes = 309 MB (0.092 ms at 3.35 TB/s): bound by
-// operations, by a margin that grows with N, and the scores never leave the
-// chip. This first version is mma.sync with a
-// two-stage cp.async pipeline and one 64 x 64 tile a block; wgmma, TMA and
-// warp specialisation are later work.
+// Design. Every bf16 product is a wgmma (m64nNk16, bf16 in, f32
+// accumulators; Hopper's full tensor-core rate, which mma.sync does not
+// reach), issued by the block's one consumer warpgroup for 64 query rows (64
+// keys in dK/dV); one producer warp beside it. The producer's lane 0 brings
+// tiles of 64 rows by TMA from the operands' own strided views (a 4-d tensor
+// map each, encoded on the host for every call from the view's pointer,
+// extents and strides; rows past the end land as zeros, swizzled as the
+// wgmma descriptors read them) into a ring of kStages = 4 shared-memory
+// stages, each with a full and an empty mbarrier; its lanes also write what
+// a stage needs beside the tiles (the key mask's bytes, or the rows' lse and
+// delta). The consumers wait on full and thread 0 arrives on empty once the
+// last product of the stage has completed: every read of the stage feeds
+// that product. Two tiles are in flight in the consumer: the products of
+// tile i run while the scores of tile i + 1 arrive and their softmax (or p
+// and ds) is computed; a tile with nothing masked, causal-hidden or past the
+// keys (the main path) takes a branch-free path with one FFMA and one EX2 a
+// score.
+//   K3f     a block per (64 query rows, head, sample): Q once, K and V
+//           stream; S = Q K^T (SS), the online softmax in registers, O +=
+//           P V (RS: P from the score accumulators rounded to bf16, V read
+//           MN-major through the descriptor);
+//   K3b-dq  per (64 query rows, head, sample), launched first: delta of its
+//           rows (from O and dO in device memory, f32, written out); Q and
+//           dO once, K and V stream; S = Q K^T, dP = dO V^T (SS), ds in
+//           registers, dQ += dS K (RS, K read MN-major);
+//   K3b-dkv per (64 keys, head, sample): K and V once; Q, dO and the rows'
+//           lse and delta stream; S^T = K Q^T, dP^T = V dO^T (SS), p and ds
+//           in registers, dV += P^T dO and dK += dS^T Q (RS, dO and Q read
+//           MN-major).
+// One consumer warpgroup a block beat two or three sharing the stream (more
+// blocks an SM, 3 in K3f; measured in PERF.md), as four stages beat three
+// and six. No atomics, so the gradients are the same bits from run to run;
+// the cost is the dQ pass's recomputed S and dP (seven products a tile pair,
+// against five with an atomic dQ). Under a causal mask without a key mask,
+// key (or query) tiles wholly past the diagonal are skipped. The gradients
+// are written through arbitrary strides, so K3b writes dq, dk and dv straight
+// into the three views of a packed (B, N, H, 3, D) buffer, the gradient of
+// the packed projection. f32 keeps full f32 arithmetic: a scalar kernel, one
+// thread a row (or key).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
-#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;              // query rows and keys a tile
-constexpr int kWarps = 4;              // 16 rows (or keys) each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kScalarRows = 64;        // f32 kernels: one thread a row (or key)
-constexpr int kScalarTile = 32;        // f32 kernels: keys (or queries) a tile
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+// -0.7 * FLT_MAX rounded to f32 (bits 0xff333332), the JAX package's
+// DEFAULT_MASK_VALUE and the port's NEG, bit for bit
+constexpr float kNeg = -0x1.666664p+127f;
+
+constexpr int kTile = 64;        // rows (keys) of a tile: one warpgroup's m64
+constexpr int kStages = 4;       // stages of the ring
+constexpr int kThreads = 160;    // the consumer warpgroup and the producer warp
+constexpr int kScalarRows = 64;  // f32 kernels: one thread a row (or key)
+constexpr int kScalarTile = 32;  // f32 kernels: keys (or queries) a tile
 
 struct Layout {  // element strides of one (B, H, N, D) operand
   long long b, h, n;
@@ -86,159 +120,278 @@ __device__ __forceinline__ bool causal_hidden(const Problem& pr, int row, int co
   return pr.causal && col > row + pr.off;
 }
 
-// Start copying rows r0..r0+63 of a (rows, D) bf16 operand into a padded
-// shared tile (zeros past `rows`).
-template <int D>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, long long ld, int r0,
-                                           int rows, int tid) {
-  constexpr int kLd = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int i = tid; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r0 + r < rows;
-    cp_async16(dst + r * kLd + c, ok ? src + (r0 + r) * ld + c : src, ok ? 16 : 0);
-  }
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (MUFU.EX2; the fast exponential the kernels take as e^y = 2^(y log2 e))
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 1 where key k0 + j may be seen (the mask's byte), for j < 64; 1 without a
-// mask. Keys past n_k are told apart by their index.
-__device__ __forceinline__ void valid_tile(uint8_t* dst, const uint8_t* valid, int k0, int n_k,
-                                           int tid) {
-  if (tid < kTile) dst[tid] = (!valid || (k0 + tid < n_k && valid[k0 + tid])) ? 1 : 0;
+// ------------------------------------------------------- bf16: the tiles
+
+// Where the rows, heads and batch of an operand went among its tensor map's
+// coordinates 1..3 (coordinate 0 is D).
+struct MapDims {
+  int n, h, b;
+};
+
+template <int D>
+struct Tile {
+  static constexpr int kRowBytes = 2 * D;            // one swizzle span
+  static constexpr int kBytes = kTile * kRowBytes;   // a multiple of 1024
+  static constexpr int kSliceRows = 16 * kRowBytes;  // bytes of 16 rows: one k16 slice, MN-major
+  static __device__ __forceinline__ uint64_t desc(const uint8_t* tile) {
+    return tile_desc<kRowBytes>(tile);
+  }
+};
+
+// rows row .. row + 63 of head h of sample b, by TMA
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, MapDims md,
+                                          uint64_t* bar, int row, int h, int b) {
+  const int c1 = md.n == 1 ? row : md.h == 1 ? h : b;
+  const int c2 = md.n == 2 ? row : md.h == 2 ? h : b;
+  const int c3 = md.n == 3 ? row : md.h == 3 ? h : b;
+  tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+}
+
+// the dynamic shared memory, 1024-byte aligned (the swizzle's period)
+__device__ __forceinline__ uint8_t* aligned_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  return smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+}
+
+// Two bf16 of row `row` at column `col` (even) of a (rows, D) operand, 0
+// past its rows.
+__device__ __forceinline__ uint32_t load_pair(const bf16* x, long long ld, int row, int col,
+                                              int rows) {
+  return row < rows ? *reinterpret_cast<const uint32_t*>(x + row * ld + col) : 0u;
+}
+// a0 * b0 + a1 * b1 of two packed bf16 pairs, in f32
+__device__ __forceinline__ float dot_pair(uint32_t a, uint32_t b) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
+  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+  return fmaf(x.x, y.x, x.y * y.y);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // ------------------------------------------------------- bf16: K3f forward
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     bf16* __restrict__ out, float* __restrict__ lse, Layout lq, Layout lk,
-                     Layout lv, Layout lo, Problem pr) {
-  constexpr int kLd = D + 8;  // 16-byte rows, conflict-free ldmatrix
-  constexpr int kNt = kTile / 8;
-  __shared__ __align__(16) bf16 k_s[2][kTile * kLd];
-  __shared__ __align__(16) bf16 v_s[2][kTile * kLd];
-  __shared__ uint8_t valid_s[2][kTile];
+constexpr int fwd_smem_bytes() {
+  return 1024 + (1 + 2 * kStages) * Tile<D>::kBytes + kStages * kTile + (1 + 2 * kStages) * 8;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* qh = q + b * lq.b + h * lq.h;
-  const bf16* kh = k + b * lk.b + h * lk.h;
-  const bf16* vh = v + b * lv.b + h * lv.h;
-  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-
-  uint32_t qa[D / 16][4];
-  load_a<D>(qa, qh, lq.n, q0 + warp * 16, pr.n_q, lane);
-
-  const int kv_end = pr.skip ? min(pr.n_k, q0 + kTile + pr.off) : pr.n_k;
-  const int n_tiles = (kv_end + kTile - 1) / kTile;
-  auto load = [&](int it, int buf) {
-    tile_async<D>(k_s[buf], kh, lk.n, it * kTile, pr.n_k, tid);
-    tile_async<D>(v_s[buf], vh, lv.n, it * kTile, pr.n_k, tid);
-    valid_tile(valid_s[buf], valid, it * kTile, pr.n_k, tid);
-    cp_async_commit();
-  };
-
+// The forward's online softmax for one key tile of scores `sc` (q . k, f32,
+// m64 x 64, this thread's two rows): scaled, -inf past n_k, NEG where masked
+// or causal-hidden; the running max and sum move on and sc becomes p
+// (unnormalised). Returns in a_lo, a_hi the factors that rescale the
+// accumulator. kPlain: a tile with nothing hidden, past n_k or masked (the
+// main path), so no test an element; the max is taken before the scale (a
+// positive factor) and p = 2^(s scale log2 e - m log2 e) in one FFMA.
+struct OnlineSoftmax {
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  load(0, 0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = it * kTile;
-
-    float s[kNt][4];
-#pragma unroll
-    for (int i = 0; i < kNt; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t bb[4];
-        load_b_rows(bb, k_s[buf], kLd, np * 16, kc * 16, lane);
-        mma_bf16(s[2 * np], qa[kc], bb);
-        mma_bf16(s[2 * np + 1], qa[kc], bb + 2);
-      }
-    }
-
+  template <bool kPlain>
+  __device__ __forceinline__ void step(float (&sc)[kTile / 2], float& a_lo, float& a_hi,
+                                       const Problem& pr, const uint8_t* valid_t, bool masked,
+                                       int k0, int row_lo, int row_hi, int t) {
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
+    for (int c = 0; c < kTile / 8; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * t + (e & 1);
-        const int col = k0 + j, row = e < 2 ? row_lo : row_hi;
-        float x;
-        if (col >= pr.n_k) {
-          x = -INFINITY;
-        } else if (!valid_s[buf][j] || causal_hidden(pr, row, col)) {
-          x = kNeg;
-        } else {
-          x = s[nt][e] * pr.scale;
+        float x = sc[4 * c + e];
+        if (!kPlain) {
+          const int j = 8 * c + 2 * t + (e & 1), col = k0 + j;
+          const bool vis = (!masked || valid_t[j]) &&
+                           !causal_hidden(pr, e < 2 ? row_lo : row_hi, col);
+          x = col < pr.n_k ? (vis ? x * pr.scale : kNeg) : -INFINITY;
+          sc[4 * c + e] = x;
         }
-        s[nt][e] = x;
         if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
       }
     }
-    // the four lanes of a row hold its 64 columns
+    // the four lanes of a row hold its columns
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    if (kPlain) {
+      mx_lo *= pr.scale;
+      mx_hi *= pr.scale;
+    }
     // key k0 is in range, so the new max is finite (at least NEG)
     const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float a_lo = __expf(m_lo - mn_lo), a_hi = __expf(m_hi - mn_hi);
+    a_lo = ex2((m_lo - mn_lo) * kLog2e);
+    a_hi = ex2((m_hi - mn_hi) * kLog2e);
     m_lo = mn_lo;
     m_hi = mn_hi;
+    const float c2 = pr.scale * kLog2e, mb_lo = mn_lo * kLog2e, mb_hi = mn_hi * kLog2e;
     // each lane sums its own columns; the lanes of a row add up at the end
-    l_lo *= a_lo;
-    l_hi *= a_hi;
+    float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn_lo);
-      s[nt][1] = __expf(s[nt][1] - mn_lo);
-      s[nt][2] = __expf(s[nt][2] - mn_hi);
-      s[nt][3] = __expf(s[nt][3] - mn_hi);
-      l_lo += s[nt][0] + s[nt][1];
-      l_hi += s[nt][2] + s[nt][3];
+    for (int c = 0; c < kTile / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[4 * c + e];
+        sc[4 * c + e] = kPlain ? ex2(fmaf(x, c2, e < 2 ? -mb_lo : -mb_hi))
+                               : ex2((x - (e < 2 ? mn_lo : mn_hi)) * kLog2e);
+      }
+      s_lo += sc[4 * c + 0] + sc[4 * c + 1];
+      s_hi += sc[4 * c + 2] + sc[4 * c + 3];
     }
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= a_lo;
-      acc[dn][1] *= a_lo;
-      acc[dn][2] *= a_hi;
-      acc[dn][3] *= a_hi;
+    l_lo = fmaf(l_lo, a_lo, s_lo);
+    l_hi = fmaf(l_hi, a_hi, s_hi);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, MapDims dim_q, MapDims dim_k,
+                     MapDims dim_v, const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                     float* __restrict__ lse, Layout lo, Problem pr) {
+  using T = Tile<D>;
+  uint8_t* q_s = aligned_smem();
+  uint8_t* k_s = q_s + T::kBytes;                // kStages tiles
+  uint8_t* v_s = k_s + kStages * T::kBytes;      // kStages tiles
+  uint8_t* valid_s = v_s + kStages * T::kBytes;  // kStages x 64 mask bytes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(valid_s + kStages * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // under `skip`, key tiles wholly past the diagonal of the block's rows
+  const int kv_end = pr.skip ? min(pr.n_k, q0 + kTile + pr.off) : pr.n_k;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);  // the producer's lanes, lane 0 with the bytes
+      mbar_init(empty + s, 1);  // the consumers' thread 0
     }
-    // acc += p v, p rounded to bf16 (the TPU kernel's p.astype(v.dtype))
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4];
-      scores_as_a(pa, s, kc);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bb[4];
-        load_b_cols(bb, v_s[buf], kLd, kc * 16, dp * 16, lane);
-        mma_bf16(acc[2 * dp], pa, bb);
-        mma_bf16(acc[2 * dp + 1], pa, bb + 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      tma_prefetch(&map_q);
+      tma_prefetch(&map_k);
+      tma_prefetch(&map_v);
+      mbar_arrive_expect_tx(q_full, T::kBytes);
+      load_tile(q_s, &map_q, dim_q, q_full, q0, h, b);
+    }
+    const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+      if (valid) {
+        for (int j = lane; j < kTile; j += 32) {
+          const int key = it * kTile + j;
+          valid_s[s * kTile + j] = key < pr.n_k && valid[key];
+        }
+      }
+      // each lane arrives after its own stores; lane 0 also sets the bytes
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
+        load_tile(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
+        load_tile(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
+      } else {
+        mbar_arrive(full + s);
       }
     }
-    __syncthreads();  // this buffer is refilled two tiles on
+    return;
   }
 
+  const int tw = threadIdx.x, warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const uint64_t q_desc = T::desc(q_s);
+  const bool masked = mask != nullptr;
+
+  float o[D / 2];
+  zero(o);
+  OnlineSoftmax sm;
+  float a_lo, a_hi;
+  // s = q k^T of key tile `it` into sc (issued, not waited for)
+  float sc[kTile / 2];
+  auto scores = [&](int it) {
+    const int s = it % kStages;
+    mbar_wait(full + s, (it / kStages) & 1);
+    const uint64_t k_desc = T::desc(k_s + s * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Mma<kTile>::ss(sc, desc_add(q_desc, 32 * kc), desc_add(k_desc, 32 * kc), kc);
+    wgmma_commit();
+  };
+  auto softmax = [&](int it) {
+    const int k0 = it * kTile;
+    const uint8_t* valid_t = valid_s + (it % kStages) * kTile;
+    if (!masked && !pr.causal && k0 + kTile <= pr.n_k)
+      sm.template step<true>(sc, a_lo, a_hi, pr, valid_t, masked, k0, row_lo, row_hi, t);
+    else
+      sm.template step<false>(sc, a_lo, a_hi, pr, valid_t, masked, k0, row_lo, row_hi, t);
+  };
+  // o += p v of key tile `it` (issued, not waited for), p rounded to bf16
+  // (the TPU kernel's p.astype(v.dtype))
+  uint32_t pa[kTile / 16][4];
+  auto values = [&](int it) {
+    const uint64_t v_desc = T::desc(v_s + (it % kStages) * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc)
+      Mma<D>::template rs<1>(o, pa[kc], desc_add(v_desc, kc * T::kSliceRows), 1);
+    wgmma_commit();
+  };
+
+  // Two key tiles in flight: while o += p v of tile it runs, s of tile it + 1
+  // is computed, then its softmax; once the product is done, its p becomes
+  // the next A operand and o is rescaled.
+  mbar_wait(q_full, 0);
+  scores(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc) as_a(pa[kc], sc, kc);
+  for (int it = 0; it + 1 < n_tiles; ++it) {
+    scores(it + 1);
+    values(it);
+    wgmma_wait<1>();  // the scores of tile it + 1
+    fence_regs(sc);
+    softmax(it + 1);
+    wgmma_wait<0>();  // o += p v of tile it
+    fence_regs(o);
+    fence_regs(pa);
+    if (tw == 0) mbar_arrive(empty + it % kStages);
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) as_a(pa[kc], sc, kc);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      o[4 * c + 0] *= a_lo;
+      o[4 * c + 1] *= a_lo;
+      o[4 * c + 2] *= a_hi;
+      o[4 * c + 3] *= a_hi;
+    }
+  }
+  values(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+
+  float l_lo = sm.l_lo, l_hi = sm.l_hi;
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
@@ -246,211 +399,120 @@ __global__ void __launch_bounds__(kThreads)
   const float sl_lo = l_lo == 0.f ? 1.f : l_lo, sl_hi = l_hi == 0.f ? 1.f : l_hi;
   bf16* oh = out + b * lo.b + h * lo.h;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = 8 * c + 2 * t;
     if (row_lo < pr.n_q)
-      *reinterpret_cast<uint32_t*>(oh + row_lo * lo.n + c) =
-          pack_bf16(acc[dn][0] / sl_lo, acc[dn][1] / sl_lo);
+      *reinterpret_cast<uint32_t*>(oh + row_lo * lo.n + col) =
+          pack_bf16(o[4 * c + 0] / sl_lo, o[4 * c + 1] / sl_lo);
     if (row_hi < pr.n_q)
-      *reinterpret_cast<uint32_t*>(oh + row_hi * lo.n + c) =
-          pack_bf16(acc[dn][2] / sl_hi, acc[dn][3] / sl_hi);
+      *reinterpret_cast<uint32_t*>(oh + row_hi * lo.n + col) =
+          pack_bf16(o[4 * c + 2] / sl_hi, o[4 * c + 3] / sl_hi);
   }
   if (t == 0) {
     float* lh = lse + (static_cast<long long>(b) * pr.heads + h) * pr.n_q;
-    if (row_lo < pr.n_q) lh[row_lo] = m_lo + logf(sl_lo);
-    if (row_hi < pr.n_q) lh[row_hi] = m_hi + logf(sl_hi);
-  }
-}
-
-// --------------------------------------------------- bf16: K3b dK/dV kernel
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, Layout lq, Layout lk, Layout lv, Layout ldo,
-                         Layout ldk, Layout ldv, Problem pr) {
-  constexpr int kLd = D + 8;
-  constexpr int kNt = kTile / 8;
-  __shared__ __align__(16) bf16 q_s[2][kTile * kLd];
-  __shared__ __align__(16) bf16 do_s[2][kTile * kLd];
-  __shared__ float lse_s[2][kTile], delta_s[2][kTile], pm_s[2][kTile];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* qh = q + b * lq.b + h * lq.h;
-  const bf16* doh = dout + b * ldo.b + h * ldo.h;
-  const long long bh = static_cast<long long>(b) * pr.heads + h;
-  const float* lse_h = lse + bh * pr.n_q;
-  const float* delta_h = delta + bh * pr.n_q;
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
-  const bool ok_lo = key_lo < pr.n_k && (!valid || valid[key_lo]);
-  const bool ok_hi = key_hi < pr.n_k && (!valid || valid[key_hi]);
-
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + b * lk.b + h * lk.h, lk.n, k0 + warp * 16, pr.n_k, lane);
-  load_a<D>(va, v + b * lv.b + h * lv.h, lv.n, k0 + warp * 16, pr.n_k, lane);
-
-  // under `skip` a query tile reaches this key tile when its last row does
-  const int i_start = (pr.skip && k0 > pr.off) ? (k0 - pr.off) / kTile : 0;
-  const int i_end = (pr.n_q + kTile - 1) / kTile;
-  auto load = [&](int it, int buf) {
-    const int r0 = it * kTile;
-    tile_async<D>(q_s[buf], qh, lq.n, r0, pr.n_q, tid);
-    tile_async<D>(do_s[buf], doh, ldo.n, r0, pr.n_q, tid);
-    if (tid < kTile) {
-      // rows past n_q: p = 0 (lse = +inf), ds = 0
-      const int r = r0 + tid;
-      const float l = r < pr.n_q ? lse_h[r] : INFINITY;
-      lse_s[buf][tid] = l;
-      delta_s[buf][tid] = r < pr.n_q ? delta_h[r] : 0.f;
-      // exp(NEG - lse) / N_k: 1 / N_k on a row whose every key is masked
-      pm_s[buf][tid] = __expf((kNeg - l) - pr.log_nk);
-    }
-    cp_async_commit();
-  };
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  if (i_start < i_end) load(i_start, 0);
-  for (int it = i_start; it < i_end; ++it) {
-    const int buf = (it - i_start) & 1;
-    if (it + 1 < i_end) {
-      load(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int r0 = it * kTile;
-
-    // s^T = k q^T and dp^T = v do^T: rows are this warp's keys
-    float st[kNt][4], dpt[kNt][4];
-#pragma unroll
-    for (int i = 0; i < kNt; ++i) {
-      st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
-      dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t bb[4];
-        load_b_rows(bb, q_s[buf], kLd, np * 16, kc * 16, lane);
-        mma_bf16(st[2 * np], ka[kc], bb);
-        mma_bf16(st[2 * np + 1], ka[kc], bb + 2);
-        load_b_rows(bb, do_s[buf], kLd, np * 16, kc * 16, lane);
-        mma_bf16(dpt[2 * np], va[kc], bb);
-        mma_bf16(dpt[2 * np + 1], va[kc], bb + 2);
-      }
-    }
-    // st becomes p^T, dpt becomes ds^T
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * t + (e & 1);  // query in the tile
-        const int key = e < 2 ? key_lo : key_hi;
-        const bool vis = (e < 2 ? ok_lo : ok_hi) && !causal_hidden(pr, r0 + j, key);
-        const float p = vis ? __expf(st[nt][e] * pr.scale - lse_s[buf][j]) : pm_s[buf][j];
-        dpt[nt][e] = vis ? p * (dpt[nt][e] - delta_s[buf][j]) * pr.scale : 0.f;
-        st[nt][e] = p;
-      }
-    }
-    // dv += p^T do, dk += ds^T q (the TPU kernel's casts to the input type)
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4], sa[4];
-      scores_as_a(pa, st, kc);
-      scores_as_a(sa, dpt, kc);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bb[4];
-        load_b_cols(bb, do_s[buf], kLd, kc * 16, dp * 16, lane);
-        mma_bf16(dv_acc[2 * dp], pa, bb);
-        mma_bf16(dv_acc[2 * dp + 1], pa, bb + 2);
-        load_b_cols(bb, q_s[buf], kLd, kc * 16, dp * 16, lane);
-        mma_bf16(dk_acc[2 * dp], sa, bb);
-        mma_bf16(dk_acc[2 * dp + 1], sa, bb + 2);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* dkh = dk + b * ldk.b + h * ldk.h;
-  bf16* dvh = dv + b * ldv.b + h * ldv.h;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
-    if (key_lo < pr.n_k) {
-      *reinterpret_cast<uint32_t*>(dkh + key_lo * ldk.n + c) =
-          pack_bf16(dk_acc[dn][0], dk_acc[dn][1]);
-      *reinterpret_cast<uint32_t*>(dvh + key_lo * ldv.n + c) =
-          pack_bf16(dv_acc[dn][0], dv_acc[dn][1]);
-    }
-    if (key_hi < pr.n_k) {
-      *reinterpret_cast<uint32_t*>(dkh + key_hi * ldk.n + c) =
-          pack_bf16(dk_acc[dn][2], dk_acc[dn][3]);
-      *reinterpret_cast<uint32_t*>(dvh + key_hi * ldv.n + c) =
-          pack_bf16(dv_acc[dn][2], dv_acc[dn][3]);
-    }
+    if (row_lo < pr.n_q) lh[row_lo] = sm.m_lo + logf(sl_lo);
+    if (row_hi < pr.n_q) lh[row_hi] = sm.m_hi + logf(sl_hi);
   }
 }
 
 // ------------------------------------------------------ bf16: K3b dQ kernel
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const bf16* __restrict__ dout, const bf16* __restrict__ out,
-                        const float* __restrict__ lse, float* __restrict__ delta,
-                        bf16* __restrict__ dq, Layout lq, Layout lk, Layout lv, Layout ldo,
-                        Layout lout, Layout ldq, Problem pr) {
-  constexpr int kLd = D + 8;
-  constexpr int kNt = kTile / 8;
-  __shared__ __align__(16) bf16 k_s[2][kTile * kLd];
-  __shared__ __align__(16) bf16 v_s[2][kTile * kLd];
-  __shared__ uint8_t valid_s[2][kTile];
+constexpr int dq_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * Tile<D>::kBytes + kStages * kTile + (1 + 2 * kStages) * 8;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do, MapDims dim_q,
+                        MapDims dim_k, MapDims dim_v, MapDims dim_do,
+                        const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                        const bf16* __restrict__ out, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, Layout ldo, Layout lout,
+                        Layout ldq, Problem pr) {
+  using T = Tile<D>;
+  uint8_t* q_s = aligned_smem();
+  uint8_t* do_s = q_s + T::kBytes;
+  uint8_t* k_s = do_s + T::kBytes;               // kStages tiles
+  uint8_t* v_s = k_s + kStages * T::kBytes;      // kStages tiles
+  uint8_t* valid_s = v_s + kStages * T::kBytes;  // kStages x 64 mask bytes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(valid_s + kStages * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* kh = k + b * lk.b + h * lk.h;
-  const bf16* vh = v + b * lv.b + h * lv.h;
-  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
-  const long long bh = static_cast<long long>(b) * pr.heads + h;
+  const int kv_end = pr.skip ? min(pr.n_k, q0 + kTile + pr.off) : pr.n_k;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      tma_prefetch(&map_q);
+      tma_prefetch(&map_k);
+      tma_prefetch(&map_v);
+      tma_prefetch(&map_do);
+      mbar_arrive_expect_tx(q_full, 2 * T::kBytes);
+      load_tile(q_s, &map_q, dim_q, q_full, q0, h, b);
+      load_tile(do_s, &map_do, dim_do, q_full, q0, h, b);
+    }
+    const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+      if (valid) {
+        for (int j = lane; j < kTile; j += 32) {
+          const int key = it * kTile + j;
+          valid_s[s * kTile + j] = key < pr.n_k && valid[key];
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
+        load_tile(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
+        load_tile(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  const int tw = threadIdx.x, warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const long long bh = static_cast<long long>(b) * pr.heads + h;
   const float lse_lo = row_lo < pr.n_q ? lse[bh * pr.n_q + row_lo] : INFINITY;
   const float lse_hi = row_hi < pr.n_q ? lse[bh * pr.n_q + row_hi] : INFINITY;
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(qa, q + b * lq.b + h * lq.h, lq.n, q0 + warp * 16, pr.n_q, lane);
-  load_a<D>(da, dout + b * ldo.b + h * ldo.h, ldo.n, q0 + warp * 16, pr.n_q, lane);
-
-  // delta = rowsum(do * out) in f32: each thread's columns of its two rows
-  // (the do fragments in registers, the same columns of out), summed over
-  // the 4 threads of a row; written for the dK/dV kernel
+  // delta = rowsum(do * out) in f32: each thread's columns 16 kc + 2 t (+ 8)
+  // of its two rows, summed over the 4 threads of a row; written for the
+  // dK/dV kernel
+  const bf16* doh = dout + b * ldo.b + h * ldo.h;
   const bf16* oh = out + b * lout.b + h * lout.h;
   float dl_lo = 0.f, dl_hi = 0.f;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     const int c = 16 * kc + 2 * t;
-    dl_lo += dot_pair(da[kc][0], load_pair(oh, lout.n, row_lo, c, pr.n_q)) +
-             dot_pair(da[kc][2], load_pair(oh, lout.n, row_lo, c + 8, pr.n_q));
-    dl_hi += dot_pair(da[kc][1], load_pair(oh, lout.n, row_hi, c, pr.n_q)) +
-             dot_pair(da[kc][3], load_pair(oh, lout.n, row_hi, c + 8, pr.n_q));
+    dl_lo += dot_pair(load_pair(doh, ldo.n, row_lo, c, pr.n_q),
+                      load_pair(oh, lout.n, row_lo, c, pr.n_q)) +
+             dot_pair(load_pair(doh, ldo.n, row_lo, c + 8, pr.n_q),
+                      load_pair(oh, lout.n, row_lo, c + 8, pr.n_q));
+    dl_hi += dot_pair(load_pair(doh, ldo.n, row_hi, c, pr.n_q),
+                      load_pair(oh, lout.n, row_hi, c, pr.n_q)) +
+             dot_pair(load_pair(doh, ldo.n, row_hi, c + 8, pr.n_q),
+                      load_pair(oh, lout.n, row_hi, c + 8, pr.n_q));
   }
 #pragma unroll
   for (int m = 1; m < 4; m <<= 1) {
@@ -460,88 +522,329 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0 && row_lo < pr.n_q) delta[bh * pr.n_q + row_lo] = dl_lo;
   if (t == 0 && row_hi < pr.n_q) delta[bh * pr.n_q + row_hi] = dl_hi;
 
-  const int kv_end = pr.skip ? min(pr.n_k, q0 + kTile + pr.off) : pr.n_k;
-  const int n_tiles = (kv_end + kTile - 1) / kTile;
-  auto load = [&](int it, int buf) {
-    tile_async<D>(k_s[buf], kh, lk.n, it * kTile, pr.n_k, tid);
-    tile_async<D>(v_s[buf], vh, lv.n, it * kTile, pr.n_k, tid);
-    valid_tile(valid_s[buf], valid, it * kTile, pr.n_k, tid);
-    cp_async_commit();
+  const uint64_t q_desc = T::desc(q_s);
+  const uint64_t do_desc = T::desc(do_s);
+  const bool masked = mask != nullptr;
+  float acc[D / 2];
+  zero(acc);
+  // s = q k^T and dp = do v^T of key tile `it` (issued, not waited for)
+  float sc[kTile / 2], dp[kTile / 2];
+  auto scores = [&](int it) {
+    const int s = it % kStages;
+    mbar_wait(full + s, (it / kStages) & 1);
+    const uint64_t k_desc = T::desc(k_s + s * T::kBytes);
+    const uint64_t v_desc = T::desc(v_s + s * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Mma<kTile>::ss(sc, desc_add(q_desc, 32 * kc), desc_add(k_desc, 32 * kc), kc);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Mma<kTile>::ss(dp, desc_add(do_desc, 32 * kc), desc_add(v_desc, 32 * kc), kc);
+    wgmma_commit();
   };
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  load(0, 0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+  // sc becomes ds = p (dp - delta) scale, p = 2^(s scale log2 e - lse log2 e):
+  // zero at every masked score and past the keys (the general tile; the
+  // plain one, with nothing hidden, tests nothing)
+  const float c2 = pr.scale * kLog2e;
+  const float lb_lo = lse_lo * kLog2e, lb_hi = lse_hi * kLog2e;
+  const float ds_lo = dl_lo * pr.scale, ds_hi = dl_hi * pr.scale;
+  auto grad_scores = [&](int it) {
     const int k0 = it * kTile;
-
-    float s[kNt][4], dp[kNt][4];
+    const uint8_t* valid_t = valid_s + (it % kStages) * kTile;
 #pragma unroll
-    for (int i = 0; i < kNt; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t bb[4];
-        load_b_rows(bb, k_s[buf], kLd, np * 16, kc * 16, lane);
-        mma_bf16(s[2 * np], qa[kc], bb);
-        mma_bf16(s[2 * np + 1], qa[kc], bb + 2);
-        load_b_rows(bb, v_s[buf], kLd, np * 16, kc * 16, lane);
-        mma_bf16(dp[2 * np], da[kc], bb);
-        mma_bf16(dp[2 * np + 1], da[kc], bb + 2);
-      }
-    }
-    // s becomes ds: zero at every masked score and past the keys
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
+    for (int c = 0; c < kTile / 8; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * t + (e & 1);
-        const int col = k0 + j;
         const bool lo = e < 2;
-        const bool vis = col < pr.n_k && valid_s[buf][j] &&
-                         !causal_hidden(pr, lo ? row_lo : row_hi, col);
-        const float p = __expf(s[nt][e] * pr.scale - (lo ? lse_lo : lse_hi));
-        s[nt][e] = vis ? p * (dp[nt][e] - (lo ? dl_lo : dl_hi)) * pr.scale : 0.f;
+        const float p = ex2(fmaf(sc[4 * c + e], c2, lo ? -lb_lo : -lb_hi));
+        sc[4 * c + e] = p * fmaf(dp[4 * c + e], pr.scale, lo ? -ds_lo : -ds_hi);
       }
     }
-    // dq += ds k (ds rounded to bf16, the TPU kernel's ds.astype(k.dtype))
+    if (masked || pr.causal || k0 + kTile > pr.n_k) {
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t sa[4];
-      scores_as_a(sa, s, kc);
+      for (int c = 0; c < kTile / 8; ++c) {
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bb[4];
-        load_b_cols(bb, k_s[buf], kLd, kc * 16, dn * 16, lane);
-        mma_bf16(acc[2 * dn], sa, bb);
-        mma_bf16(acc[2 * dn + 1], sa, bb + 2);
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * c + 2 * t + (e & 1), col = k0 + j;
+          const bool vis = col < pr.n_k && (!masked || valid_t[j]) &&
+                           !causal_hidden(pr, e < 2 ? row_lo : row_hi, col);
+          sc[4 * c + e] = vis ? sc[4 * c + e] : 0.f;
+        }
       }
     }
-    __syncthreads();
+  };
+  // dq += ds k of key tile `it` (issued), ds rounded to bf16 (the TPU
+  // kernel's ds.astype(k.dtype))
+  uint32_t sa[kTile / 16][4];
+  auto dq_step = [&](int it) {
+    const uint64_t k_desc = T::desc(k_s + (it % kStages) * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc)
+      Mma<D>::template rs<1>(acc, sa[kc], desc_add(k_desc, kc * T::kSliceRows), 1);
+    wgmma_commit();
+  };
+
+  // Two key tiles in flight: while dq += ds k of tile it runs, s and dp of
+  // tile it + 1 are computed, then its ds.
+  mbar_wait(q_full, 0);
+  scores(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  grad_scores(0);
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc) as_a(sa[kc], sc, kc);
+  for (int it = 0; it + 1 < n_tiles; ++it) {
+    scores(it + 1);
+    dq_step(it);
+    wgmma_wait<1>();  // s and dp of tile it + 1
+    fence_regs(sc);
+    fence_regs(dp);
+    grad_scores(it + 1);
+    wgmma_wait<0>();  // dq += ds k of tile it
+    fence_regs(acc);
+    fence_regs(sa);
+    if (tw == 0) mbar_arrive(empty + it % kStages);
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) as_a(sa[kc], sc, kc);
   }
+  dq_step(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(sa);
 
   bf16* dqh = dq + b * ldq.b + h * ldq.h;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = 8 * c + 2 * t;
     if (row_lo < pr.n_q)
-      *reinterpret_cast<uint32_t*>(dqh + row_lo * ldq.n + c) = pack_bf16(acc[dn][0], acc[dn][1]);
+      *reinterpret_cast<uint32_t*>(dqh + row_lo * ldq.n + col) =
+          pack_bf16(acc[4 * c + 0], acc[4 * c + 1]);
     if (row_hi < pr.n_q)
-      *reinterpret_cast<uint32_t*>(dqh + row_hi * ldq.n + c) = pack_bf16(acc[dn][2], acc[dn][3]);
+      *reinterpret_cast<uint32_t*>(dqh + row_hi * ldq.n + col) =
+          pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+  }
+}
+
+// --------------------------------------------------- bf16: K3b dK/dV kernel
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * Tile<D>::kBytes + kStages * kTile * 12 +
+         (1 + 2 * kStages) * 8;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do, MapDims dim_q,
+                         MapDims dim_k, MapDims dim_v, MapDims dim_do,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, Layout ldk, Layout ldv, Problem pr) {
+  using T = Tile<D>;
+  uint8_t* k_s = aligned_smem();
+  uint8_t* v_s = k_s + T::kBytes;
+  uint8_t* q_s = v_s + T::kBytes;             // kStages tiles
+  uint8_t* do_s = q_s + kStages * T::kBytes;  // kStages tiles
+  // kStages x 64 each: lse log2 e, delta scale, lse
+  float* lse_s = reinterpret_cast<float*>(do_s + kStages * T::kBytes);
+  float* delta_s = lse_s + kStages * kTile;
+  float* lse_n = delta_s + kStages * kTile;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lse_n + kStages * kTile);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // under `skip` a query tile reaches this block's keys when its last row does
+  const int i_start = (pr.skip && k0 > pr.off) ? (k0 - pr.off) / kTile : 0;
+  const int n_tiles = (pr.n_q + kTile - 1) / kTile - i_start;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const long long bh = static_cast<long long>(b) * pr.heads + h;
+  if (threadIdx.x >= 128) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      tma_prefetch(&map_q);
+      tma_prefetch(&map_k);
+      tma_prefetch(&map_v);
+      tma_prefetch(&map_do);
+      mbar_arrive_expect_tx(kv_full, 2 * T::kBytes);
+      load_tile(k_s, &map_k, dim_k, kv_full, k0, h, b);
+      load_tile(v_s, &map_v, dim_v, kv_full, k0, h, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages, r0 = (i_start + i) * kTile;
+      mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
+      for (int j = lane; j < kTile; j += 32) {
+        // rows past n_q: p = 0 (lse = +inf), ds = 0
+        const int r = r0 + j;
+        const float l = r < pr.n_q ? lse[bh * pr.n_q + r] : INFINITY;
+        lse_n[s * kTile + j] = l;
+        lse_s[s * kTile + j] = l * kLog2e;
+        delta_s[s * kTile + j] = r < pr.n_q ? delta[bh * pr.n_q + r] * pr.scale : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
+        load_tile(q_s + s * T::kBytes, &map_q, dim_q, full + s, r0, h, b);
+        load_tile(do_s + s * T::kBytes, &map_do, dim_do, full + s, r0, h, b);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  const int tw = threadIdx.x, warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
+  const bool ok_lo = key_lo < pr.n_k && (!valid || valid[key_lo]);
+  const bool ok_hi = key_hi < pr.n_k && (!valid || valid[key_hi]);
+  const bool plain = !mask && !pr.causal;
+  const uint64_t k_desc = T::desc(k_s);
+  const uint64_t v_desc = T::desc(v_s);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  // s^T = k q^T and dp^T = v do^T of query tile `i` of the block (issued,
+  // not waited for): rows are this block's keys
+  float st[kTile / 2], dpt[kTile / 2];
+  auto scores = [&](int i) {
+    const int s = i % kStages;
+    mbar_wait(full + s, (i / kStages) & 1);
+    const uint64_t q_desc = T::desc(q_s + s * T::kBytes);
+    const uint64_t do_desc = T::desc(do_s + s * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Mma<kTile>::ss(st, desc_add(k_desc, 32 * kc), desc_add(q_desc, 32 * kc), kc);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Mma<kTile>::ss(dpt, desc_add(v_desc, 32 * kc), desc_add(do_desc, 32 * kc), kc);
+    wgmma_commit();
+  };
+  // st becomes p^T, dpt becomes ds^T: p = 2^(s scale log2 e - lse log2 e), ds
+  // = p (dp - delta) scale, both from the stage's lse log2 e and delta scale
+  // of each query; where hidden (the general tile) p = exp(NEG - lse) / N_k,
+  // 1 / N_k on a row whose every key is masked and else 0, and ds = 0
+  const float c2 = pr.scale * kLog2e;
+  auto grad_scores = [&](int i) {
+    const int s = i % kStages, r0 = (i_start + i) * kTile;
+    const float* lb_t = lse_s + s * kTile;
+    const float* ds_t = delta_s + s * kTile;
+#pragma unroll
+    for (int c = 0; c < kTile / 8; ++c) {
+      const float2 lb = *reinterpret_cast<const float2*>(lb_t + 8 * c + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(ds_t + 8 * c + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(st[4 * c + e], c2, -(e & 1 ? lb.y : lb.x)));
+        dpt[4 * c + e] = p * fmaf(dpt[4 * c + e], pr.scale, -(e & 1 ? dl.y : dl.x));
+        st[4 * c + e] = p;
+      }
+    }
+    if (!plain) {
+      const float* lse_t = lse_n + s * kTile;
+#pragma unroll
+      for (int c = 0; c < kTile / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * c + 2 * t + (e & 1);  // query in the tile
+          const bool vis = (e < 2 ? ok_lo : ok_hi) &&
+                           !causal_hidden(pr, r0 + j, e < 2 ? key_lo : key_hi);
+          if (!vis) {
+            st[4 * c + e] = ex2(((kNeg - lse_t[j]) - pr.log_nk) * kLog2e);
+            dpt[4 * c + e] = 0.f;
+          }
+        }
+      }
+    }
+  };
+  // dv += p^T do, dk += ds^T q of query tile `i` (issued), both rounded to
+  // the input type first (the TPU kernel's casts)
+  uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
+  auto dkv_step = [&](int i) {
+    const uint64_t q_desc = T::desc(q_s + (i % kStages) * T::kBytes);
+    const uint64_t do_desc = T::desc(do_s + (i % kStages) * T::kBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      Mma<D>::template rs<1>(dv_acc, pa[kc], desc_add(do_desc, kc * T::kSliceRows), 1);
+      Mma<D>::template rs<1>(dk_acc, sa[kc], desc_add(q_desc, kc * T::kSliceRows), 1);
+    }
+    wgmma_commit();
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      as_a(pa[kc], st, kc);
+      as_a(sa[kc], dpt, kc);
+    }
+  };
+
+  // Two query tiles in flight: while dv and dk of tile i accumulate, s^T and
+  // dp^T of tile i + 1 are computed, then its p^T and ds^T.
+  mbar_wait(kv_full, 0);
+  scores(0);
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  grad_scores(0);
+  pack();
+  for (int i = 0; i + 1 < n_tiles; ++i) {
+    scores(i + 1);
+    dkv_step(i);
+    wgmma_wait<1>();  // s^T and dp^T of tile i + 1
+    fence_regs(st);
+    fence_regs(dpt);
+    grad_scores(i + 1);
+    wgmma_wait<0>();  // dv and dk of tile i
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(sa);
+    if (tw == 0) mbar_arrive(empty + i % kStages);
+    pack();
+  }
+  dkv_step(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+  fence_regs(pa);
+  fence_regs(sa);
+
+  bf16* dkh = dk + b * ldk.b + h * ldk.h;
+  bf16* dvh = dv + b * ldv.b + h * ldv.h;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (key_lo < pr.n_k) {
+      *reinterpret_cast<uint32_t*>(dkh + key_lo * ldk.n + col) =
+          pack_bf16(dk_acc[4 * c + 0], dk_acc[4 * c + 1]);
+      *reinterpret_cast<uint32_t*>(dvh + key_lo * ldv.n + col) =
+          pack_bf16(dv_acc[4 * c + 0], dv_acc[4 * c + 1]);
+    }
+    if (key_hi < pr.n_k) {
+      *reinterpret_cast<uint32_t*>(dkh + key_hi * ldk.n + col) =
+          pack_bf16(dk_acc[4 * c + 2], dk_acc[4 * c + 3]);
+      *reinterpret_cast<uint32_t*>(dvh + key_hi * ldv.n + col) =
+          pack_bf16(dv_acc[4 * c + 2], dv_acc[4 * c + 3]);
+    }
   }
 }
 
@@ -775,17 +1078,119 @@ Layout layout(const long long* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// What the last failing call of this thread was doing, for its message.
+thread_local const char* g_step = "";
+
+// The tensor map of a (batch, heads, rows, D) bf16 operand at `base`, read
+// through its element strides `l` in boxes of 64 rows by D, swizzled
+// for wgmma (128-byte rows at D = 64, 64-byte at D = 32). The three outer
+// dims go in order of stride, dims of extent 1 last (their stride never
+// read); `dims` says where each went.
+cudaError_t make_map(CUtensorMap* map, MapDims* dims, const char* what, const void* base,
+                     Layout l, int batch, int heads, int rows, int d) {
+  g_step = what;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  struct Dim {
+    int which;  // 0 rows, 1 heads, 2 batch
+    long long extent, stride;
+  } v[3] = {{0, rows, l.n}, {1, heads, l.h}, {2, batch, l.b}};
+  for (int i = 1; i < 3; ++i) {
+    for (int j = i; j > 0; --j) {
+      const Dim &x = v[j], &y = v[j - 1];
+      const bool before = (x.extent > 1) != (y.extent > 1) ? x.extent > 1 : x.stride < y.stride;
+      if (!before) break;
+      const Dim tmp = v[j];
+      v[j] = v[j - 1];
+      v[j - 1] = tmp;
+    }
+  }
+  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), 1, 1, 1};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  int slot[3];
+  cuuint64_t span = 2ull * d;  // bytes spanned by the dims so far
+  for (int i = 0; i < 3; ++i) {
+    gdim[i + 1] = static_cast<cuuint64_t>(v[i].extent);
+    gstride[i] = v[i].extent > 1 ? 2ull * static_cast<cuuint64_t>(v[i].stride) : span;
+    span = gstride[i] * gdim[i + 1];
+    box[i + 1] = v[i].which == 0 ? kTile : 1;
+    slot[v[i].which] = i + 1;
+  }
+  *dims = MapDims{slot[0], slot[1], slot[2]};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // the driver's codes are the runtime's for the errors an encode returns
+  return static_cast<cudaError_t>(r);
+}
+
+// Binds the calling thread to its current device's primary context. The
+// tensor maps are encoded through the driver, which needs a current context,
+// and a thread that has made no runtime call yet has none (the autograd
+// engine's thread, on a first backward: PyTorch selects a device only when it
+// differs from the current one).
+cudaError_t bind_context() {
+  g_step = "the device's context";
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  return err == cudaSuccess ? cudaSetDevice(device) : err;
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
                        void* out, float* lse, const long long* st, int batch, int dtype,
                        const Problem& pr, cudaStream_t stream) {
   if (dtype == 1) {
+    CUtensorMap mq, mk, mv;
+    MapDims dq, dk, dv;
+    cudaError_t err;
+    if ((err = bind_context()) ||
+        (err = make_map(&mq, &dq, "q's tensor map", q, layout(st, 0), batch, pr.heads, pr.n_q,
+                        D)) ||
+        (err = make_map(&mk, &dk, "k's tensor map", k, layout(st, 1), batch, pr.heads, pr.n_k,
+                        D)) ||
+        (err = make_map(&mv, &dv, "v's tensor map", v, layout(st, 2), batch, pr.heads, pr.n_k,
+                        D)))
+      return err;
+    constexpr int kSmem = fwd_smem_bytes<D>();
+    g_step = "the forward's shared memory";
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return err;
+    g_step = "the forward's launch";
     const dim3 grid((pr.n_q + kTile - 1) / kTile, pr.heads, batch);
-    flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, static_cast<bf16*>(out), lse, layout(st, 0), layout(st, 1), layout(st, 2),
-        layout(st, 3), pr);
+    flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+        mq, mk, mv, dq, dk, dv, mask, static_cast<bf16*>(out), lse, layout(st, 3), pr);
   } else {
+    g_step = "the forward's launch";
     const dim3 grid((pr.n_q + kScalarRows - 1) / kScalarRows, pr.heads, batch);
     flash_fwd_f32_kernel<D><<<grid, kScalarRows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -803,21 +1208,41 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const uint8_
   // strides: q 0, k 1, v 2, dout 3, out 4, dq 5, dk 6, dv 7. dQ first: it
   // writes the delta that dK/dV reads.
   if (dtype == 1) {
+    CUtensorMap mq, mk, mv, mdo;
+    MapDims nq, nk, nv, ndo;
+    cudaError_t err;
+    if ((err = bind_context()) ||
+        (err = make_map(&mq, &nq, "q's tensor map", q, layout(st, 0), batch, pr.heads, pr.n_q,
+                        D)) ||
+        (err = make_map(&mk, &nk, "k's tensor map", k, layout(st, 1), batch, pr.heads, pr.n_k,
+                        D)) ||
+        (err = make_map(&mv, &nv, "v's tensor map", v, layout(st, 2), batch, pr.heads, pr.n_k,
+                        D)) ||
+        (err = make_map(&mdo, &ndo, "dout's tensor map", dout, layout(st, 3), batch, pr.heads,
+                        pr.n_q, D)))
+      return err;
+    constexpr int kSmemQ = dq_smem_bytes<D>(), kSmemKV = dkv_smem_bytes<D>();
+    g_step = "the backward's shared memory";
+    if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ)) ||
+        (err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV)))
+      return err;
+    g_step = "the dQ kernel's launch";
     const dim3 grid_q((pr.n_q + kTile - 1) / kTile, pr.heads, batch);
-    flash_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, static_cast<const bf16*>(dout), static_cast<const bf16*>(out), lse, delta,
-        static_cast<bf16*>(dq), layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
+    flash_bwd_dq_kernel<D><<<grid_q, kThreads, kSmemQ, stream>>>(
+        mq, mk, mv, mdo, nq, nk, nv, ndo, mask, static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(out), lse, delta, static_cast<bf16*>(dq), layout(st, 3),
         layout(st, 4), layout(st, 5), pr);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    g_step = "the dK/dV kernel's launch";
     const dim3 grid_kv((pr.n_k + kTile - 1) / kTile, pr.heads, batch);
-    flash_bwd_dkv_kernel<D><<<grid_kv, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), layout(st, 0), layout(st, 1), layout(st, 2), layout(st, 3),
-        layout(st, 6), layout(st, 7), pr);
+    flash_bwd_dkv_kernel<D><<<grid_kv, kThreads, kSmemKV, stream>>>(
+        mq, mk, mv, mdo, nq, nk, nv, ndo, mask, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), layout(st, 6), layout(st, 7), pr);
   } else {
+    g_step = "the dQ kernel's launch";
     const dim3 grid_q((pr.n_q + kScalarRows - 1) / kScalarRows, pr.heads, batch);
     flash_bwd_dq_f32_kernel<D><<<grid_q, kScalarRows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -826,6 +1251,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const uint8_
         layout(st, 1), layout(st, 2), layout(st, 3), layout(st, 4), layout(st, 5), pr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    g_step = "the dK/dV kernel's launch";
     const dim3 grid_kv((pr.n_k + kScalarRows - 1) / kScalarRows, pr.heads, batch);
     flash_bwd_dkv_f32_kernel<D><<<grid_kv, kScalarRows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -844,7 +1270,8 @@ extern "C" {
 // bytes, 1 = attend, or null. strides: batch, head and row strides in
 // elements of q, k, v, out (12 values; every row 16-byte aligned). lse:
 // (batch, heads, n_q) f32. Launches on `stream` without synchronising;
-// returns the launch's cudaError_t (0 on success).
+// returns the launch's cudaError_t (0 on success), or that of the tensor
+// maps' encoding (bf16).
 int mmlearn_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
                       void* lse, const long long* strides, int batch, int heads, int n_q,
                       int n_k, int head_dim, int dtype, float scale, int causal, void* stream) {
@@ -862,8 +1289,9 @@ int mmlearn_flash_fwd(const void* q, const void* k, const void* v, const void* m
 // mask, the cotangent `dout` of the output, the forward's output and lse
 // ((batch, heads, n_q) f32). delta: a (batch, heads, n_q) f32 buffer that
 // receives rowsum(dout * out). strides: q, k, v, dout, out, dq, dk, dv (24
-// values). Two launches on `stream` (dQ, then dK/dV), no synchronisation;
-// returns the first failing launch's cudaError_t.
+// values); dq, dk and dv may be views of one buffer. Two launches on
+// `stream` (dQ, then dK/dV), no synchronisation; returns the first failing
+// launch's cudaError_t.
 int mmlearn_flash_bwd(const void* q, const void* k, const void* v, const void* mask,
                       const void* dout, const void* out, const void* lse, void* delta,
                       void* dq, void* dk, void* dv, const long long* strides, int batch,
@@ -884,8 +1312,13 @@ int mmlearn_flash_bwd(const void* q, const void* k, const void* v, const void* m
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The message of a failed call's error: what this thread was doing, then
+// CUDA's name for the error.
 const char* mmlearn_flash_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  thread_local char text[256];
+  snprintf(text, sizeof(text), "%s: %s", g_step,
+           cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return text;
 }
 
 }  // extern "C"

@@ -7,11 +7,12 @@ This covers the JAX module's two kernel branches, routed as it routes them
 by :func:`~mmlearn_tpu_torch.ops.fused_attention.supports_fused`: the fused
 short-sequence kernel (``attention.py:128-134``) through
 :class:`~mmlearn_tpu_torch.ops.fused_attention.FusedMHAFunction`, and the
-flash branch (``attention.py:135-145``) for every other layer, which splits
-the head-major qkv into ``(B, H, N, D)`` q, k, v and calls
-:func:`~mmlearn_tpu_torch.ops.flash_attention.flash_attention`. The split is
-three strided views that the CUDA kernels read in place, and the kernels
-write the output with the heads already merged. On a CPU tensor both
+flash branch (``attention.py:135-145``: the head-major qkv split into
+``(B, H, N, D)`` q, k, v, then flash attention) for every other layer,
+through :class:`~mmlearn_tpu_torch.ops.flash_attention.FlashQKVFunction`.
+Its split is three strided views that the CUDA kernels read in place; the
+kernels write the output with the heads already merged, and the gradient of
+qkv straight into one packed buffer. On a CPU tensor both
 branches run as plain PyTorch, which is what the JAX package computes off
 the TPU. Both projections are ``Int8Dense``, so ``MMLEARN_QUANT`` reaches
 them as it does in the JAX package. The ring-attention, ``return_weights``
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
-from mmlearn_tpu_torch.ops.flash_attention import flash_attention
+from mmlearn_tpu_torch.ops.flash_attention import flash_attention_qkv
 from mmlearn_tpu_torch.ops.fused_attention import fused_mha, supports_fused
 
 
@@ -65,8 +66,6 @@ class Attention(nn.Module):
             out = fused_mha(qkv, attention_mask, num_heads=self.num_heads,
                             scale=self.scale, causal=self.causal)
         else:
-            q, k, v = qkv.view(b, n, self.num_heads, 3, -1).permute(3, 0, 2, 1, 4).unbind(0)
-            out = flash_attention(q, k, v, attention_mask, scale=self.scale,
-                                  causal=self.causal)
-            out = out.transpose(1, 2).reshape(b, n, c)
+            out = flash_attention_qkv(qkv, attention_mask, num_heads=self.num_heads,
+                                      scale=self.scale, causal=self.causal)
         return self.proj(out)

@@ -10,7 +10,12 @@ kernels are ``csrc/flash_attention.cu`` (built by
 f32 log-sum-exp of every row; K3b is two kernels, dQ over key tiles and then
 dK/dV over query tiles, both driven by the log-sum-exp and ``delta =
 rowsum(dO * O)`` (which the JAX package leaves to XLA): the dQ kernel sums it
-in f32 from its own rows and writes it for the dK/dV kernel.
+in f32 from its own rows and writes it for the dK/dV kernel. The kernels read
+q, k, v (and dO) through tensor maps of their strided views and write the
+output and the gradients through strides, so :func:`flash_attention_qkv`
+takes the head-major packed projection ``(B, N, H * 3 * D)`` of an attention
+layer as it is and returns the gradient of the packed projection as K3b
+writes it, with no copy on either side.
 
 The plain PyTorch versions: :func:`attention_reference`, the math of the JAX
 package's ``_attention_xla``; :func:`flash_fwd_reference`, that output with
@@ -18,7 +23,8 @@ the log-sum-exp the TPU kernel emits; :func:`flash_bwd_reference`, the math
 of its ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``. :func:`flash_attention`
 runs through :class:`FlashAttentionFunction`; it takes the plain versions
 only for a tensor that lies on the CPU. For a CUDA tensor it launches the
-kernels, at every length, or raises.
+kernels, at every length, or raises; so does :func:`flash_attention_qkv`
+through :class:`FlashQKVFunction`.
 
 Two places where the port follows ``_attention_xla`` (the function the JAX
 package computes off the TPU) and not the TPU kernel:
@@ -155,18 +161,20 @@ def _library():
     return fwd, bwd, err
 
 
-def _layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernels read it: unit last stride, every row 16-byte
-    aligned (the kernels load rows in 16-byte vectors). Any other view is
-    copied; strided views that qualify (q, k, v of a packed projection) are
-    read in place."""
-    def fits(x):
-        return x.stride(-1) == 1 and all(
-            (s * x.element_size()) % 16 == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
+def _fits(t: torch.Tensor) -> bool:
+    """Whether the kernels read (or write) ``t`` in place: unit last stride,
+    every row 16-byte aligned (tensor maps and 16-byte vectors)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        (s * t.element_size()) % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
 
-    if not fits(t):
+
+def _layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it (:func:`_fits`). Any other view is copied;
+    strided views that qualify (q, k, v of a packed projection) are read in
+    place."""
+    if not _fits(t):
         t = t.contiguous()
-    if not fits(t) or t.data_ptr() % 16:
+    if not _fits(t):
         raise ValueError(f"flash attention kernels need 16-byte aligned rows, got strides "
                          f"{t.stride()} at offset {t.data_ptr() % 16}")
     return t
@@ -234,15 +242,21 @@ def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool):
     return out, lse
 
 
-def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale: float, causal: bool):
+def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale: float, causal: bool, grads=None):
     """K3b: the dQ kernel (which also writes ``delta``), then the dK/dV
-    kernel."""
+    kernel. They write dq, dk, dv into ``grads`` where it is given (views the
+    kernels write in place, such as the three of a packed ``(B, N, H, 3, D)``
+    buffer), else into new tensors; returns them."""
     q, k, v, out = _layout(q), _layout(k), _layout(v), _layout(out)
     dout = _layout(dout.to(q.dtype))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if grads is None:
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    elif not all(g.shape == t.shape and g.dtype == t.dtype and _fits(g)
+                 for g, t in zip(grads, (q, k, v))):
+        raise ValueError("flash attention backward writes dq, dk, dv into views shaped as q, "
+                         "k, v with 16-byte aligned rows")
+    dq, dk, dv = grads
     _, bwd, error_string = _library()
     with torch.cuda.device(q.device):
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -318,3 +332,91 @@ def flash_attention(
     else:
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     return FlashAttentionFunction.apply(q, k, v, mask, scale, causal)
+
+
+def split_qkv(qkv: torch.Tensor, num_heads: int):
+    """q, k, v ``(B, H, N, D)`` of a head-major packed projection ``(B, N, H *
+    3 * D)``: three strided views (row stride ``H * 3 * D``), no copy."""
+    b, n, _ = qkv.shape
+    return qkv.view(b, n, num_heads, 3, -1).permute(3, 0, 2, 1, 4).unbind(0)
+
+
+class FlashQKVFunction(torch.autograd.Function):
+    """K3 on the head-major packed projection ``(B, N, H * 3 * D)`` of an
+    attention layer, as :class:`~mmlearn_tpu_torch.ops.fused_attention.
+    FusedMHAFunction` is for K1. The forward launches K3f on the three strided
+    views of qkv and returns ``(B, N, H * D)``, a view of the buffer it
+    writes. The backward allocates one ``(B, N, H, 3, D)`` buffer and has K3b
+    write dq, dk and dv into its three views: the buffer is the gradient of
+    qkv, with no stack and no reshape. On a CPU tensor both run the plain
+    versions on the views, and the gradients land in the same layout."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, num_heads: int, scale: float, causal: bool):
+        q, k, v = split_qkv(qkv, num_heads)
+        if qkv.device.type == "cpu":
+            out, lse = flash_fwd_reference(q, k, v, mask, scale, causal)
+        else:
+            out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
+        ctx.save_for_backward(qkv, mask, out, lse)
+        ctx.config = (num_heads, scale, causal)
+        b, n, _ = qkv.shape
+        return out.transpose(1, 2).reshape(b, n, -1)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, mask, out, lse = ctx.saved_tensors
+        num_heads, scale, causal = ctx.config
+        b, n, three_c = qkv.shape
+        q, k, v = split_qkv(qkv, num_heads)
+        dout = dout.reshape(b, n, num_heads, -1).transpose(1, 2)
+        dqkv = torch.empty(b, n, num_heads, 3, three_c // (3 * num_heads), dtype=qkv.dtype,
+                           device=qkv.device)
+        grads = dqkv.permute(3, 0, 2, 1, 4).unbind(0)
+        if qkv.device.type == "cpu":
+            for g, x in zip(grads, flash_bwd_reference(q, k, v, mask, out, lse, dout, scale,
+                                                       causal)):
+                g.copy_(x)
+        else:
+            _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale, causal, grads=grads)
+        return dqkv.view(b, n, three_c), None, None, None, None
+
+
+def flash_attention_qkv(
+    qkv: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    scale: Optional[float] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Head-major packed multi-head self-attention on K3, differentiable in
+    qkv: the JAX package's flash branch (``attention.py:135-145``: split,
+    :func:`flash_attention`, heads merged) as one Function.
+
+    Args:
+        qkv: ``(B, N, H * 3 * D)`` projection output, packed head-major.
+        mask: optional ``(B, N)`` key-validity mask (True or 1 = attend).
+        num_heads: number of heads ``H``.
+        scale: logit scale; defaults to ``D ** -0.5``.
+        causal: apply a causal mask.
+
+    Returns:
+        ``(B, N, H * D)`` in qkv's dtype.
+
+    A CPU tensor takes the plain versions at any shape; a CUDA tensor
+    launches the kernels (float32 or bfloat16, ``D`` in {32, 64}) or raises.
+    """
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"qkv must be (B, N, {num_heads} * 3 * D), got {tuple(qkv.shape)}")
+    if mask is not None and mask.ndim != 2:
+        raise ValueError(f"mask must be (batch, kv_seq), got {tuple(mask.shape)}")
+    d = qkv.shape[-1] // (3 * num_heads)
+    scale = d ** -0.5 if scale is None else float(scale)
+    if qkv.device.type == "cuda":
+        mask = _check_cuda(*split_qkv(qkv, num_heads), mask)
+    elif qkv.device.type == "cpu":
+        mask = None if mask is None else mask.bool()
+    else:
+        raise ValueError(f"flash_attention_qkv runs on cpu or cuda tensors, got {qkv.device}")
+    return FlashQKVFunction.apply(qkv, mask, num_heads, scale, causal)

@@ -150,22 +150,29 @@ def test_cuda_kernel_matches_plain(d, causal, masked):
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# the shared header each attention source includes: K1's mma.sync helpers,
+# K3's wgmma, TMA and mbarrier helpers
+_SHARED_HEADER = {"fused_attention": "attention_tiles.cuh", "flash_attention": "hopper_tiles.cuh"}
+
+
 @pytest.mark.parametrize("source", ["fused_attention", "flash_attention"])
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch, source):
-    """Both attention sources include ``attention_tiles.cuh``: an edit of the
-    header moves their built library, on a copy of ``csrc``; the same files
-    keep their path, and an edit of one source moves only its own."""
+    """Each attention source includes a shared header (``_SHARED_HEADER``):
+    an edit of the header moves its built library, on a copy of ``csrc``; the
+    same files keep their path, and an edit of one source moves only its
+    own."""
     import shutil
 
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
-    assert '#include "attention_tiles.cuh"' in (csrc / f"{source}.cu").read_text()
+    name = _SHARED_HEADER[source]
+    assert f'#include "{name}"' in (csrc / f"{source}.cu").read_text()
     before = _build.library_path(source)
     assert _build.library_path(source) == before
     other = "int8_matmul"
     other_before = _build.library_path(other)
-    header = csrc / "attention_tiles.cuh"
+    header = csrc / name
     header.write_text(header.read_text() + "\n// edited\n")
     after = _build.library_path(source)
     assert after != before and after.startswith(_build.BUILD_DIR)

@@ -95,9 +95,9 @@ def test_flash_branch_vit_matches_jax(monkeypatch):
     branch in both packages, and the embeddings agree to atol 1e-5."""
     jvit, params, vit, images = _flash_vit()
     calls = []
-    monkeypatch.setattr(fl.FlashAttentionFunction, "apply",
+    monkeypatch.setattr(fl.FlashQKVFunction, "apply",
                         functools.partial(lambda f, *a: calls.append(1) or f(*a),
-                                          fl.FlashAttentionFunction.apply))
+                                          fl.FlashQKVFunction.apply))
     with torch.no_grad():
         got = vit(torch.from_numpy(images)).pooler_output.numpy()
     assert len(calls) == FLASH_VISION["depth"]
