@@ -9,22 +9,24 @@ Phases, each fatal on failure:
 1. build the hand-written kernels from the sources in the checkout, one
    ``nvcc`` a source, all at once: K1 forward and backward
    (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
-   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K5, the
-   quantizing int8 product (``csrc/int8_matmul.cu``), and K3
-   (``csrc/flash_attention.cu``, on the wgmma, TMA and mbarrier helpers of
+   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K2b, the
+   LayerNorm backward (``csrc/layernorm_bwd.cu``), K5, the quantizing int8
+   product (``csrc/int8_matmul.cu``), and K3 (``csrc/flash_attention.cu``;
+   K3 and K5 on the wgmma, TMA and mbarrier helpers of
    ``csrc/hopper_tiles.cuh``), CUDA C++ for sm_90a, into ``build/kernels/``;
-   K2 forward and
-   backward (Triton,
-   ``mmlearn_tpu_torch/ops/fused_norm.py``) build at their first call;
+   K2f, the LayerNorm forward (Triton, ``mmlearn_tpu_torch/ops/fused_norm.py``),
+   builds at its first call;
 2. hold each kernel against its plain PyTorch version on the card, with
    the tolerance printed on each line: at batch 8 over every case (masks,
    head dims, f32 and bf16; K1 also at the lengths where its code branches,
    up to ``supports_fused``'s N = 768 at D = 64 and 512 at D = 32, its
-   output and gradients also as a whole, ||got - want|| / ||want||; K5 at
-   ragged M, N and K, forward and dgrad
-   through ``switchback_matmul``, with its shape routing), and at batch 256
-   in bf16 at the paths' shapes (K5 at all 16 projection shapes),
-   so at the grids the training step launches; then time the kernel, its
+   output and gradients also as a whole, ||got - want|| / ||want||; K2b's
+   dgamma / dbeta also bit for bit on two runs of one input; K5 at
+   ragged M, N and K, forward and dgrad through ``switchback_matmul``,
+   with its shape routing, on both of its paths (TMA and byte loads), with
+   a bias), and at batch 256 in bf16 at the paths' shapes (K5 at all 16
+   projection shapes), so at the grids the training step launches; then
+   time the kernel, its
    plain version and, where one PyTorch call computes the same function,
    that call, at batch 256, beside the kernel's bound (the bytes it must
    move over 3.35 TB/s or its operations over the dense peak of its type,
@@ -49,9 +51,9 @@ Phases, each fatal on failure:
    with every launch count set to 0, ``Trainer.fit`` on the synthetic batch
    at batch 256: 3 warm-up steps, 3 timed windows of 10 steps and one more
    step; check the launches per step (per block: K1 forward once and each
-   of K1 backward's two kernels once, K2 forward and each of K2 backward's
-   two passes twice), a finite, nonzero gradient for every parameter, and a
-   last loss below the first;
+   of K1 backward's two kernels once, K2 forward and backward twice), a
+   finite, nonzero gradient for every parameter, and a last loss below the
+   first;
 6. the I-JEPA path (``flagship.ijepa_training_task``: ViT-B/16 student, EMA
    teacher, the default predictor of 12 heads of dim 32): the host time of
    one batch of masks; one step at batch 8 on the card against the CPU
@@ -67,9 +69,13 @@ Phases, each fatal on failure:
    then, with every count set to 0, ``Trainer.fit`` at batch 256 under
    ``int8_sb`` (3 warm-up steps, 3 timed windows of 10, one more step):
    launches a step checked exactly (K5 twice a projection: forward and
-   dgrad), every gradient finite and nonzero, the loss falling and its first
-   value within 2% of the bf16 run's from the same weights; then ``encode``
-   of images at batch 256 under ``int8_sb`` (K5 once a projection);
+   dgrad), every gradient of the first step finite and nonzero (where a
+   kernel that cuts the autograd graph shows), every gradient of the last
+   step finite (the fit on one synthetic batch may have collapsed to chance
+   by then, and the int8 dgrad rounds its deepest gradients to exactly
+   zero: their names are printed), the loss falling and its first value
+   within 2% of the bf16 run's from the same weights; then ``encode`` of
+   images at batch 256 under ``int8_sb`` (K5 once a projection);
 8. the long-sequence path: the flagship towers with the image tower at 448
    px (785 tokens, its position table interpolated from the 224-px one), whose
    attention takes the flash kernel K3: with every count set to 0, image
@@ -187,16 +193,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # which also covers longer rows under a ragged key mask than K1's checks
 # hold (at N=768 K1b and K1b-p read up to 8.7e-7 over 8 draws, bit for bit
 # alike: tools/k1_masked_readings.py); K2 only its output (2e-7). f32:
-# summation order (reads 1.4e-6). K5 and its plain version round x / sx to
-# the same ints and dequantize in the same order: only the output's rounding
-# can differ.
+# summation order (reads 1.4e-6). K5 is held exact (K5_TOL): it and its
+# plain version round x / sx to the same ints, sum them exactly and
+# dequantize (and add the bias) in the same order.
 # K3 rounds where K1f does (unnormalised p in the forward, reads 6.0e-3; p
 # and ds in the backward, 2.0e-3).
 BF16_ATOL = {"fused_mha_fwd": 1.3e-2, "fused_mha_bwd": 4e-7, "layernorm_fwd": 1e-4,
              "layernorm_bwd": 1e-4, "fused_mha_packed_fwd": 1.3e-2,
-             "fused_mha_packed_bwd": 2e-6, "int8_qmm": 1e-6,
+             "fused_mha_packed_bwd": 2e-6,
              "flash_attention_fwd": 1.2e-2, "flash_attention_bwd": 4e-3}
 F32_TOL = (5e-6, 0.0)
+K5_TOL = (0.0, 0.0)
 # K3's f32 log-sum-exp, values up to ~15: the scores summed in another order
 # (reads 3.8e-6)
 LSE_TOL = (1e-5, 0.0)
@@ -222,11 +229,22 @@ K1_REL_TOL = {"fused_mha_fwd": {"bfloat16": 2.5e-4, "float32": 8e-7},
 # another order than K1's (reads 7.2e-7 and 2.0e-7)
 K1P_REL_TOL = {"fused_mha_packed_fwd": {**K1_REL_TOL["fused_mha_fwd"], "float32": 1.5e-6},
                "fused_mha_packed_bwd": {**K1_REL_TOL["fused_mha_bwd"], "float32": 4e-7}}
+# the generator of norm_batch_inputs
+NORMS_SEED = SEED + 12
 # draws of K1 at the text grid (k1_draws)
 K1_DRAWS = 12
-# K2 backward's dgamma / dbeta: f32 sums over every row (up to 50,432 here)
-# in another order, of values up to ~1,000 (reads 2.3e-5 at this rtol)
+# K2 backward's dgamma / dbeta against the plain version at batch 8: f32
+# sums over every row (1,576 here) in another order
 SUM_TOL = (1e-4, 1e-4)
+# and against the same sums evaluated in f64 (ln_sums_f64) and rounded once to
+# f32, at every grid: one rounding of each side is up to 2^-24 of the sum, so
+# the rtol is 2^-23, and the atol holds what else a sound sum may add. At batch
+# 256 (tools/layernorm_sum_accuracy.py, on norm_batch_inputs) K2b reads a
+# least atol up to 4.85e-5 at this rtol (dgamma at 120,832 rows: its f32 xhat),
+# and a plain f32 column sum of the same products 9.2e-5, 1.48e-4 and 2.93e-4
+# at the three widths (the plain version's own sums, further off there than
+# SUM_TOL): this limit refuses such a sum
+SUM_F64_TOL = (1e-4, 2 ** -23)
 # served embeddings (bf16 kernels on the card) against the plain-version
 # forward of the same artifact on the CPU: cosine of each pair
 MIN_COSINE = 0.99
@@ -433,16 +451,15 @@ def k1p_check(tag: str, x, mask, h: int, causal: bool, out, dqkv, dout, err: dic
 
 
 def kernel_checks(device, gen) -> dict:
-    """Every kernel against its plain version on the card at batch 8: K1
-    forward and backward (through ``fused_mha`` and autograd) on the image
-    and text attention cases (with a ragged and a left-padded mask) and at
-    the lengths where its bf16 code branches, K2 forward and backward, both
-    variants, at the towers' widths. Returns each kernel's largest error."""
+    """K1 against its plain version on the card at batch 8: forward and
+    backward (through ``fused_mha`` and autograd) on the image and text
+    attention cases (with a ragged and a left-padded mask) and at the
+    lengths where its bf16 code branches. Returns each kernel's largest
+    error (K2's at 0, for :func:`norm_checks`)."""
     import torch
 
     from mmlearn_tpu_torch.flagship import ragged_text_batch
     from mmlearn_tpu_torch.ops import fused_attention as fa
-    from mmlearn_tpu_torch.ops import fused_norm as fn
 
     b = 8
     mask = ragged_text_batch(b, gen, device)["text_attention_mask"]
@@ -482,8 +499,34 @@ def kernel_checks(device, gen) -> dict:
         k1_check(f"{label} B={b} N={n} H={h} D={d} {_dtype_name(dtype)}", x, m, h, causal,
                  out.detach(), dqkv, dout, err)
         del x, dout, out, dqkv
+    return err
 
-    for n, c in ((197, 768), (77, 512), (118, 384)):  # 384: the I-JEPA predictor's
+
+def ln_sums_f64(x, dy, eps: float):
+    """dgamma and dbeta of the LayerNorm backward, ``sum(dy * xhat)`` and
+    ``sum(dy)`` over every row, evaluated in f64 from the inputs: what K2b's
+    column sums are held to."""
+    import torch
+
+    c = x.shape[-1]
+    xd, dyd = x.double().reshape(-1, c), dy.double().reshape(-1, c)
+    xc = xd - xd.mean(-1, keepdim=True)
+    xhat = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+    return (dyd * xhat).sum(0), dyd.sum(0)
+
+
+def norm_checks(device, gen, err: dict) -> None:
+    """K2 forward and backward, both variants, against their plain versions
+    on the card at batch 8 at the towers' widths; the largest errors join
+    ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import fused_norm as fn
+
+    b = 8
+    # 384: the I-JEPA predictor's; 300: a ragged C (K2b's wide kernel, as f32
+    # at 768 and 512)
+    for n, c in ((197, 768), (77, 512), (118, 384), (37, 300)):
         for dtype in (torch.bfloat16, torch.float32):
             dn = _dtype_name(dtype)
             x, br, dy, dr = (torch.randn(b, n, c, generator=gen, device=device).to(dtype)
@@ -499,6 +542,7 @@ def kernel_checks(device, gen) -> dict:
             ax, abr, ag, ab = torch.autograd.grad((r, y2), leaves, (dr, dy))
             wx, wg, wb = fn.ln_bwd_reference(x, g, dy, 1e-6)
             wax, wag, wab = fn.ln_bwd_reference(x + br, g, dy, 1e-5, dr)
+            (eg, eb), (eag, eab) = ln_sums_f64(x, dy, 1e-6), ln_sums_f64(x + br, dy, 1e-5)
             torch.cuda.synchronize()
             err["layernorm_fwd"] = max(
                 err["layernorm_fwd"],
@@ -516,8 +560,11 @@ def kernel_checks(device, gen) -> dict:
                 compare(f"K2b add+layernorm dbranch {tag}", abr, wax, bwd_tol),
                 compare(f"K2b add+layernorm dgamma {tag}", ag, wag, SUM_TOL),
                 compare(f"K2b add+layernorm dbeta {tag}", ab, wab, SUM_TOL),
+                compare(f"K2b layernorm dgamma {tag} against f64", gg, eg, SUM_F64_TOL),
+                compare(f"K2b layernorm dbeta {tag} against f64", gb, eb, SUM_F64_TOL),
+                compare(f"K2b add+layernorm dgamma {tag} against f64", ag, eag, SUM_F64_TOL),
+                compare(f"K2b add+layernorm dbeta {tag} against f64", ab, eab, SUM_F64_TOL),
             )
-    return err
 
 
 def k1_draws(device, err: dict) -> None:
@@ -542,24 +589,27 @@ def k1_draws(device, err: dict) -> None:
     reset_counts()
 
 
+def print_times(rows: dict) -> None:
+    for label, (ms, plain, lib, bnd, by) in rows.items():
+        lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        at = "" if "B=" in label else f" B={BATCH}"
+        print(f"time {label}{at} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib_s}, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+
+
 def kernels_at_batch(device, gen, err: dict) -> dict:
     """At batch 256, bf16, at the paths' shapes and so at the grids the
-    training step launches: each kernel against its plain version (its
-    largest error joins ``err``), then its time beside its plain version's,
-    that of the one PyTorch call that computes the same function where there
-    is one (a yardstick the port never calls), and its bound. Returns
-    ``{row: (ms, plain_ms, library_ms or None, bound_ms, bound_by)}``."""
+    training step launches: K1 against its plain version (its largest error
+    joins ``err``), then its time beside its plain version's, that of the one
+    PyTorch call that computes the same function (a yardstick the port never
+    calls), and its bound. Returns ``{row: (ms, plain_ms, library_ms or
+    None, bound_ms, bound_by)}``."""
     import torch
     import torch.nn.functional as F
 
     from mmlearn_tpu_torch.flagship import ragged_text_batch
     from mmlearn_tpu_torch.ops import fused_attention as fa
-    from mmlearn_tpu_torch.ops import fused_norm as fn
 
-    def worst(kernel: str, *errors: float) -> None:
-        err[kernel] = max(err[kernel], *errors)
-
-    ln_fwd, ln_bwd = tol("layernorm_fwd", "bfloat16"), tol("layernorm_bwd", "bfloat16")
     rows = {}
     text_mask = ragged_text_batch(BATCH, gen, device)["text_attention_mask"]
     for label, n, h, causal, mask in (
@@ -598,15 +648,45 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
                                                 retain_graph=True)),
             *bound(nbytes(qkv, out, dout, qkv, mask), 10 * h * d * pairs, "bfloat16"),
         )
-    # the I-JEPA predictor's norms: 1,024 x 118 = 120,832 rows of 384 (not a
-    # power of two: masked lanes)
+    print_times(rows)
+    return rows
+
+
+def norm_batch_inputs(device):
+    """The inputs :func:`norms_at_batch` checks and times, from a generator
+    of their own (``NORMS_SEED``): for each of the towers' norms at batch
+    256 and the I-JEPA predictor's, ``(label, c, x, branch, dy, dr, gamma,
+    beta)``, bf16 rows and f32 weights."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(NORMS_SEED)
+    # the I-JEPA predictor's norms: 1,024 x 118 = 120,832 rows of 384
     for label, b, n, c in (("N=197 C=768", BATCH, 197, 768), ("N=77 C=512", BATCH, 77, 512),
                            ("B=1024 N=118 C=384", 1024, 118, 384)):
         x, br, dy, dr = (torch.randn(b, n, c, generator=gen, device=device).bfloat16()
                          for _ in range(4))
         g = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
         beta = 0.1 * torch.randn(c, generator=gen, device=device)
-        tag = f"{label} bf16" if "B=" in label else f"B={b} {label} bf16"
+        yield label, c, x, br, dy, dr, g, beta
+
+
+def norms_at_batch(device, err: dict) -> dict:
+    """K2 as :func:`kernels_at_batch` holds K1, on :func:`norm_batch_inputs`;
+    K2b's column sums against their f64 evaluation (the plain version's own
+    f32 sums are further off than the limit there), and K2b run twice on one
+    input for equal bits. Returns rows as :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import fused_norm as fn
+
+    def worst(kernel: str, *errors: float) -> None:
+        err[kernel] = max(err[kernel], *errors)
+
+    ln_fwd, ln_bwd = tol("layernorm_fwd", "bfloat16"), tol("layernorm_bwd", "bfloat16")
+    rows = {}
+    for label, c, x, br, dy, dr, g, beta in norm_batch_inputs(device):
+        tag = f"{label} bf16" if "B=" in label else f"B={BATCH} {label} bf16"
         r, y2 = fn.fused_add_layernorm(x, br, g, beta)
         worst("layernorm_fwd",
               compare(f"K2f layernorm {tag}", fn.fused_layernorm(x, g, beta),
@@ -614,18 +694,37 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
               compare(f"K2f add+layernorm r {tag}", r, x + br, ln_fwd),
               compare(f"K2f add+layernorm y {tag}", y2,
                       fn.ln_reference(x + br, g, beta, 1e-6), ln_fwd))
-        # the row pass adds several row tiles in each program here (one at
-        # batch 8): dgamma / dbeta check that loop
+        sums = ln_sums_f64(x, dy, 1e-6)
         for variant, d_r in (("layernorm", None), ("add+layernorm", dr)):
             got = fn._launch_bwd(x, g, dy, 1e-6, d_r)
             want = fn.ln_bwd_reference(x, g, dy, 1e-6, d_r)
             worst("layernorm_bwd",
                   compare(f"K2b {variant} dx {tag}", got[0], want[0], ln_bwd),
-                  compare(f"K2b {variant} dgamma {tag}", got[1], want[1], SUM_TOL),
-                  compare(f"K2b {variant} dbeta {tag}", got[2], want[2], SUM_TOL))
+                  compare(f"K2b {variant} dgamma {tag} against f64", got[1], sums[0],
+                          SUM_F64_TOL),
+                  compare(f"K2b {variant} dbeta {tag} against f64", got[2], sums[1],
+                          SUM_F64_TOL))
+            # the column sums in a fixed order: the same bits on a second run
+            again = fn._launch_bwd(x, g, dy, 1e-6, d_r)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"K2b {variant} {tag}: dx, dgamma, dbeta of two runs equal bit for bit "
+                  f"{'ok' if same else 'FAIL'}")
+            check(same, f"K2b {variant} {tag} differs from run to run")
+        del sums
         gl, bl = g.bfloat16(), beta.bfloat16()  # F.layer_norm takes weights in x's type
+        # the library's backward as one ATen call, dx, dgamma and dbeta as K2b
+        # computes them. F.layer_norm's backward through autograd, on an x that
+        # alone needs a gradient, computes dx only: printed beside it, with the
+        # one ATen call it makes (its device time without autograd's host time)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, (c,), gl, bl, 1e-6)
         xl = x.clone().requires_grad_()
         yl = F.layer_norm(xl, (c,), gl, bl, 1e-6)
+        dx_autograd = cuda_ms(lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True))
+        dx_aten = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, (c,), mean, rstd, gl, bl, (True, False, False)))
+        print(f"time K2b layernorm {label}: F.layer_norm backward, dx only: through autograd "
+              f"{dx_autograd:.4f} ms, its ATen call {dx_aten:.4f} ms")
+        del xl, yl
         rows[f"K2f layernorm {label}"] = (
             cuda_ms(lambda: fn.fused_layernorm(x, g, beta)),
             cuda_ms(lambda: fn.ln_reference(x, g, beta, 1e-6)),
@@ -641,7 +740,8 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
         rows[f"K2b layernorm {label}"] = (
             cuda_ms(lambda: fn._launch_bwd(x, g, dy, 1e-6)),
             cuda_ms(lambda: fn.ln_bwd_reference(x, g, dy, 1e-6)),
-            cuda_ms(lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True)),
+            cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, (c,), mean, rstd, gl, bl, (True, True, True))),
             *bound(nbytes(x, dy, x, g, g, g), 0, "bfloat16"),
         )
         rows[f"K2b add+layernorm {label}"] = (
@@ -650,11 +750,7 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
             None,  # the layer_norm backward and an add
             *bound(nbytes(x, dy, dr, x, g, g, g), 0, "bfloat16"),
         )
-    for label, (ms, plain, lib, bnd, by) in rows.items():
-        lib_s = "none" if lib is None else f"{lib:.4f} ms"
-        at = "" if "B=" in label else f" B={BATCH}"
-        print(f"time {label}{at} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib_s}, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    print_times(rows)
     return rows
 
 
@@ -753,25 +849,29 @@ def ijepa_attention_at_batch(device, gen, err: dict) -> dict:
 
 
 def int8_kernel_checks(device, gen, err: dict) -> None:
-    """K5 against its plain version: small cases through ``switchback_matmul``
-    (its forward and its dgrad, each a K5 launch where ``supports_int8_qmm``
-    routes the shape to it, the composed product elsewhere: the launches are
-    checked) at ragged M, N and K, in bf16 and f32, covering each of the
-    kernel's row blocks (64, 32 and 16 rows) and both of its load paths;
-    then all 16 projection products of the flagship step at batch 256 in
-    bf16, forward and dgrad. The largest error joins ``err``."""
+    """K5 against its plain version, exactly: small cases through
+    ``switchback_matmul`` with a bias (its forward, the bias added in K5's
+    epilogue, and its dgrad, each a K5 launch where ``supports_int8_qmm``
+    routes the shape to it, the composed product and a separate add
+    elsewhere; the launches of each of K5's paths are checked) at ragged M,
+    N and K, in bf16 and f32, covering both paths (TMA where K is a multiple
+    of 16, byte loads elsewhere) and each row block of the byte path (64, 32
+    and 16 rows); then all 16 projection products of the flagship step at
+    batch 256 in bf16, forward and dgrad, and image fc1's forward with its
+    bias. The largest error joins ``err``."""
     import torch
 
     from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    cases = [  # (m, k, n, dtype)
+    cases = [  # (m, k, n, dtype); the TMA path takes a product whose K % 16 == 0
         (8, 128, 128, torch.bfloat16),  # the least M the routing admits
-        (37, 200, 160, torch.bfloat16),  # K % 16 != 0: byte loads
+        (37, 200, 160, torch.bfloat16),  # forward K % 16 != 0: byte loads
         (130, 100, 300, torch.float32),  # dgrad N = 100: composed
-        (300, 96, 520, torch.float32),
-        (77, 3072, 768, torch.bfloat16),  # 64-row blocks at the largest flagship K
-        (520, 3264, 130, torch.float32),  # 32-row blocks
-        (40, 8192, 136, torch.bfloat16),  # 16-row blocks at the largest K
+        (300, 96, 520, torch.float32),  # forward on TMA in f32; dgrad N = 96: composed
+        (77, 3072, 768, torch.bfloat16),  # both on TMA at the largest flagship K
+        (520, 3270, 130, torch.float32),  # byte path, 32-row blocks
+        (40, 8190, 136, torch.bfloat16),  # byte path, 16-row blocks at K = 8190
+        (40, 8192, 136, torch.bfloat16),  # TMA at the largest K
         (20, 256, 64, torch.bfloat16),  # forward N = 64: composed
     ]
     err.setdefault("int8_qmm", 0.0)
@@ -779,24 +879,28 @@ def int8_kernel_checks(device, gen, err: dict) -> None:
         dn = _dtype_name(dtype)
         x = torch.randn(m, k, generator=gen, device=device).to(dtype)
         w = (torch.randn(n, k, generator=gen, device=device) * k ** -0.5).to(dtype)
+        b = torch.randn(n, generator=gen, device=device).to(dtype)
         g = torch.randn(m, n, generator=gen, device=device).to(dtype)
-        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        xl, wl, bl = x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone()
+        bl.requires_grad_()
         reset_counts()
-        y = im.switchback_matmul(xl, wl)
-        dx, _ = torch.autograd.grad(y, (xl, wl), g)
+        y = im.switchback_matmul(xl, wl, bl)
+        dx, _, _ = torch.autograd.grad(y, (xl, wl, bl), g)
         torch.cuda.synchronize()
-        want = int(im.supports_int8_qmm(m, k, n)) + int(im.supports_int8_qmm(m, n, k))
-        check(im.LAUNCHES["int8_qmm"] == want,
-              f"switchback M={m} K={k} N={n} launched K5 {im.LAUNCHES['int8_qmm']} times, "
-              f"want {want}")
+        routed = [im.supports_int8_qmm(m, k, n), im.supports_int8_qmm(m, n, k)]
+        tma = [routed[0] and k % 16 == 0, routed[1] and n % 16 == 0]
+        got = (im.LAUNCHES["int8_qmm"], im.LAUNCHES["int8_qmm_bytes"])
+        want = (sum(tma), sum(routed) - sum(tma))
+        check(got == want, f"switchback M={m} K={k} N={n} launched K5 (TMA, bytes) {got} "
+              f"times, want {want}")
         tag = f"M={m} K={k} N={n} {dn}"
         err["int8_qmm"] = max(
             err["int8_qmm"],
-            compare(f"K5 int8_qmm fwd {tag}", y,
-                    im.int8_qmm_reference(x, *im.quantize_weight(w)), tol("int8_qmm", dn)),
+            compare(f"K5 int8_qmm fwd+bias {tag}", y,
+                    im.int8_qmm_reference(x, *im.quantize_weight(w), b), K5_TOL),
             compare(f"K5 int8_qmm dgrad {tag}", dx,
                     im.int8_qmm_reference(g, *im.quantize_weight(w.t().contiguous())),
-                    tol("int8_qmm", dn)))
+                    K5_TOL))
     for label, m, c_in, c_out in INT8_SHAPES:
         for way, k, n in (("fwd", c_in, c_out), ("dgrad", c_out, c_in)):
             x = torch.randn(m, k, generator=gen, device=device).bfloat16()
@@ -805,7 +909,12 @@ def int8_kernel_checks(device, gen, err: dict) -> None:
             got = im.int8_qmm(x, qw, sw)
             err["int8_qmm"] = max(err["int8_qmm"], compare(
                 f"K5 int8_qmm {label} {way} M={m} K={k} N={n} bf16", got,
-                im.int8_qmm_reference(x, qw, sw), tol("int8_qmm", "bfloat16")))
+                im.int8_qmm_reference(x, qw, sw), K5_TOL))
+            if label == "image fc1" and way == "fwd":  # the bias epilogue at the path's shape
+                b = torch.randn(n, generator=gen, device=device).bfloat16()
+                err["int8_qmm"] = max(err["int8_qmm"], compare(
+                    f"K5 int8_qmm {label} fwd+bias M={m} K={k} N={n} bf16",
+                    im.int8_qmm(x, qw, sw, b), im.int8_qmm_reference(x, qw, sw) + b, K5_TOL))
             del x, qw, sw, got
     torch.cuda.empty_cache()
     reset_counts()
@@ -839,13 +948,16 @@ def int8_at_batch(device, gen) -> dict:
             None,
             *bound(nbytes(x, qw, sw, out), 2 * m * k * n, "int8"),
         )
+        b = torch.randn(n, generator=gen, device=device).bfloat16()
+        bias_ms = cuda_ms(lambda: im.int8_qmm(x, qw, sw, b))
         linear_ms = cuda_ms(lambda: F.linear(x, w))
         int_mm_ms = cuda_ms(lambda: torch._int_mm(qx, qw.t()))
         ms, plain, _, bnd, by = rows[row]
         print(f"time {row} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library none, "
-              f"bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it); context: bf16 F.linear "
-              f"{linear_ms:.4f} ms, torch._int_mm of the quantized operands {int_mm_ms:.4f} ms")
-        del x, w, qw, sw, out, qx
+              f"bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it); with the bias {bias_ms:.4f} "
+              f"ms; context: bf16 F.linear {linear_ms:.4f} ms, torch._int_mm of the quantized "
+              f"operands {int_mm_ms:.4f} ms")
+        del x, w, b, qw, sw, out, qx
     torch.cuda.empty_cache()
     reset_counts()
     return rows
@@ -1407,16 +1519,21 @@ def main_path(device) -> dict:
 class TimedBatches:
     """Yields ``batch`` without end; before the batches numbered in
     ``marks`` it waits for the card and notes the host clock, so the gaps
-    between marks time whole training steps."""
+    between marks time whole training steps. ``after_first``, where given,
+    is called before the second batch: the first step's gradients are still
+    in place then."""
 
-    def __init__(self, batch, marks) -> None:
+    def __init__(self, batch, marks, after_first=None) -> None:
         self.batch, self.marks, self.times = batch, set(marks), []
+        self.after_first = after_first
 
     def __iter__(self):
         import torch
 
         i = 0
         while True:
+            if i == 1 and self.after_first is not None:
+                self.after_first()
             if i in self.marks:
                 torch.cuda.synchronize()
                 self.times.append(time.perf_counter())
@@ -1478,15 +1595,34 @@ def step_parity(device, label: str, loss_rtol: float, min_cos: float, highres: b
     return card_task
 
 
-def fit_flagship(task, device, label: str, want: dict, highres: bool = False
-                 ) -> tuple[dict, float]:
+def _bad_grads(named) -> tuple[list, list]:
+    """Names of the tensors whose gradient is missing or not finite, and of
+    those whose gradient is exactly zero."""
+    bad, zero = [], []
+    for n, p in named:
+        if p.grad is None or not bool(p.grad.isfinite().all()):
+            bad.append(n)
+        elif not bool(p.grad.any()):
+            zero.append(n)
+    return bad, zero
+
+
+def fit_flagship(task, device, label: str, want: dict, highres: bool = False,
+                 first_step_grads: bool = False) -> tuple[dict, float]:
     """``Trainer.fit`` of the flagship task at batch 256 on the synthetic
     batch (with ``highres``, of its 448-px variant at batch 64 on
     ``highres_batch``), with every launch count set to 0 first: 3 warm-up
     steps, 3 timed windows of 10 steps (5 with ``highres``) and one more
     step. Checks the launches per step against ``want`` exactly, a finite,
     nonzero gradient for every parameter and a last loss below the first;
-    returns the counts and the first loss."""
+    returns the counts and the first loss.
+
+    With ``first_step_grads`` (the ``int8_sb`` fit) the gradients are held
+    nonzero at the first step, where a kernel that cuts the autograd graph
+    shows, and only finite at the last: a fit on one synthetic batch may
+    collapse to chance by then (loss ln 256, gradient norm near 0), and the
+    int8 dgrad's 1e-6 absmax floor then rounds the deepest image blocks'
+    gradients to exactly zero; their names are printed."""
     import math
 
     import torch
@@ -1499,7 +1635,12 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False
         size, torch.Generator(device=device).manual_seed(SEED + 4), device)
     marks = [WARMUP_STEPS + i * window_steps for i in range(WINDOWS + 1)]
     steps = marks[-1] + 1  # the last mark is taken before the last step
-    loader = TimedBatches(batch, marks)
+    first = {}
+
+    def note_first_grads():  # a warm-up step: its reads of the card are not timed
+        first["bad"], first["zero"] = _bad_grads(task.named_parameters())
+
+    loader = TimedBatches(batch, marks, note_first_grads if first_step_grads else None)
     trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device)
     reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1512,12 +1653,22 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False
     check(counts == {k: v * state.step for k, v in want.items()},
           f"{label}training launches {counts}, want {want} a step")
 
-    bad = [n for n, p in task.named_parameters()
-           if p.grad is None or not bool(p.grad.isfinite().all()) or not bool(p.grad.any())]
     n_params = sum(1 for _ in task.parameters())
-    print(f"gradients of the last step: {n_params - len(bad)} of {n_params} tensors "
-          f"finite and nonzero")
-    check(not bad, f"missing, non-finite or zero gradients: {bad[:10]}")
+    bad, zero = _bad_grads(task.named_parameters())
+    if first_step_grads:
+        first_bad = first["bad"] + first["zero"]
+        print(f"{label}gradients of the first step: {n_params - len(first_bad)} of {n_params} "
+              f"tensors finite and nonzero")
+        check(not first_bad, f"missing, non-finite or zero gradients at the first step: "
+              f"{first_bad[:10]}")
+        print(f"{label}gradients of the last step: {n_params - len(bad)} of {n_params} tensors "
+              f"finite; exactly zero: {len(zero)} {zero}")
+        check(not bad, f"missing or non-finite gradients at the last step: {bad[:10]}")
+    else:
+        bad += zero
+        print(f"gradients of the last step: {n_params - len(bad)} of {n_params} tensors "
+              f"finite and nonzero")
+        check(not bad, f"missing, non-finite or zero gradients: {bad[:10]}")
 
     hist = trainer.history
     first, last = hist[0]["loss"], hist[-1]["loss"]
@@ -1539,13 +1690,12 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False
 
 def flagship_launches(task, int8_qmm: int) -> dict:
     """Launches a step of the flagship train step: per block K1 forward once
-    and K1 backward's two kernels once each, K2 forward and each of K2
-    backward's two passes twice, K5 ``int8_qmm`` times."""
+    and K1 backward's two kernels once each, K2 forward and backward twice,
+    K5 ``int8_qmm`` times (on its TMA path: every projection shape)."""
     depth = sum(len(enc.blocks) for enc in task.encoders.values())
     return {"fused_mha_fwd": depth, "fused_mha_bwd": 2 * depth, "fused_mha_packed_fwd": 0,
-            "fused_mha_packed_bwd": 0, "layernorm_fwd": 2 * depth,
-            "layernorm_bwd_rows": 2 * depth, "layernorm_bwd_sum": 2 * depth,
-            "int8_qmm": int8_qmm * depth, **NO_FLASH}
+            "fused_mha_packed_bwd": 0, "layernorm_fwd": 2 * depth, "layernorm_bwd": 2 * depth,
+            "int8_qmm": int8_qmm * depth, "int8_qmm_bytes": 0, **NO_FLASH}
 
 
 def training_path(device) -> tuple[dict, float]:
@@ -1593,9 +1743,8 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
     k1, k1p = (0, 1) if packed else (1, 0)
     want = {"fused_mha_fwd": k1 * fwd, "fused_mha_bwd": k1 * 2 * bwd,
             "fused_mha_packed_fwd": k1p * fwd, "fused_mha_packed_bwd": k1p * 2 * bwd,
-            "layernorm_fwd": 2 * fwd,
-            "layernorm_bwd_rows": 2 * bwd, "layernorm_bwd_sum": 2 * bwd, "int8_qmm": 0,
-            **NO_FLASH}
+            "layernorm_fwd": 2 * fwd, "layernorm_bwd": 2 * bwd, "int8_qmm": 0,
+            "int8_qmm_bytes": 0, **NO_FLASH}
     print(f"I-JEPA path ({name}): {state.step} steps launched " + ", ".join(
         f"{k} {counts[k]} ({counts[k] / state.step:g} a step, want {v})"
         for k, v in want.items()))
@@ -1728,7 +1877,8 @@ def quant_path(device, bf16_first_loss: float) -> dict:
 
     with environ(QUANT_ENV, "int8_sb"):
         task = flagship_training_task(device, seed=SEED)
-        counts, first = fit_flagship(task, device, "int8_sb ", flagship_launches(task, 8))
+        counts, first = fit_flagship(task, device, "int8_sb ", flagship_launches(task, 8),
+                                     first_step_grads=True)
         rel = abs(first - bf16_first_loss) / abs(bf16_first_loss)
         print(f"int8_sb first loss {first:.6f} vs bf16 {bf16_first_loss:.6f} from the same "
               f"weights and batch: rel diff {rel:.3e} (tol {QUANT_FIRST_LOSS_RTOL})")
@@ -1841,6 +1991,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = {"fused_attention": "K1 forward and backward",
                "fused_attention_packed": "K1f-p/K1b-p forward and backward",
+               "layernorm_bwd": "K2b LayerNorm backward",
                "int8_matmul": "K5 quantizing int8 product",
                "flash_attention": "K3 forward and backward"}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -1851,6 +2002,7 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     errors = kernel_checks(device, gen)
+    norm_checks(device, gen, errors)
     packed_kernel_checks(device, gen, errors)
     t0 = time.perf_counter()
     flash_kernel_checks(device, gen, errors)
@@ -1858,10 +2010,11 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_kernel_checks(device, gen, errors)
     print(f"K5 checks done in {time.perf_counter() - t0:.1f} s")
-    # the batch-256 grids of K1 and K2 draw from a generator of their own, so
+    # the batch-256 grids of K1 and K2 draw from generators of their own, so
     # that cases added to the batch-8 checks do not change their data
-    times = kernels_at_batch(device, torch.Generator(device=device).manual_seed(SEED + 10),
-                             errors)
+    gen_b = torch.Generator(device=device).manual_seed(SEED + 10)
+    times = kernels_at_batch(device, gen_b, errors)
+    times.update(norms_at_batch(device, errors))
     k1_draws(device, errors)
     times.update(ijepa_attention_at_batch(device, gen, errors))
     times.update(int8_at_batch(device, gen))
@@ -1869,8 +2022,8 @@ def main() -> int:
     times.update(flash_packed_at_grid(device, gen, errors))
     t0 = time.perf_counter()
     serving = main_path(device)
-    check(launch_counts()["int8_qmm"] == 0, "K5 launched on the serving path without "
-          f"{QUANT_ENV}")
+    check(launch_counts()["int8_qmm"] == launch_counts()["int8_qmm_bytes"] == 0,
+          f"K5 launched on the serving path without {QUANT_ENV}")
     print(f"serving path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, bf16_first_loss = training_path(device)
@@ -1883,7 +2036,8 @@ def main() -> int:
     print(f"int8_sb path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     highres_launches = highres_path(device)
-    check(highres_launches["int8_qmm"] == 0, f"K5 launched on the 448 path without {QUANT_ENV}")
+    check(highres_launches["int8_qmm"] == highres_launches["int8_qmm_bytes"] == 0,
+          f"K5 launched on the 448 path without {QUANT_ENV}")
     print(f"448 path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
@@ -1907,9 +2061,9 @@ def main() -> int:
         "layernorm_fwd": ("triton", "mmlearn_tpu_torch/ops/fused_norm.py",
                           "mmlearn_tpu/ops/fused_norm.py:126", "K2f add+layernorm N=197 C=768",
                           ("layernorm_fwd",)),
-        "layernorm_bwd": ("triton", "mmlearn_tpu_torch/ops/fused_norm.py",
+        "layernorm_bwd": ("cuda", "mmlearn_tpu_torch/csrc/layernorm_bwd.cu",
                           "mmlearn_tpu/ops/fused_norm.py:144", "K2b add+layernorm N=197 C=768",
-                          ("layernorm_bwd_rows", "layernorm_bwd_sum")),
+                          ("layernorm_bwd",)),
         "fused_mha_packed_fwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention_packed.cu",
                                  "mmlearn_tpu/ops/fused_attention.py:425",
                                  "K1f-p predictor N=118 H=12 D=32 B=1024",
@@ -1920,7 +2074,7 @@ def main() -> int:
                                  ("fused_mha_packed_bwd",)),
         "int8_qmm": ("cuda", "mmlearn_tpu_torch/csrc/int8_matmul.cu",
                      "mmlearn_tpu/ops/int8_matmul.py:63", "K5 image fc1 fwd M=50432 K=768 N=3072",
-                     ("int8_qmm",)),
+                     ("int8_qmm", "int8_qmm_bytes")),
         "flash_attention_fwd": ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
                                 "mmlearn_tpu/ops/flash_attention.py:76",
                                 "K3f image N=785 packed", ("flash_fwd",)),

@@ -11,8 +11,8 @@ weights per output channel, an exact s32 product dequantized by ``sx * sw``.
 - ``int8``: int8 forward, dgrad and wgrad, each with its scales on the
   non-contracted dims (:func:`int8_matmul_full`);
 - ``int8_sb``: "switchback": forward and dgrad through kernel K5, the
-  quantizing int8 product, and an exact wgrad
-  (:func:`mmlearn_tpu_torch.ops.int8_matmul.switchback_matmul`);
+  quantizing int8 product (the bias added in its epilogue), and an exact
+  wgrad (:func:`mmlearn_tpu_torch.ops.int8_matmul.switchback_matmul`);
 - unset, or any other value: the plain :class:`Dense` product.
 
 The JAX package reads the variable at every trace; the port reads it at
@@ -137,8 +137,9 @@ class Int8Dense(Dense):
         if mode == "int8_sb":
             from mmlearn_tpu_torch.ops.int8_matmul import switchback_matmul
 
-            y = switchback_matmul(x, w)
-        elif mode == "int8":
+            # the bias joins K5's epilogue (a separate add where K5 does not run)
+            return switchback_matmul(x, w, bias)
+        if mode == "int8":
             y = int8_matmul_full(x, w)
         elif mode == "int8_fwd":
             y = int8_matmul_ste(x, w)

@@ -1,5 +1,5 @@
-"""LayerNorm and residual-add + LayerNorm, forward and backward (kernel K2,
-Triton).
+"""LayerNorm and residual-add + LayerNorm, forward and backward (kernel K2:
+the forward K2f in Triton, the backward K2b in CUDA C++).
 
 Counterpart of :mod:`mmlearn_tpu.ops.fused_norm`; replaces its Pallas
 ``_fwd_kernel`` (:126) and ``_fwd_add_kernel`` (:139), launched by
@@ -10,26 +10,26 @@ Forward: LayerNorm over the last axis with f32 mean and variance (two passes
 over the row in registers, as ``_ln_ref``), gamma and beta applied in f32
 and the output cast to the input's dtype. The add variant computes ``r = x +
 branch`` in the input dtype, writes it, and normalises it: one read of each
-input and one write of each output.
+input and one write of each output. Programs over rows, a power-of-two
+block of ``next_pow2(C)`` lanes with a masked tail.
 
-Backward: per row, mean and rstd recomputed in f32 from the saved input,
-``dxhat = dy * gamma``, ``dx = rstd (dxhat - mean(dxhat) - xhat
+Backward (``csrc/layernorm_bwd.cu``, built by :mod:`mmlearn_tpu_torch._build`
+at first use): per row, mean and rstd recomputed in f32 from the saved
+input, ``dxhat = dy * gamma``, ``dx = rstd (dxhat - mean(dxhat) - xhat
 mean(dxhat xhat))`` (plus the residual's cotangent in the add variant), cast
 to the input's dtype. The TPU kernel sums dgamma/dbeta across its grid steps
 in one output block, which works only because that grid runs in order. On
-the H100 the programs run in parallel and in no order, so each program takes
-a fixed block of rows and writes f32 partial sums to a ``(programs, 2, C)``
-scratch, and a second Triton pass sums its columns: deterministic, no
-atomics.
+the H100 the blocks run in parallel and in no order: each keeps its
+columns' partial sums and writes them to a scratch, and the blocks that
+finish last add them up in a fixed order (by groups of blocks, then the
+groups) -- one launch, no atomics on the values, the same bits on every
+run.
 
-What bounds both on the H100: a row of C <= 8192 values is read once and
-written once with a few FLOPs per value, so they are bound by memory
-bandwidth and want no tensor cores, TMA or shared-memory tiling: programs
-over rows, a power-of-two block of ``next_pow2(C)`` lanes with a masked
-tail, expresses exactly that.
+Both are bound by memory bandwidth: a row of C <= 8192 values is read once
+and written once with a few FLOPs per value.
 
-``triton`` is imported, and the kernels built, on the first launch, never at
-import: the CPU tests import this module on hosts without triton. The
+``triton`` is imported, and the forward built, on the first launch, never
+at import: the CPU tests import this module on hosts without triton. The
 wrappers take the plain versions (:func:`ln_reference`,
 :func:`ln_bwd_reference`) only for a tensor that lies on the CPU; for a CUDA
 tensor they launch the kernels or raise. :func:`fused_layernorm` and
@@ -39,6 +39,7 @@ tensor they launch the kernels or raise. :func:`fused_layernorm` and
 
 # no ``from __future__ import annotations``: Triton reads the kernel's
 # ``tl.constexpr`` annotations as objects
+import ctypes
 import functools
 import os
 from typing import Optional, Tuple
@@ -47,13 +48,12 @@ import torch
 
 from mmlearn_tpu_torch import _build
 
-#: launches of the Triton kernels (both variants), one count each: the
-#: forward by the wrappers; the backward's row pass and column-sum pass by
-#: the autograd Functions
-LAUNCHES = {"layernorm_fwd": 0, "layernorm_bwd_rows": 0, "layernorm_bwd_sum": 0}
+#: launches of the kernels (both variants), one count each: the forward by
+#: the wrappers, the backward by the autograd Functions
+LAUNCHES = {"layernorm_fwd": 0, "layernorm_bwd": 0}
 
 _MAX_C = 8192
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def ln_reference(
@@ -126,65 +126,11 @@ def _kernels():
         y = xc * tl.rsqrt(var + eps) * gamma + beta
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=inside)
 
-    @triton.jit
-    def _ln_bwd_kernel(
-        x_ptr, g_ptr, dy_ptr, dr_ptr, dx_ptr, part_ptr, n_rows, n_cols, iters, eps,
-        BLOCK: tl.constexpr, ROWS: tl.constexpr, HAS_DR: tl.constexpr,
-    ):
-        # rows [pid * iters * ROWS, (pid + 1) * iters * ROWS), ROWS at a time
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inside = cols < n_cols
-        gamma = tl.load(g_ptr + cols, mask=inside, other=0.0).to(tl.float32)
-        dg = tl.zeros((BLOCK,), tl.float32)
-        db = tl.zeros((BLOCK,), tl.float32)
-        for it in range(iters):
-            rows = (pid * iters + it) * ROWS + tl.arange(0, ROWS)
-            live = (rows < n_rows)[:, None] & inside[None, :]
-            offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=live, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + offs, mask=live, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=1) / n_cols
-            xc = tl.where(live, x - mean[:, None], 0.0)
-            rstd = tl.rsqrt(tl.sum(xc * xc, axis=1) / n_cols + eps)
-            xhat = xc * rstd[:, None]
-            dxhat = dy * gamma[None, :]
-            c1 = tl.sum(dxhat, axis=1) / n_cols
-            c2 = tl.sum(dxhat * xhat, axis=1) / n_cols
-            dx = rstd[:, None] * (dxhat - c1[:, None] - xhat * c2[:, None])
-            if HAS_DR:
-                dx += tl.load(dr_ptr + offs, mask=live, other=0.0).to(tl.float32)
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=live)
-            dg += tl.sum(dy * xhat, axis=0)
-            db += tl.sum(dy, axis=0)
-        base = pid.to(tl.int64) * 2 * n_cols
-        tl.store(part_ptr + base + cols, dg, mask=inside)
-        tl.store(part_ptr + base + n_cols + cols, db, mask=inside)
-
-    @triton.jit
-    def _ln_bwd_sum_kernel(
-        part_ptr, dg_ptr, db_ptr, n_parts, n_cols,
-        BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr,
-    ):
-        # columns [pid * BLOCK_C, (pid + 1) * BLOCK_C) of the partial sums
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        inside = cols < n_cols
-        dg = tl.zeros((BLOCK_C,), tl.float32)
-        db = tl.zeros((BLOCK_C,), tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            parts = p0 + tl.arange(0, BLOCK_P)
-            live = (parts < n_parts)[:, None] & inside[None, :]
-            offs = parts.to(tl.int64)[:, None] * 2 * n_cols + cols[None, :]
-            dg += tl.sum(tl.load(part_ptr + offs, mask=live, other=0.0), axis=0)
-            db += tl.sum(tl.load(part_ptr + offs + n_cols, mask=live, other=0.0), axis=0)
-        tl.store(dg_ptr + cols, dg.to(dg_ptr.dtype.element_ty), mask=inside)
-        tl.store(db_ptr + cols, db.to(db_ptr.dtype.element_ty), mask=inside)
-
-    return triton, _ln_fwd_kernel, _ln_bwd_kernel, _ln_bwd_sum_kernel
+    return triton, _ln_fwd_kernel
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"layernorm kernel takes float32 or bfloat16, got {x.dtype}")
     c = x.shape[-1]
     if not 0 < c <= _MAX_C:
@@ -200,7 +146,7 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
 
 
 def _launch(x, branch, gamma, beta, r, y, eps: float) -> None:
-    triton, kernel, _, _ = _kernels()
+    triton, kernel = _kernels()
     c = x.shape[-1]
     rows = x.numel() // c
     block = triton.next_power_of_2(c)
@@ -214,38 +160,73 @@ def _launch(x, branch, gamma, beta, r, y, eps: float) -> None:
     LAUNCHES["layernorm_fwd"] += 1
 
 
+_BWD_ARGTYPES = [
+    *[ctypes.c_void_p] * 8,  # x, gamma, dy, dr, dx, part, counters, sums
+    *[ctypes.c_int] * 5,  # rows, c, dtype, align, blocks
+    ctypes.c_float,  # eps
+    ctypes.c_void_p,  # stream
+]
+#: zeroed counters for the backward's column sums, one set a (device,
+#: stream). The blocks of a launch count themselves on them to find the last
+#: of each group, and the kernel leaves them zero; launches on one stream run
+#: one after another, so no two launches share a set at once. (A launch that
+#: faults part way leaves a set nonzero, but also the CUDA context unusable.)
+_COUNTERS: dict = {}
+
+
+def _bwd_library():
+    lib = _build.load_library("layernorm_bwd")
+    fn, plan, err = lib.mmlearn_ln_bwd, lib.mmlearn_ln_bwd_plan, lib.mmlearn_ln_bwd_error_string
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = ctypes.c_int, _BWD_ARGTYPES
+        plan.restype = ctypes.c_int
+        plan.argtypes = [*[ctypes.c_int] * 5, *[ctypes.POINTER(ctypes.c_int)] * 2]
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return fn, plan, err
+
+
+def _alignment(*tensors) -> int:
+    """The largest of 16, 8, 4 bytes that divides every tensor's address."""
+    ptrs = [t.data_ptr() for t in tensors if t is not None]
+    return next(a for a in (16, 8, 4, 1) if all(p % a == 0 for p in ptrs))
+
+
 def _launch_bwd(x, gamma, dy, eps: float, dr=None):
-    """The two backward passes on a CUDA tensor: ``(dx, dgamma, dbeta)``,
-    the sums in gamma's dtype."""
-    triton, _, bwd, col_sum = _kernels()
+    """The backward kernel on a CUDA tensor, one launch: ``(dx, dgamma,
+    dbeta)``, the sums in gamma's dtype."""
     c = x.shape[-1]
     rows = x.numel() // c
-    block = triton.next_power_of_2(c)
-    tile_rows = max(4096 // block, 1)  # a tile of about 4096 values
-    tiles = triton.cdiv(rows, tile_rows)
-    # enough programs to fill the card, few enough that the partial sums
-    # stay a small fraction of the traffic
-    programs = min(tiles, 8 * torch.cuda.get_device_properties(x.device).multi_processor_count)
-    iters = triton.cdiv(tiles, programs)
-    programs = triton.cdiv(tiles, iters)
+    code = _DTYPE_CODES[x.dtype]
     dy = dy.to(x.dtype).contiguous()
     if dr is not None:
         dr = dr.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
-    part = torch.empty(programs, 2, c, dtype=torch.float32, device=x.device)
-    dgamma = torch.empty_like(gamma)
-    dbeta = torch.empty_like(gamma)
+    align = _alignment(x, dy, dr, dx)
+    fn, plan, error_string = _bwd_library()
+    blocks, part_rows = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        bwd[(programs,)](
-            x, gamma, dy, dy if dr is None else dr, dx, part, rows, c, iters,
-            float(eps), BLOCK=block, ROWS=tile_rows, HAS_DR=dr is not None,
-            num_warps=min(max(block * tile_rows // 1024, 1), 16),
-        )
-        LAUNCHES["layernorm_bwd_rows"] += 1
-        col_sum[(triton.cdiv(c, 64),)](part, dgamma, dbeta, programs, c,
-                                       BLOCK_P=64, BLOCK_C=64, num_warps=4)
-        LAUNCHES["layernorm_bwd_sum"] += 1
-    return dx, dgamma, dbeta
+        err = plan(rows, c, code, int(dr is not None), align, ctypes.byref(blocks),
+                   ctypes.byref(part_rows))
+        if err != 0:
+            raise RuntimeError(f"layernorm backward has no launch for rows={rows} C={c}: "
+                               f"{error_string(err).decode()} ({err})")
+        part = torch.empty(part_rows.value, 2, c, dtype=torch.float64, device=x.device)
+        sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = _COUNTERS.get((x.device, stream))
+        if counters is None:  # zeroed on this stream, before the launch
+            counters = _COUNTERS[x.device, stream] = torch.zeros(1024, dtype=torch.int32,
+                                                                 device=x.device)
+        g32 = gamma.float().contiguous()
+        err = fn(x.data_ptr(), g32.data_ptr(), dy.data_ptr(),
+                 None if dr is None else dr.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                 counters.data_ptr(), sums.data_ptr(), rows, c, code, align, blocks.value,
+                 float(eps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"layernorm backward kernel launch failed: {error_string(err).decode()} ({err})")
+    LAUNCHES["layernorm_bwd"] += 1
+    return dx, sums[0].to(gamma.dtype), sums[1].to(gamma.dtype)
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -257,7 +238,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def _ln_bwd(x, gamma, dy, eps: float, dr=None):
-    if x.device.type == "cpu":
+    if not _on_cuda(x):
         dx, dg, db = ln_bwd_reference(x, gamma, dy, eps, dr)
         return dx, dg.to(gamma.dtype), db.to(gamma.dtype)
     return _launch_bwd(x, gamma, dy, eps, dr)

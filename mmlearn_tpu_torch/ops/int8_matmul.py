@@ -2,22 +2,31 @@
 ``MMLEARN_QUANT=int8_sb``.
 
 Counterpart of :mod:`mmlearn_tpu.ops.int8_matmul`. :func:`int8_qmm` computes
-``x @ (qw * sw).T``: each row of ``x`` is absmax-quantized to int8 inside the
-kernel, multiplied s8 x s8 -> s32 with the weight quantized beforehand, and
-dequantized by ``sx * sw``. The weight is kept the torch way, ``(N, K)``
-rows with K contiguous (the JAX package's ``qw`` is its ``(K, N)``
-transpose). The CUDA kernel is ``csrc/int8_matmul.cu`` (built by
-:mod:`mmlearn_tpu_torch._build` at first use); its plain PyTorch version is
-:func:`int8_qmm_reference`, which keeps every s32 sum exact.
+``x @ (qw * sw).T`` (``+ bias``): each row of ``x`` is absmax-quantized to
+int8, multiplied s8 x s8 -> s32 with the weight quantized beforehand, and
+dequantized by ``sx * sw``; a bias is added to the product rounded to x's
+type, as the separate add it replaces. The weight is kept the torch way,
+``(N, K)`` rows with K contiguous (the JAX package's ``qw`` is its ``(K, N)``
+transpose). The CUDA kernels are ``csrc/int8_matmul.cu`` (built by
+:mod:`mmlearn_tpu_torch._build` at first use), two paths chosen by shape:
+where TMA can address the operands (K a multiple of 16, 16-byte aligned
+``x`` and ``qw``) a quantize pass and a ``wgmma`` product fed by TMA, one
+K5 call counted in ``LAUNCHES["int8_qmm"]``; elsewhere the ``mma.sync``
+kernel with byte loads, counted in ``LAUNCHES["int8_qmm_bytes"]``. Their
+plain PyTorch version is :func:`int8_qmm_reference`, which keeps every s32
+sum exact; both paths equal it bit for bit.
 
 :func:`switchback_matmul` is the JAX package's ``switchback_matmul`` as a
 ``torch.autograd.Function``: K5 for the forward (``x`` against the weight
-quantized per output row) and for dgrad (``g`` against the transposed
-weight quantized per input column: one transpose a layer a step), and an
-exact wgrad ``g.T @ x`` by ``torch.matmul`` in the compute type. Shapes
-that :func:`supports_int8_qmm` refuses take the composed int8 product, as in
-the JAX package; the routing is decided before any launch. On a CPU tensor
-K5 is its plain version; on a CUDA tensor it launches or raises.
+quantized per output row, the bias added in its epilogue) and for dgrad
+(``g`` against the transposed weight quantized per input column: one
+transpose a layer a step), and an exact wgrad ``g.T @ x`` by
+``torch.matmul`` in the compute type; the bias gradient is
+``g.sum_to_size(bias.shape)``, the call autograd makes for a broadcast add.
+Shapes that :func:`supports_int8_qmm` refuses take the composed int8
+product and a separate add, as in the JAX package; the routing is decided
+before any launch. On a CPU tensor K5 is its plain version; on a CUDA
+tensor it launches or raises.
 """
 
 from __future__ import annotations
@@ -30,16 +39,23 @@ import torch
 from mmlearn_tpu_torch import _build
 from mmlearn_tpu_torch.modules.layers.quantization import _int8_fwd, _quantize, exact_int_dot
 
-#: launches of K5, counted by :func:`int8_qmm` where it launches the kernel
-LAUNCHES = {"int8_qmm": 0}
+#: launches of K5, counted by :func:`int8_qmm` where it launches a path:
+#: the TMA path (the quantize pass and the product, one count) and the byte
+#: path
+LAUNCHES = {"int8_qmm": 0, "int8_qmm_bytes": 0}
 
 #: the JAX package's full-K limit (``_MAX_K``); the kernel holds a block's
 #: quantized rows in shared memory and takes the same K
 MAX_K = 8192
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, qw, sw, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m, k, n, dtype
+    *[ctypes.c_void_p] * 7,  # x, qw, sw, bias, out, qx, sx
+    *[ctypes.c_int] * 4,  # m, k, n, dtype
+    ctypes.c_void_p,  # stream
+]
+_BYTES_ARGTYPES = [
+    *[ctypes.c_void_p] * 5,  # x, qw, sw, bias, out
+    *[ctypes.c_int] * 4,  # m, k, n, dtype
     ctypes.c_void_p,  # stream
 ]
 
@@ -57,25 +73,37 @@ def supports_int8_qmm(m: int, k: int, n: int) -> bool:
     return k <= MAX_K and m >= 8 and n >= 128
 
 
-def int8_qmm_reference(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+def uses_tma(k: int, x: torch.Tensor, qw: torch.Tensor) -> bool:
+    """Whether K5 takes its TMA path: rows TMA can address (a multiple of 16
+    bytes of K) and 16-byte aligned operands."""
+    return k % 16 == 0 and x.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+
+
+def int8_qmm_reference(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K5: the rows of ``x`` quantized in f32, the
-    exact s32 sums, ``acc * (sx * sw)`` in f32, rounded to ``x``'s type."""
+    exact s32 sums, ``acc * (sx * sw)`` in f32, rounded to ``x``'s type;
+    then ``+ bias`` in ``x``'s type."""
     k, n = x.shape[-1], qw.shape[0]
     qx, sx = _quantize(x.reshape(-1, k), -1)
     y = exact_int_dot(qx, qw.t()) * (sx * sw.reshape(1, n).float())
-    return y.to(x.dtype).reshape(*x.shape[:-1], n)
+    y = y.to(x.dtype).reshape(*x.shape[:-1], n)
+    return y if bias is None else y + bias
 
 
 def _library():
     lib = _build.load_library("int8_matmul")
-    fn, err = lib.mmlearn_int8_qmm, lib.mmlearn_int8_error_string
+    fn, fn_bytes, err = (lib.mmlearn_int8_qmm, lib.mmlearn_int8_qmm_bytes,
+                         lib.mmlearn_int8_error_string)
     if fn.argtypes is None:
         fn.restype, fn.argtypes = ctypes.c_int, _ARGTYPES
+        fn_bytes.restype, fn_bytes.argtypes = ctypes.c_int, _BYTES_ARGTYPES
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
-    return fn, err
+    return fn, fn_bytes, err
 
 
-def _int8_qmm_cuda(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+def _int8_qmm_cuda(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
     k, n = x.shape[-1], qw.shape[0]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"int8_qmm kernel takes float32 or bfloat16, got {x.dtype}")
@@ -84,58 +112,77 @@ def _int8_qmm_cuda(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch
                          f"{tuple(qw.shape)}")
     if sw.numel() != n:
         raise ValueError(f"int8_qmm needs {n} weight scales, got {tuple(sw.shape)}")
+    if bias is not None and (bias.shape != (n,) or bias.dtype != x.dtype):
+        raise ValueError(f"int8_qmm needs a ({n},) {x.dtype} bias, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"int8_qmm kernel takes K up to {MAX_K}, got {k}")
-    if not (qw.device == sw.device == x.device):
+    if not (qw.device == sw.device == x.device) or (bias is not None and bias.device != x.device):
         raise ValueError("int8_qmm operands must lie on one device")
     x2 = x.reshape(-1, k).contiguous()
     qw = qw.contiguous()
     sw = sw.reshape(n).to(torch.float32).contiguous()
+    bias_ptr = None if bias is None else bias.contiguous().data_ptr()
     m = x2.shape[0]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    fn, error_string = _library()
+    fn, fn_bytes, error_string = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(x2.data_ptr(), qw.data_ptr(), sw.data_ptr(), out.data_ptr(), m, k, n,
-                 _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+        if uses_tma(k, x2, qw):
+            qx = torch.empty(m, k, dtype=torch.int8, device=x.device)
+            sx = torch.empty(m, dtype=torch.float32, device=x.device)
+            err = fn(x2.data_ptr(), qw.data_ptr(), sw.data_ptr(), bias_ptr, out.data_ptr(),
+                     qx.data_ptr(), sx.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype], stream)
+            path = "int8_qmm"
+        else:
+            err = fn_bytes(x2.data_ptr(), qw.data_ptr(), sw.data_ptr(), bias_ptr,
+                           out.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype], stream)
+            path = "int8_qmm_bytes"
     if err != 0:
         raise RuntimeError(
             f"int8_qmm kernel launch failed: {error_string(err).decode()} ({err})")
-    LAUNCHES["int8_qmm"] += 1
+    LAUNCHES[path] += 1
     return out.reshape(*x.shape[:-1], n)
 
 
-def int8_qmm(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
-    """``x @ (qw * sw).T`` with in-kernel row quantization of ``x``.
+def int8_qmm(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ (qw * sw).T`` with in-kernel row quantization of ``x``, plus
+    ``bias`` where one is given.
 
     x: ``(..., K)`` f32 or bf16; qw: ``(N, K)`` int8; sw: ``N`` f32 scales
-    (``(N, 1)`` as :func:`quantize_weight` gives them, or flat). Returns
-    ``(..., N)`` in ``x``'s type. A CPU tensor takes
+    (``(N, 1)`` as :func:`quantize_weight` gives them, or flat); bias: ``N``
+    in ``x``'s type. Returns ``(..., N)`` in ``x``'s type. A CPU tensor takes
     :func:`int8_qmm_reference`; a CUDA tensor launches K5 or raises.
     """
     if x.device.type == "cpu":
-        return int8_qmm_reference(x, qw, sw)
+        return int8_qmm_reference(x, qw, sw, bias)
     if x.device.type != "cuda":
         raise ValueError(f"int8_qmm runs on cpu or cuda tensors, got {x.device}")
-    return _int8_qmm_cuda(x, qw, sw)
+    return _int8_qmm_cuda(x, qw, sw, bias)
 
 
-def _qmm_or_fallback(a: torch.Tensor, qw, sw, b_full: torch.Tensor) -> torch.Tensor:
+def _qmm_or_fallback(a: torch.Tensor, qw, sw, b_full: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """K5 where the JAX package runs its kernel; the composed int8 product
-    (the same numbers) elsewhere."""
+    (the same numbers) and a separate add elsewhere."""
     if supports_int8_qmm(math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]):
-        return int8_qmm(a, qw, sw)
-    return _int8_fwd(a, b_full)
+        return int8_qmm(a, qw, sw, bias)
+    y = _int8_fwd(a, b_full)
+    return y if bias is None else y + bias
 
 
 class SwitchbackMatmul(torch.autograd.Function):
-    """``x @ w.T`` (``w`` as ``(out, in)``): int8 forward and dgrad, exact
-    wgrad. Saves ``x`` and ``w``."""
+    """``x @ w.T (+ bias)`` (``w`` as ``(out, in)``): int8 forward and dgrad,
+    exact wgrad, the bias gradient as autograd takes it for a broadcast add.
+    Saves ``x`` and ``w``."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, bias=None):
         ctx.save_for_backward(x, w)
+        ctx.bias_shape = None if bias is None else bias.shape
         qw, sw = quantize_weight(w)
-        return _qmm_or_fallback(x, qw, sw, w)
+        return _qmm_or_fallback(x, qw, sw, w, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -144,9 +191,12 @@ class SwitchbackMatmul(torch.autograd.Function):
         qwt, swt = quantize_weight(wt)
         dx = _qmm_or_fallback(g, qwt, swt, wt).to(x.dtype)
         dw = torch.matmul(g.reshape(-1, g.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
-        return dx, dw.to(w.dtype)
+        db = g.sum_to_size(ctx.bias_shape) if ctx.needs_input_grad[2] else None
+        return dx, dw.to(w.dtype), db
 
 
-def switchback_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T``: int8 forward and int8 dgrad through K5, exact wgrad."""
-    return SwitchbackMatmul.apply(x, w)
+def switchback_matmul(x: torch.Tensor, w: torch.Tensor,
+                      bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w.T (+ bias)``: int8 forward (the bias added in K5's epilogue)
+    and int8 dgrad through K5, exact wgrad."""
+    return SwitchbackMatmul.apply(x, w, bias)

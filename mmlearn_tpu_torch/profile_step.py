@@ -50,8 +50,8 @@ GROUPS = [
     ("K3f flash attention forward", r"flash_fwd"),
     ("K3b flash attention backward", r"flash_bwd_"),
     ("K2f layernorm forward", r"_ln_fwd_kernel"),
-    ("K2b layernorm backward", r"_ln_bwd_"),
-    ("K5 quantizing int8 product", r"int8_qmm_kernel"),
+    ("K2b layernorm backward", r"ln_bwd_"),
+    ("K5 quantizing int8 product", r"int8_qmm|int8_gemm_kernel|quantize_rows_kernel"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|sm90_|ampere_"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("reductions", r"reduce_kernel|reduction"),

@@ -121,9 +121,9 @@ def test_switchback_routes_shapes_as_the_jax_package(monkeypatch):
     calls = []
     real = im.int8_qmm
 
-    def spy(a, qw, sw):
+    def spy(a, qw, sw, bias=None):
         calls.append((math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]))
-        return real(a, qw, sw)
+        return real(a, qw, sw, bias)
 
     monkeypatch.setattr(im, "int8_qmm", spy)
     want = []
@@ -133,6 +133,32 @@ def test_switchback_routes_shapes_as_the_jax_package(monkeypatch):
         im.switchback_matmul(x, w).sum().backward()
         want += [s for s in ((m, k, n), (m, n, k)) if jim.supports_int8_qmm(*s)]
     assert calls == want == [(24, 96, 160), (20, 64, 256), (16, 128, 8200)]
+
+
+@pytest.mark.parametrize("m,k,n", [(24, 96, 160), (20, 256, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_switchback_bias_is_the_separate_add_bit_for_bit(m, k, n, dtype):
+    """``switchback_matmul(x, w, bias)`` (K5's bias epilogue where the
+    routing takes K5, the composed product and an add where it does not)
+    against ``switchback_matmul(x, w) + bias``, as ``Int8Dense`` computed it
+    before: the output and the gradients of x, w and the bias equal bit for
+    bit."""
+    rng = np.random.default_rng(m)
+    x, c = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+            for s in ((2, m, k), (2, m, n)))
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.05).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dtype)
+    outs, grads = [], []
+    for fused in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        xl, wl, bl = leaves
+        y = im.switchback_matmul(xl, wl, bl) if fused else im.switchback_matmul(xl, wl) + bl
+        (y * c).sum().backward()
+        outs.append(y.detach())
+        grads.append([t.grad for t in leaves])
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_int8_qmm_runs_on_cpu_or_cuda_only():
@@ -150,14 +176,36 @@ def test_int8_qmm_runs_on_cpu_or_cuda_only():
                                          (40, 8192, 136, torch.float32)])
 def test_cuda_int8_qmm_matches_plain(m, k, n, dtype):
     """K5 on the card against its plain version: the same ints and the same
-    dequantization, so the outputs agree exactly (chip_smoke.py reads 0)."""
+    dequantization, so the outputs agree exactly (chip_smoke.py reads 0). K %
+    16 == 0 takes the TMA path, K = 200 the byte path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (K5 is CUDA C++)")
     x, w, _ = _data((m,), k, n, seed=m)
     xt = torch.from_numpy(x).cuda().to(dtype)
     qw, sw = im.quantize_weight(_port_weight(w).cuda().to(dtype))
-    before = im.LAUNCHES["int8_qmm"]
+    before = dict(im.LAUNCHES)
     got = im.int8_qmm(xt, qw, sw)
     torch.cuda.synchronize()
-    assert im.LAUNCHES["int8_qmm"] == before + 1
+    path = "int8_qmm" if k % 16 == 0 else "int8_qmm_bytes"
+    assert im.LAUNCHES == {**before, path: before[path] + 1}
     torch.testing.assert_close(got, im.int8_qmm_reference(xt, qw, sw), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 768, 520), (37, 200, 160)], ids=["tma", "bytes"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_qmm_bias_matches_plain(m, k, n, dtype):
+    """K5 with a bias on each of its paths against its plain version with
+    the bias and against the plain product plus a separate add: equal bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (K5 is CUDA C++)")
+    x, w, _ = _data((m,), k, n, seed=k)
+    xt = torch.from_numpy(x).cuda().to(dtype)
+    qw, sw = im.quantize_weight(_port_weight(w).cuda().to(dtype))
+    b = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    b = b.cuda().to(dtype)
+    got = im.int8_qmm(xt, qw, sw, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, im.int8_qmm_reference(xt, qw, sw, b), rtol=0, atol=0)
+    torch.testing.assert_close(got, im.int8_qmm_reference(xt, qw, sw) + b, rtol=0, atol=0)

@@ -173,6 +173,26 @@ def test_block_trains_through_the_functions():
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
 
 
+@pytest.mark.parametrize("with_dr", [False, True], ids=["ln", "add_ln"])
+def test_ln_bwd_takes_plain_version_only_on_cpu(with_dr):
+    """The backward's wrapper takes ``ln_bwd_reference`` for a CPU tensor
+    (no kernel runs; the sums in gamma's dtype) and raises for a device
+    other than the CPU and CUDA."""
+    x, _, dy, dr, gamma, _ = (torch.from_numpy(a) for a in _ln_data((4, 9, 40), 6))
+    d_r = dr if with_dr else None
+    before = dict(fn.LAUNCHES)
+    got = fn._ln_bwd(x, gamma.bfloat16(), dy, 1e-6, d_r)
+    assert dict(fn.LAUNCHES) == before
+    want = fn.ln_bwd_reference(x, gamma.bfloat16(), dy, 1e-6, d_r)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, w.bfloat16(), rtol=0, atol=0)
+    meta = torch.empty(4, 9, 40, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fn._ln_bwd(meta, gamma, meta, 1e-6, meta if with_dr else None)
+
+
 @pytest.mark.parametrize("kw", [{"drop": 0.1}, {"attn_drop": 0.1}, {"drop_path_rate": 0.1}])
 def test_block_rejects_dropout(kw):
     with pytest.raises(NotImplementedError, match="dropout"):
@@ -218,23 +238,64 @@ def test_cuda_mha_bwd_matches_plain(d, causal, mask_kind):
 
 
 @pytest.mark.cuda
-# (256, 77, 512) gives each program of the row pass three row tiles, as the
-# train step at batch 256 does: it checks the loop that adds them up
-@pytest.mark.parametrize("shape", [(8, 197, 768), (8, 77, 512), (256, 77, 512), (5, 300)],
-                         ids=str)
+# (8, 197, 768), (8, 77, 512), (8, 118, 384): the towers' and the I-JEPA
+# predictor's widths, one warp a row; (256, 77, 512): many rows a warp, as
+# the train step at batch 256; (5, 300): a ragged C, the wide kernel
+@pytest.mark.parametrize("shape", [(8, 197, 768), (8, 77, 512), (8, 118, 384), (256, 77, 512),
+                                   (5, 300)], ids=str)
 def test_cuda_ln_bwd_matches_plain(shape):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel is Triton)")
+        pytest.skip("needs a CUDA card (the kernel is CUDA C++)")
     x, branch, dy, dr, gamma, _ = (torch.from_numpy(a).cuda() for a in _ln_data(shape, 3))
     for dtype, (atol, rtol) in ((torch.float32, (2e-5, 1e-5)), (torch.bfloat16, (2e-2, 1e-2))):
         xd = x.to(dtype)
         for d_r in (None, dr.to(dtype)):
             before = dict(fn.LAUNCHES)
             got = fn._launch_bwd(xd, gamma, dy.to(dtype), 1e-6, d_r)
-            assert fn.LAUNCHES == {**before, "layernorm_bwd_rows": before["layernorm_bwd_rows"] + 1,
-                                   "layernorm_bwd_sum": before["layernorm_bwd_sum"] + 1}
+            assert fn.LAUNCHES == {**before, "layernorm_bwd": before["layernorm_bwd"] + 1}
             want = fn.ln_bwd_reference(xd, gamma, dy.to(dtype), 1e-6, d_r)
             torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
             # dgamma/dbeta: f32 sums over every row, in another order
             for g, w in zip(got[1:], want[1:]):
                 torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
+            # in a fixed order: the same bits on a second run
+            again = fn._launch_bwd(xd, gamma, dy.to(dtype), 1e-6, d_r)
+            for g, w in zip(again, got):
+                torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_ln_bwd_on_two_streams_at_once():
+    """Backwards launched on two streams at once each count their blocks on
+    counters of their own: each stream has its own set, and every result
+    equals the same backward's on one stream, bit for bit. One stream runs
+    the I-JEPA predictor's backward, whose blocks fill the card and retire
+    one by one at its end; the other a stream of small backwards whose
+    blocks run on the SMs those free, and count while the large one's still
+    do. Both queues fill behind a sleep, so that they start together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is CUDA C++)")
+    data = []
+    for shape, seed in (((1024, 118, 384), 7), ((2, 77, 512), 8)):
+        x, _, dy, dr, gamma, _ = (torch.from_numpy(a).cuda() for a in _ln_data(shape, seed))
+        data.append((x.bfloat16(), gamma, dy.bfloat16(), dr.bfloat16()))
+    want = [fn._launch_bwd(x, g, dy, 1e-6, dr) for x, g, dy, dr in data]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)  # ~25 ms, while both queues fill
+    for i in range(256):
+        for k, (stream, (x, g, dy, dr), out) in enumerate(zip(streams, data, got)):
+            if k == 0 and i % 32:
+                continue  # eight large backwards beside 256 small ones
+            with torch.cuda.stream(stream):
+                out.append(fn._launch_bwd(x, g, dy, 1e-6, dr))
+    torch.cuda.synchronize()
+    keys = {key for key in fn._COUNTERS if key[0] == data[0][0].device}
+    assert {s.cuda_stream for s in streams} <= {stream for _, stream in keys}
+    for outs, w in zip(got, want):
+        for o in outs:
+            for a, b in zip(o, w):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)

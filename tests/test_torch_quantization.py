@@ -1,8 +1,9 @@
 """The ``MMLEARN_QUANT`` modes of the PyTorch port against the JAX package on
 the CPU: the mode read at every call, the int8 products and their gradients
 (``int8_fwd``, ``int8``, ``int8_sb``), the projection factory, the bridge
-over a quantized tower, and the tiny CLIP pair's step and ten-step
-trajectory under ``int8_sb``.
+over a quantized tower, ``Int8Dense``'s bias under ``int8_sb`` (added in
+K5's epilogue), and the tiny CLIP pair's step, ten-step trajectory and
+thirty-step trajectory against the JAX package under ``int8_sb``.
 
 Inputs are made from a seed with numpy and fed to both packages in f32.
 Each test states its tolerance.
@@ -13,11 +14,13 @@ import copy
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from mmlearn_tpu.modules.encoders import VisionTransformer as JVision
 from mmlearn_tpu.modules.layers.mlp import MLP as JMLP
+from mmlearn_tpu.modules.layers.quantization import Int8Dense as JInt8Dense
 from mmlearn_tpu.modules.layers.quantization import int8_matmul_full as jax_full
 from mmlearn_tpu.modules.layers.quantization import int8_matmul_ste as jax_ste
 from mmlearn_tpu.ops.int8_matmul import switchback_matmul as jax_sb
@@ -224,3 +227,91 @@ def test_int8_sb_trajectory_tracks_the_unquantized_one(monkeypatch):
     assert quant[-1] < quant[0], quant
     assert float(np.max(np.abs(quant - base) / np.abs(base))) < 0.15, (base, quant)
     assert abs(quant[-1] - base[-1]) / base[-1] < 0.10, (base[-1], quant[-1])
+
+
+def test_int8_dense_bias_under_int8_sb_matches_jax(monkeypatch):
+    """``Int8Dense`` under ``int8_sb`` with a nonzero bias, which the port
+    adds in K5's epilogue (its plain version on the CPU) and the JAX package
+    after the product: the output and the gradients of x, the weight and the
+    bias against ``jax.grad`` of the JAX layer with its kernel in interpret
+    mode, f32, rtol 1e-5 and atol 1e-6 (the JAX package's own), at a shape
+    K5 takes and at one it refuses (N < 128: the composed product and a
+    separate add)."""
+    monkeypatch.setenv(QUANT, "int8_sb")
+    monkeypatch.setenv("MMLEARN_INT8_QMM_INTERPRET", "1")
+    for n in (160, 96):
+        x, w, c = _data(m=10, k=96, n=n, seed=n)
+        bias = (np.random.default_rng(n).standard_normal(n) * 0.1).astype(np.float32)
+        jlayer = JInt8Dense(features=n, mode="int8_sb")
+        params = {"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(bias)}}
+
+        def loss(x, p, layer=jlayer, c=c):
+            return jnp.sum(layer.apply(p, x) * c)
+
+        want_y = np.asarray(jlayer.apply(params, jnp.asarray(x)))
+        want_gx, want_gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), params)
+        layer = Int8Dense(96, n)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+            layer.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(x).requires_grad_()
+        y = layer(xt)
+        (y * torch.from_numpy(c)).sum().backward()
+        tol = dict(rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(y.detach().numpy(), want_y, **tol)
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_gx), **tol)
+        np.testing.assert_allclose(layer.weight.grad.numpy().T,
+                                   np.asarray(want_gp["params"]["kernel"]), **tol)
+        np.testing.assert_allclose(layer.bias.grad.numpy(),
+                                   np.asarray(want_gp["params"]["bias"]), **tol)
+
+
+TRAJECTORY_STEPS = 30
+
+
+def test_tiny_pair_int8_sb_trajectory_matches_jax(monkeypatch):
+    """Thirty ``Trainer.fit`` steps of the tiny CLIP pair under ``int8_sb``
+    against the JAX package's ``value_and_grad`` + ``tx.update`` loop under
+    the same mode, from the same (bridged) weights: the loss and the
+    gradient norm step by step.
+
+    Both quantize f32 values that differ by f32 sums in other orders; where
+    one falls on the other side of an int8 rounding edge, that element moves
+    by a quantization step, and the two trajectories part from then on (the
+    unquantized ones stay within 6e-5 over the same thirty steps). Readings
+    (the same at 1, 3 and the default number of threads): the first two steps, before a flip can
+    have moved the weights, 2.0e-7 on the loss and 1.6e-7 on the gradient
+    norm; over all thirty, 9.44e-2 (step 13, loss 0.0089) and 1.67e-1 (step
+    22). Limits about 2x those: 1e-6 on the first two steps, 0.2 and 0.35
+    over the run; and both runs train."""
+    monkeypatch.setenv(QUANT, "int8_sb")
+    jtask, params, batches, ptask = _training_pair()
+    tx = jtask.configure_optimizers(max_steps=TRAJECTORY_STEPS)
+    opt_state = tx.init(params)
+    rng = jax.random.key(1)
+
+    @jax.jit
+    def train_step(params, opt_state, batch):
+        def loss_wrap(p):
+            return jtask.loss_fn(p, batch, rng, {}, deterministic=False)[0]
+
+        loss, grads = jax.value_and_grad(loss_wrap)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, optax.global_norm(grads)
+
+    want = {"loss": [], "grad_norm": []}
+    for i in range(TRAJECTORY_STEPS):
+        params, opt_state, loss, gnorm = train_step(params, opt_state, batches[i % 2])
+        want["loss"].append(float(loss))
+        want["grad_norm"].append(float(gnorm))
+
+    trainer = Trainer(max_steps=TRAJECTORY_STEPS, log_every_n_steps=1, device="cpu")
+    trainer.fit(ptask, batches)
+    got = {k: np.array([h[k] for h in trainer.history]) for k in want}
+    rel = {k: np.abs(got[k] - want[k]) / np.abs(want[k]) for k in want}
+    print({k: f"{v[:2].max():.3e}, {v.max():.3e} at step {int(v.argmax())}"
+           for k, v in rel.items()})
+    for k, limit in (("loss", 0.2), ("grad_norm", 0.35)):
+        np.testing.assert_allclose(got[k][:2], want[k][:2], rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(got[k], want[k], rtol=limit, err_msg=k)
+    assert got["loss"][-1] < 0.01 * got["loss"][0] and want["loss"][-1] < 0.01 * want["loss"][0]
