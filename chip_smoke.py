@@ -85,10 +85,37 @@ Phases, each fatal on failure:
    ``Trainer.fit`` at batch 64 (3 warm-up steps, 3 timed windows of 5, one
    more step) with exact launches a step (K3f and both K3b kernels 12 each
    on the image tower, K1 only on the text tower), every gradient finite
-   and nonzero, the loss falling, pairs/s, ms a step and peak memory.
+   and nonzero, the loss falling, pairs/s, ms a step and peak memory;
+9. the trainer path (``Trainer.fit`` with what a pretraining job uses): the
+   flagship on distinct synthetic micro-batches of 128 pairs (8 a pass,
+   drawn from the epoch and the index), two a global batch of 256
+   (``accumulate_grad_batches=2``), clipping by norm, a validation of 2
+   batches and a ``ModelCheckpoint`` (monitoring ``validation/loss``) every
+   6 micro-steps, the LR monitor, the timer, a JSONL logger and
+   ``log_mfu``. Run A, 12 micro-steps with every count set to 0 first:
+   launches exactly the flagship's a micro-step plus the validation
+   forwards, every gradient of the first micro-step finite and nonzero, 6
+   optimizer steps, 6 ``post_update`` calls (0-5) and 6 schedule steps,
+   checkpoints at 6 and 12 complete, finite validation losses, the JSONL
+   lines. Run A again, bit-equal to A (records and weights); run B, a fresh
+   task resumed from A's step-6 checkpoint, bit-equal to A's micro-steps
+   6-11 and weights; run C, stopped by SIGTERM after micro-step 4 with its
+   end checkpoint, then resumed to 12, bit-equal to A. The trainer at k=2
+   on micro-batches of 8 for 2 optimizer steps (SGD at rate 1: AdamW's
+   first updates are about a sign an element, which bf16's rounding turns
+   either way where a gradient is near zero, and the warmup's rates move a
+   LayerNorm gain by a few f32 ulps) on the card against the CPU: losses
+   within ``LOSS_RTOL``, each applied (accumulated, clipped) gradient and
+   each weight's update at cosine ``MIN_GRAD_COSINE`` (key biases without
+   their key part: a zero gradient in exact arithmetic), and the FLOP
+   counter's count of a micro-step equal on both (the kernels reporting on
+   the card, the plain versions counted on the CPU). Prints ms a
+   micro-step, pairs/s a global
+   batch, checkpoint bytes, save (sync and async) and restore seconds, the
+   counted FLOPs, TFLOP/s and MFU, and phase 5's pairs/s again.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so does the eighth.
+checks that K5 never launched there; so do the eighth and the ninth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -120,8 +147,10 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -270,6 +299,17 @@ QUANT_FIRST_LOSS_RTOL = 2e-2
 
 # the 224-px paths never reach the flash kernel (every N <= 197)
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+#: pairs/s of each ``fit_flagship`` run, by its label ("" for the bf16 step)
+FIT_RATES: dict = {}
+
+# the trainer path (phase 9): the flagship at micro-batches of 128 pairs,
+# two a global batch of 256, 12 micro-steps, a checkpoint and a validation
+# every 6; a SIGTERM at micro-step 4; accumulation held to the CPU at
+# micro-batches of 8, the step parity's batch
+TRAINER_MICRO_BATCH, TRAINER_ACCUMULATE, TRAINER_STEPS = 128, 2, 12
+TRAINER_EVERY, TRAINER_STOP_AT, TRAINER_PASS, TRAINER_VAL_BATCHES = 6, 4, 8, 2
+TRAINER_PARITY_MICRO = PARITY_BATCH
+TRAINER_CLIP = 1.0
 
 
 class SmokeError(RuntimeError):
@@ -1680,6 +1720,7 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False,
     window_s = [b - a for a, b in zip(loader.times, loader.times[1:])]
     rates = [size * window_steps / w for w in window_s]
     median = statistics.median(rates)
+    FIT_RATES[label] = median
     print(f"{label}train b{size}: {median:.1f} pairs/s median of {WINDOWS} windows of "
           f"{window_steps} steps (windows {', '.join(f'{r:.1f}' for r in rates)}; spread "
           f"{(max(rates) - min(rates)) / median:.2%}), "
@@ -1964,6 +2005,373 @@ def highres_path(device) -> dict:
     return {key: serving[key] + training[key] for key in serving}
 
 
+class SyntheticPairs:
+    """A loader of ``n`` distinct synthetic micro-batches a pass
+    (:func:`~mmlearn_tpu_torch.flagship.synthetic_batch`), each drawn from
+    ``(seed, epoch, index)`` by a generator on ``device``; ``set_epoch``
+    picks the pass."""
+
+    def __init__(self, n: int, batch_size: int, seed: int, device) -> None:
+        self.n, self.batch_size, self.seed, self.device = n, batch_size, seed, device
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        import torch
+
+        from mmlearn_tpu_torch.flagship import synthetic_batch
+
+        for i in range(self.n):
+            g = torch.Generator(device=self.device)
+            g.manual_seed((self.seed * 1000 + self.epoch) * 1000 + i)
+            yield synthetic_batch(self.batch_size, g, self.device)
+
+
+class TrainerProbe:
+    """A callback of phase 9: the host clock after a synchronize at the
+    micro-steps in ``marks``, the validation losses, the first micro-step's
+    gradient checked (``first_grads``), and SIGTERM to this process after
+    micro-step ``stop_at``."""
+
+    def __init__(self, marks=(), first_grads: bool = False, stop_at=None) -> None:
+        self.marks, self.first_grads, self.stop_at = set(marks), first_grads, stop_at
+        self.times: dict = {}
+        self.val: dict = {}
+
+    def on_train_start(self, trainer) -> None: ...
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        import torch
+
+        if step == 1 and self.first_grads:
+            # at k > 1 the first micro-batch's gradient is the window's mean so far
+            state = trainer.state
+            grads = state.accumulated or [p.grad for p in state.params()]
+            bad = [n for n, g in zip(state._names(), grads)
+                   if g is None or not bool(g.isfinite().all()) or not bool(g.any())]
+            print(f"trainer path: gradients of the first micro-step: {len(grads) - len(bad)} "
+                  f"of {len(grads)} trained tensors finite and nonzero")
+            check(not bad, f"missing, non-finite or zero gradients at the first micro-step: "
+                  f"{bad[:10]}")
+        if step in self.marks:  # after the check: its reads are not timed
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+        if step == self.stop_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None:
+        self.val[step] = metrics["validation/loss"]
+
+    def on_train_end(self, trainer) -> None: ...
+
+
+def trainer_fit(master, device, ckpt_dir: str, probe, ckpt_path=None, logs=None):
+    """``Trainer.fit`` of a copy of ``master`` as phase 9 runs it: 12
+    micro-steps of 128 pairs, two a global batch, clipping by norm, a
+    checkpoint (monitoring ``validation/loss``) and a validation of 2
+    batches every 6, the LR monitor, the timer, ``log_mfu``. Returns the
+    trainer, the task, the checkpoint callback and the steps ``post_update``
+    was given."""
+    from mmlearn_tpu_torch.trainer import (
+        JSONLLogger,
+        LearningRateMonitor,
+        ModelCheckpoint,
+        Timer,
+        Trainer,
+    )
+
+    task = copy.deepcopy(master)
+    calls = []
+    post_update = task.post_update
+
+    def counted(step):
+        calls.append(step)
+        post_update(step)
+
+    task.post_update = counted
+    ckpt = ModelCheckpoint(ckpt_dir, every_n_train_steps=TRAINER_EVERY, every_n_epochs=None,
+                           monitor="validation/loss")
+    trainer = Trainer(
+        max_steps=TRAINER_STEPS, accumulate_grad_batches=TRAINER_ACCUMULATE,
+        gradient_clip_val=TRAINER_CLIP, val_check_interval=TRAINER_EVERY,
+        limit_val_batches=TRAINER_VAL_BATCHES, log_every_n_steps=TRAINER_EVERY,
+        callbacks=[probe, LearningRateMonitor(), Timer(), ckpt],
+        loggers=[] if logs is None else [JSONLLogger(logs)], log_mfu=True, device=device)
+    loader = SyntheticPairs(TRAINER_PASS, TRAINER_MICRO_BATCH, SEED + 20, device)
+    val = SyntheticPairs(TRAINER_VAL_BATCHES, TRAINER_MICRO_BATCH, SEED + 21, device)
+    trainer.fit(task, loader, val, ckpt_path=ckpt_path)
+    return trainer, task, ckpt, calls
+
+
+def same_run(label: str, got_history, got_weights, want_history, want_weights) -> None:
+    """Check a run's per-step records and final weights equal another's bit
+    for bit; on a difference, name the first record and the tensors."""
+    import torch
+
+    diff_steps = [i for i, (a, b) in enumerate(zip(got_history, want_history)) if a != b]
+    diff_weights = [n for n in want_weights if not torch.equal(got_weights[n], want_weights[n])]
+    ok = len(got_history) == len(want_history) and not diff_steps and not diff_weights
+    print(f"{label}: {len(got_history)} micro-steps' loss, grad_norm and lr and all "
+          f"{len(want_weights)} weight tensors bit-equal to run A: {ok}")
+    if not ok:
+        if diff_steps:
+            i = diff_steps[0]
+            print(f"  first differing record {i}: {got_history[i]} vs {want_history[i]}")
+        print(f"  {len(diff_weights)} weight tensors differ: {diff_weights[:20]}")
+    check(ok, f"{label} is not bit-equal to run A")
+
+
+def accumulation_parity(master, device) -> float:
+    """The trainer at k=2 on micro-batches of 8 for 2 SGD steps at rate 1,
+    with the kernels on the card and the plain versions on the CPU from the same
+    weights and batches: each micro-step's loss, and the gradient each update
+    applies and each weight's update as cosines; and the FLOPs the counter
+    counts for a micro-step, which must be equal. Returns the counted FLOPs."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    runs = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        task = copy.deepcopy(master)
+        # SGD at rate 1 and no schedule, not the task's AdamW and its
+        # warmup: AdamW's first updates are about lr * sign(g) an element, so
+        # an element whose gradient lies within bf16's rounding of zero moves
+        # by the full rate either way (update cosine 0.967, the loss after
+        # the first update 2.9e-3 apart); and at the warmup's 3e-4 a
+        # LayerNorm gain near 1 moves by a few f32 ulps, so its update is
+        # mostly rounding (SGD: cosine 0.942). PERF.md, PR 10
+        task.optimizer_factory = functools.partial(torch.optim.SGD, lr=1.0)
+        task.lr_scheduler_factory = None
+        names = {p: n for n, p in task.named_parameters()}
+        before = {n: p.detach().float().clone() for n, p in task.named_parameters()}
+        applied = []
+
+        def capture(optimizer, args, kwargs):
+            applied.append({names[p]: p.grad.float().cpu() for g in optimizer.param_groups
+                            for p in g["params"]})
+
+        trainer = Trainer(max_steps=2 * TRAINER_ACCUMULATE,
+                          accumulate_grad_batches=TRAINER_ACCUMULATE,
+                          gradient_clip_val=TRAINER_CLIP, log_every_n_steps=1, log_mfu=True,
+                          device=dev)
+        handle = register_optimizer_step_pre_hook(capture)
+        try:
+            trainer.fit(task, SyntheticPairs(2 * TRAINER_ACCUMULATE, TRAINER_PARITY_MICRO,
+                                             SEED + 22, "cpu"))
+        finally:
+            handle.remove()
+        update = {n: p.detach().float().cpu() - before[n] for n, p in task.named_parameters()}
+        runs[where] = (trainer.history, applied, update, trainer._step_flops)
+        print(f"trainer path: accumulation parity, {len(trainer.history)} micro-steps of "
+              f"{TRAINER_PARITY_MICRO} on the {where} in {time.perf_counter() - t0:.1f} s")
+        del task, trainer
+    hist, grads, update, flops = runs["card"]
+    want_hist, want_grads, want_update, want_flops = runs["cpu"]
+
+    def key_bias_out(n, t):
+        # a key projection's bias has a zero gradient in exact arithmetic
+        # (a softmax does not see a shift of a row's scores): its gradient
+        # and AdamW update are rounding noise, so they are left out
+        if n.endswith("attn.qkv.bias"):
+            return t.view(-1, 3, 64)[:, [0, 2]].reshape(-1)
+        return t
+
+    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist, want_hist)]
+    rel = max(rels)
+    print(f"trainer path: accumulation parity k={TRAINER_ACCUMULATE}, card vs CPU: loss rel "
+          f"diff {', '.join(f'{r:.3e}' for r in rels)} over {len(hist)} micro-steps "
+          f"(tol {LOSS_RTOL})")
+    check(len(grads) == len(want_grads) == 2, f"{len(grads)} updates, want 2")
+    for label, got, want in [*((f"applied gradient {i}", g, w)
+                               for i, (g, w) in enumerate(zip(grads, want_grads))),
+                             ("weight update", update, want_update)]:
+        cos = {n: _cosine(key_bias_out(n, got[n]), key_bias_out(n, want[n])) for n in want}
+        worst = min(cos, key=cos.get)
+        print(f"trainer path: {label}, card vs CPU: cosine min {cos[worst]:.6f} at {worst}, "
+              f"median {statistics.median(cos.values()):.6f} over {len(cos)} tensors "
+              f"(bound {MIN_GRAD_COSINE}; key biases without their key part)")
+        check(cos[worst] >= MIN_GRAD_COSINE, f"{label} of {worst}: cosine {cos[worst]}")
+    print(f"trainer path: FLOPs a micro-step of {TRAINER_PARITY_MICRO} counted on the card "
+          f"(kernels reporting) {flops:.6e}, on the CPU (plain versions) {want_flops:.6e}")
+    check(flops == want_flops, "the FLOP counter counts the card's step otherwise than the CPU's")
+    check(rel <= LOSS_RTOL, f"accumulated training loss on the card vs the CPU: {rel}")
+    return flops
+
+
+def trainer_path(device) -> dict:
+    """Phase 9, the trainer path: runs A (twice, for determinism), B (the
+    step-6 checkpoint resumed) and C (SIGTERM at micro-step 4, then
+    resumed), checkpoint save and restore times, accumulation parity with
+    the CPU; returns run A's launch counts."""
+    import json as json_lib
+    import math
+    import shutil
+
+    import torch
+
+    from mmlearn_tpu_torch.flagship import flagship_training_task
+    from mmlearn_tpu_torch.trainer import ModelCheckpoint
+    from mmlearn_tpu_torch.trainer.callbacks import STATE_FILE
+    from mmlearn_tpu_torch.trainer.flops import device_peak_tflops
+
+    t0 = time.perf_counter()
+    master = flagship_training_task("cpu", seed=SEED)
+    print(f"trainer path: flagship task built on the CPU in {time.perf_counter() - t0:.1f} s")
+    root = os.path.join(WORK_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    marks = (1, TRAINER_EVERY, TRAINER_EVERY + 1, TRAINER_STEPS)
+
+    # run A, the main path of this phase
+    t0 = time.perf_counter()
+    probe = TrainerProbe(marks, first_grads=True)
+    reset_counts()
+    trainer, task, ckpt, calls = trainer_fit(master, device, os.path.join(root, "a"), probe,
+                                             logs=os.path.join(root, "a_logs"))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    depth = sum(len(enc.blocks) for enc in task.encoders.values())
+    n_val = TRAINER_VAL_BATCHES * TRAINER_STEPS // TRAINER_EVERY  # validation forwards
+    want = {k: v * TRAINER_STEPS for k, v in flagship_launches(task, 0).items()}
+    want["fused_mha_fwd"] += depth * n_val
+    want["layernorm_fwd"] += 2 * depth * n_val
+    print(f"trainer path: {trainer.state.step} micro-steps and {n_val} validation forwards "
+          "launched " + ", ".join(f"{k} {counts[k]} (want {want[k]})" for k in want))
+    check(counts == want, f"trainer path launches {counts}, want {want}")
+    state = trainer.state
+    opt_steps = {int(s["step"]) for s in state.optimizer.state.values()}
+    n_opt = TRAINER_STEPS // TRAINER_ACCUMULATE
+    print(f"trainer path: {state.step} micro-steps, optimizer steps {opt_steps}, "
+          f"schedule steps {state.lr_scheduler.last_epoch}, post_update calls {calls}")
+    check(state.step == TRAINER_STEPS and opt_steps == {n_opt}
+          and state.lr_scheduler.last_epoch == n_opt and calls == list(range(n_opt)),
+          "trainer path: micro-steps, optimizer steps, schedule steps or post_update calls")
+    ckpt_dir = os.path.join(root, "a")
+    steps_on_disk = ckpt.all_steps()
+    leftovers = [d for d in os.listdir(ckpt_dir) if ".tmp-" in d]
+    print(f"trainer path: checkpoints {steps_on_disk} complete, temporary leftovers {leftovers}")
+    check(steps_on_disk == [TRAINER_EVERY, TRAINER_STEPS] and not leftovers,
+          "trainer path checkpoints")
+    print(f"trainer path: validation losses {probe.val}")
+    check(sorted(probe.val) == [TRAINER_EVERY, TRAINER_STEPS]
+          and all(math.isfinite(v) for v in probe.val.values()), "trainer path validation")
+    with open(os.path.join(root, "a_logs", "metrics.jsonl")) as f:
+        lines = [json_lib.loads(line) for line in f]
+    print(f"trainer path: {len(lines)} JSONL lines, steps {[line['step'] for line in lines]}")
+    check(len(lines) == 4 and all(math.isfinite(line.get("train/loss", line.get(
+        "validation/loss", math.nan))) for line in lines), "trainer path JSONL lines")
+    history = trainer.history
+    weights = {k: v.detach().cpu() for k, v in task.state_dict().items()}
+    print(f"trainer path: run A done in {time.perf_counter() - t0:.1f} s")
+    flops = trainer._step_flops
+    windows = [(probe.times[TRAINER_EVERY] - probe.times[1]) / (TRAINER_EVERY - 1),
+               (probe.times[TRAINER_STEPS] - probe.times[TRAINER_EVERY + 1])
+               / (TRAINER_STEPS - TRAINER_EVERY - 1)]
+    del trainer, task, ckpt
+    torch.cuda.empty_cache()
+
+    # run A again: the same bits
+    t0 = time.perf_counter()
+    probe = TrainerProbe(marks)
+    trainer, task, _, _ = trainer_fit(master, device, os.path.join(root, "a2"), probe)
+    same_run("run A again", trainer.history, {k: v.detach().cpu() for k, v in
+                                              task.state_dict().items()}, history, weights)
+    windows += [(probe.times[TRAINER_EVERY] - probe.times[1]) / (TRAINER_EVERY - 1),
+                (probe.times[TRAINER_STEPS] - probe.times[TRAINER_EVERY + 1])
+                / (TRAINER_STEPS - TRAINER_EVERY - 1)]
+
+    print(f"trainer path: run A again done in {time.perf_counter() - t0:.1f} s")
+
+    # checkpoint save and restore times, on run A again's final state
+    size = os.path.getsize(os.path.join(ckpt_dir, str(TRAINER_EVERY), STATE_FILE))
+    times = {}
+    for kind, async_save in (("sync", False), ("async", True)):
+        cb = ModelCheckpoint(os.path.join(root, f"save_{kind}"), every_n_train_steps=1,
+                             every_n_epochs=None, async_save=async_save)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb.on_train_batch_end(trainer, {}, trainer.state.step)
+        t1 = time.perf_counter()
+        cb.wait_until_finished()
+        times[kind] = (t1 - t0, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    restored = ModelCheckpoint(os.path.join(root, "save_sync")).restore_latest(trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored == TRAINER_STEPS, f"restored step {restored}")
+    del trainer, task
+    torch.cuda.empty_cache()
+
+    # run B: a fresh task resumed from run A's step-6 checkpoint
+    t0 = time.perf_counter()
+    b_dir = os.path.join(root, "b")
+    os.makedirs(b_dir)
+    shutil.copytree(os.path.join(ckpt_dir, str(TRAINER_EVERY)),
+                    os.path.join(b_dir, str(TRAINER_EVERY)))
+    shutil.copy(os.path.join(ckpt_dir, f"loop_position-{TRAINER_EVERY}.json"), b_dir)
+    trainer, task, _, calls = trainer_fit(master, device, b_dir, TrainerProbe(), ckpt_path=b_dir)
+    check(trainer.restored_step == TRAINER_EVERY, f"run B restored {trainer.restored_step}")
+    same_run("run B (resumed at 6)", trainer.history,
+             {k: v.detach().cpu() for k, v in task.state_dict().items()},
+             history[TRAINER_EVERY:], weights)
+    del trainer, task
+    torch.cuda.empty_cache()
+
+    print(f"trainer path: run B done in {time.perf_counter() - t0:.1f} s")
+
+    # run C: SIGTERM after micro-step 4, the end checkpoint, then a resume
+    t0 = time.perf_counter()
+    c_dir = os.path.join(root, "c")
+    trainer, task, ckpt, _ = trainer_fit(master, device, c_dir,
+                                         TrainerProbe(stop_at=TRAINER_STOP_AT))
+    first = trainer.history
+    print(f"run C: stopped at micro-step {trainer.state.step} by SIGTERM, checkpoints "
+          f"{ckpt.all_steps()}")
+    check(trainer.state.step == TRAINER_STOP_AT and ckpt.all_steps() == [TRAINER_STOP_AT],
+          "run C did not stop cleanly with its end checkpoint")
+    del trainer, task, ckpt
+    trainer, task, _, _ = trainer_fit(master, device, c_dir, TrainerProbe(), ckpt_path="last")
+    same_run("run C (SIGTERM at 4, resumed)", first + trainer.history,
+             {k: v.detach().cpu() for k, v in task.state_dict().items()}, history, weights)
+    del trainer, task
+    torch.cuda.empty_cache()
+    print(f"trainer path: run C done in {time.perf_counter() - t0:.1f} s")
+
+    parity_flops = accumulation_parity(master, device)
+    del master
+
+    ms = statistics.median(windows[0::2]) * 1e3
+    global_batch = TRAINER_MICRO_BATCH * TRAINER_ACCUMULATE
+    tflops = flops / (ms / 1e3) / 1e12
+    peak = device_peak_tflops(device)
+    print(f"trainer path b{TRAINER_MICRO_BATCH}x{TRAINER_ACCUMULATE}: "
+          f"{ms:.2f} ms a micro-step (median of micro-steps 2-6 of runs A and A again: "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in windows[0::2])}; micro-steps 8-12, an async "
+          f"checkpoint write in flight: {', '.join(f'{w * 1e3:.2f}' for w in windows[1::2])}), "
+          f"{global_batch / (TRAINER_ACCUMULATE * ms / 1e3):.1f} pairs/s a global batch of "
+          f"{global_batch}")
+    print(f"trainer path: checkpoint {size} bytes; save sync {times['sync'][1]:.3f} s, async "
+          f"{times['async'][0]:.3f} s to return and {times['async'][1]:.3f} s written; restore "
+          f"{restore_s:.3f} s")
+    print(f"trainer path: {flops:.6e} FLOPs a micro-step of {TRAINER_MICRO_BATCH} counted "
+          f"(kernels included; {parity_flops:.6e} at {TRAINER_PARITY_MICRO}), "
+          f"{tflops:.1f} TFLOP/s achieved, MFU "
+          f"{'not in the table' if peak is None else f'{tflops / peak:.2%} of {peak:g}'}")
+    print(f"trainer path: the flagship fit_flagship step (phase 5) in this run: "
+          f"{FIT_RATES['']:.1f} pairs/s at b{BATCH}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2039,10 +2447,15 @@ def main() -> int:
     check(highres_launches["int8_qmm"] == highres_launches["int8_qmm_bytes"] == 0,
           f"K5 launched on the 448 path without {QUANT_ENV}")
     print(f"448 path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trainer_launches = trainer_path(device)
+    check(trainer_launches["int8_qmm"] == trainer_launches["int8_qmm_bytes"] == 0,
+          f"K5 launched on the trainer path without {QUANT_ENV}")
+    print(f"trainer path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
-    # int8_sb, 448 encode and 448 training
-    for counts in (ijepa_launches, quant_launches, highres_launches):
+    # int8_sb, 448 encode and 448 training, the trainer path's run A
+    for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

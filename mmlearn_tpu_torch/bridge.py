@@ -17,8 +17,10 @@ modules, so a path maps to a ``state_dict`` key by four rules:
 The reverse (:func:`torch_to_jax`) writes the per-layer ``blocks_{i}``
 layout. An I-JEPA task's trees (``params = {"encoder", "predictor"}`` and
 the teacher in ``extras["ema_encoder"]``) cross with
-:func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. Plain numpy and
-torch: nothing here imports jax.
+:func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. A whole JAX
+train state, with its AdamW moments, schedule position and accumulated
+gradient, becomes a port checkpoint with :func:`train_state_from_jax`.
+Plain numpy and torch: nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -143,3 +145,61 @@ def load_npz(path: str) -> dict[str, np.ndarray]:
     """Read weights written by :func:`save_npz`."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def _find_state(tree: Any, fields: tuple[str, ...]) -> Any:
+    """The first optax state (a named tuple) in ``tree`` with ``fields``."""
+    if hasattr(tree, "_fields") and all(f in tree._fields for f in fields):
+        return tree
+    if isinstance(tree, Mapping):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            found = _find_state(item, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state: Any) -> dict[str, Any]:
+    """A JAX package's ``TrainState`` (``jax.device_get`` of it: numpy
+    leaves) as the port's checkpoint state, for
+    :meth:`mmlearn_tpu_torch.trainer.TrainState.load_state_dict` or a
+    checkpoint directory that ``Trainer.fit(ckpt_path=...)`` resumes.
+
+    - the weights: :func:`jax_to_torch` of ``params``, or
+      :func:`ijepa_jax_to_torch` with the teacher where ``extras`` holds
+      ``ema_encoder``;
+    - optax AdamW's ``count``, ``mu`` and ``nu`` (``ScaleByAdamState``) as
+      ``torch.optim.AdamW``'s per-parameter ``step``, ``exp_avg`` and
+      ``exp_avg_sq``, mapped by the same rules as the weights (a kernel's
+      moments transposed with it); the optimizer's parameter groups (the
+      decay mask's two) are the port task's own;
+    - the schedule's position: ``count`` optimizer steps;
+    - under ``optax.MultiSteps``, the running mean ``acc_grads`` of a window
+      not yet applied (``mini_step > 0``);
+    - ``step``, the micro-steps taken.
+    """
+    extras = state.extras or {}
+    if any(k.startswith("ema_encoder/") for k in flatten(extras)):
+        weights = ijepa_jax_to_torch(state.params, extras)
+    else:
+        weights = jax_to_torch(state.params)
+    adam = _find_state(state.opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no AdamW moments (ScaleByAdamState)")
+    count = int(np.asarray(adam.count))
+    mu, nu = jax_to_torch(adam.mu), jax_to_torch(adam.nu)
+    moments = {name: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
+                      "exp_avg_sq": nu[name]} for name in mu}
+    multi = _find_state(state.opt_state, ("mini_step", "acc_grads"))
+    accumulated = {}
+    if multi is not None and int(np.asarray(multi.mini_step)) > 0:
+        accumulated = jax_to_torch(multi.acc_grads)
+    return {
+        "step": int(np.asarray(state.step)),
+        "task": weights,
+        "optimizer": {"state": moments, "param_groups": None},
+        "lr_scheduler": {"last_epoch": count, "_step_count": count + 1},
+        "accumulated": accumulated,
+    }

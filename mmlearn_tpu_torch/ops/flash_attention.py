@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from mmlearn_tpu_torch import _build
+from mmlearn_tpu_torch.ops import attention_flops, report_flops
 
 #: the finite mask value of the JAX package (``DEFAULT_MASK_VALUE``); in f32
 #: its bits are 0xff333332, as the CUDA kernels' ``kNeg``. A row whose every
@@ -270,6 +271,12 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale: float, causal: bool, g
     return dq, dk, dv
 
 
+def _report(q, k, backward: bool) -> None:
+    b, h, n_q, d = q.shape
+    report_flops("flash_bwd" if backward else "flash_fwd",
+                 attention_flops(b, h, n_q, k.shape[2], d, backward))
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_flash_attention``: saves q,
     k, v, the mask, the output and the log-sum-exp (``_flash_fwd``), and runs
@@ -281,6 +288,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             out, lse = flash_fwd_reference(q, k, v, mask, scale, causal)
         else:
             out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
+            _report(q, k, backward=False)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.config = (scale, causal)
         return out
@@ -292,6 +300,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             grads = flash_bwd_reference(q, k, v, mask, out, lse, dout, *ctx.config)
         else:
             grads = _flash_bwd_cuda(q, k, v, mask, out, lse, dout, *ctx.config)
+            _report(q, k, backward=True)
         return (*grads, None, None, None)
 
 
@@ -358,6 +367,7 @@ class FlashQKVFunction(torch.autograd.Function):
             out, lse = flash_fwd_reference(q, k, v, mask, scale, causal)
         else:
             out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
+            _report(q, k, backward=False)
         ctx.save_for_backward(qkv, mask, out, lse)
         ctx.config = (num_heads, scale, causal)
         b, n, _ = qkv.shape
@@ -379,6 +389,7 @@ class FlashQKVFunction(torch.autograd.Function):
                 g.copy_(x)
         else:
             _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale, causal, grads=grads)
+            _report(q, k, backward=True)
         return dqkv.view(b, n, three_c), None, None, None, None
 
 

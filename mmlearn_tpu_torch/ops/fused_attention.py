@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from mmlearn_tpu_torch import _build
+from mmlearn_tpu_torch.ops import attention_flops, report_flops
 
 #: the TPU kernel's finite mask value (``_NEG``): a row whose every key is
 #: masked then averages V over all keys instead of producing NaN
@@ -380,6 +381,12 @@ def _fused_mha_bwd_cuda(
     return dqkv
 
 
+def _report(qkv, num_heads: int, packed: bool, backward: bool) -> None:
+    b, n, three_c = qkv.shape
+    report_flops(f"{_SOURCES[packed][4]}_{'bwd' if backward else 'fwd'}",
+                 attention_flops(b, num_heads, n, n, three_c // (3 * num_heads), backward))
+
+
 class FusedMHAFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_fused_mha_nomask`` /
     ``_fused_mha_masked``: saves qkv, the mask and the output, and runs the
@@ -393,6 +400,7 @@ class FusedMHAFunction(torch.autograd.Function):
             out = mha_reference(qkv, mask, num_heads, scale, causal)
         else:
             out = _fused_mha_cuda(qkv, mask, num_heads, scale, causal, packed)
+            _report(qkv, num_heads, packed, backward=False)
         ctx.save_for_backward(qkv, mask, out)
         ctx.config = (num_heads, scale, causal)
         ctx.packed = packed
@@ -405,6 +413,7 @@ class FusedMHAFunction(torch.autograd.Function):
             dqkv = mha_bwd_reference(qkv, mask, out, dout, *ctx.config)
         else:
             dqkv = _fused_mha_bwd_cuda(qkv, mask, out, dout, *ctx.config, ctx.packed)
+            _report(qkv, ctx.config[0], ctx.packed, backward=True)
         return dqkv, None, None, None, None, None
 
 

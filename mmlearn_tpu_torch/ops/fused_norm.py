@@ -47,10 +47,15 @@ from typing import Optional, Tuple
 import torch
 
 from mmlearn_tpu_torch import _build
+from mmlearn_tpu_torch.ops import report_flops
 
 #: launches of the kernels (both variants), one count each: the forward by
 #: the wrappers, the backward by the autograd Functions
 LAUNCHES = {"layernorm_fwd": 0, "layernorm_bwd": 0}
+
+#: what K2 reports to a FLOP counter: ``FlopCounterMode`` counts products
+#: only, and neither plain version has one
+LAYERNORM_FLOPS = 0
 
 _MAX_C = 8192
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -241,6 +246,7 @@ def _ln_bwd(x, gamma, dy, eps: float, dr=None):
     if not _on_cuda(x):
         dx, dg, db = ln_bwd_reference(x, gamma, dy, eps, dr)
         return dx, dg.to(gamma.dtype), db.to(gamma.dtype)
+    report_flops("layernorm_bwd", LAYERNORM_FLOPS)
     return _launch_bwd(x, gamma, dy, eps, dr)
 
 
@@ -256,6 +262,7 @@ class LayerNormFunction(torch.autograd.Function):
         else:
             y = torch.empty_like(x)
             _launch(x, None, gamma, beta, None, y, eps)
+            report_flops("layernorm_fwd", LAYERNORM_FLOPS)
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
         return y
@@ -281,6 +288,7 @@ class AddLayerNormFunction(torch.autograd.Function):
             r = torch.empty_like(x)
             y = torch.empty_like(x)
             _launch(x, branch, gamma, beta, r, y, eps)
+            report_flops("layernorm_fwd", LAYERNORM_FLOPS)
         ctx.save_for_backward(r, gamma)
         ctx.eps = eps
         return r, y

@@ -38,6 +38,7 @@ import torch
 
 from mmlearn_tpu_torch import _build
 from mmlearn_tpu_torch.modules.layers.quantization import _int8_fwd, _quantize, exact_int_dot
+from mmlearn_tpu_torch.ops import report_flops
 
 #: launches of K5, counted by :func:`int8_qmm` where it launches a path:
 #: the TMA path (the quantize pass and the product, one count) and the byte
@@ -166,7 +167,10 @@ def _qmm_or_fallback(a: torch.Tensor, qw, sw, b_full: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """K5 where the JAX package runs its kernel; the composed int8 product
     (the same numbers) and a separate add elsewhere."""
-    if supports_int8_qmm(math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]):
+    m, k, n = math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]
+    if supports_int8_qmm(m, k, n):
+        if a.device.type != "cpu":
+            report_flops("int8_qmm", 2 * m * k * n)  # the plain version's one product
         return int8_qmm(a, qw, sw, bias)
     y = _int8_fwd(a, b_full)
     return y if bias is None else y + bias

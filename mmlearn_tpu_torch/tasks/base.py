@@ -48,6 +48,9 @@ class TrainingTask(nn.Module):
             base_lr=1e-3, warmup_steps=100)``; ``max_steps`` is filled in
             when the factory takes it and it was not given.
         loss: the loss object the subclass calls in :meth:`loss_fn`.
+        compute_validation_loss, compute_test_loss: whether the trainer's
+            validation and test loops compute the loss (``validation/loss``,
+            ``test/loss``).
     """
 
     def __init__(
@@ -55,6 +58,8 @@ class TrainingTask(nn.Module):
         optimizer: Optional[Callable[..., torch.optim.Optimizer]] = None,
         lr_scheduler: Optional[Callable[..., Callable[[int], float]]] = None,
         loss: Optional[Any] = None,
+        compute_validation_loss: bool = True,
+        compute_test_loss: bool = True,
     ) -> None:
         super().__init__()
         self.optimizer_factory = optimizer or functools.partial(
@@ -62,10 +67,26 @@ class TrainingTask(nn.Module):
         )
         self.lr_scheduler_factory = lr_scheduler
         self.loss = loss
+        self.compute_validation_loss = compute_validation_loss
+        self.compute_test_loss = compute_test_loss
 
     def loss_fn(self, batch: Mapping[str, Any]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """``(loss, metrics)`` of one batch, differentiable in the weights."""
         raise NotImplementedError
+
+    def validation_loss(
+        self, batch: Mapping[str, Any]
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """:meth:`loss_fn` in eval mode and without gradients, the
+        counterpart of the JAX trainer's ``_make_val_step`` (``loss_fn`` with
+        ``deterministic=True``); the module's mode is restored after."""
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                return self.loss_fn(batch)
+        finally:
+            self.train(was_training)
 
     def prepare_batch(
         self, batch: dict[str, Any], step: int, training: bool = True
@@ -77,6 +98,16 @@ class TrainingTask(nn.Module):
     def post_update(self, step: int) -> None:
         """Hook after the optimizer's update of step ``step`` (an EMA
         teacher, say); nothing by default."""
+
+    def on_checkpoint_save(self, state_dict: dict[str, Any]) -> dict[str, Any]:
+        """Hook on a checkpoint's state before it is written; as it is by
+        default."""
+        return state_dict
+
+    def on_checkpoint_load(self, state_dict: dict[str, Any]) -> dict[str, Any]:
+        """Hook on a checkpoint's state before it is restored; as it is by
+        default."""
+        return state_dict
 
     def configure_optimizers(
         self, max_steps: Optional[int] = None

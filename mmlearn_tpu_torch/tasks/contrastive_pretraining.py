@@ -8,7 +8,8 @@ modality in the batch is encoded and L2-normalised, presence masks and the
 batch's ``batch_validity`` select the valid rows, and the contrastive loss
 runs over ``modality_loss_pairs`` (every pair of modalities by default).
 ``encode`` is encoder, then postprocessor, then head, then optional L2 norm.
-Auxiliary tasks, PEFT and frozen encoders are not ported yet and raise.
+Auxiliary tasks, evaluation tasks, PEFT and frozen encoders are not
+ported yet and raise.
 
 PyTorch idiom: the modules hold their weights, so ``encode`` and
 ``loss_fn`` take no parameter tree; inputs may be numpy arrays or tensors
@@ -58,15 +59,20 @@ class ContrastivePretraining(TrainingTask):
         loss: Optional[ContrastiveLoss] = None,
         modality_loss_pairs: Optional[Sequence[Any]] = None,
         auxiliary_tasks: Optional[Mapping[str, Any]] = None,
+        compute_validation_loss: bool = True,
+        compute_test_loss: bool = True,
+        evaluation_tasks: Optional[Mapping[str, Any]] = None,
         peft_configs: Optional[Mapping[str, Any]] = None,
         freeze_encoders: Optional[Mapping[str, Any]] = None,
     ) -> None:
-        if auxiliary_tasks or peft_configs or freeze_encoders:
+        if auxiliary_tasks or peft_configs or freeze_encoders or evaluation_tasks:
             raise NotImplementedError(
-                "auxiliary tasks, PEFT and frozen encoders are not ported yet"
+                "auxiliary tasks, evaluation tasks, PEFT and frozen encoders are "
+                "not ported yet"
             )
         super().__init__(optimizer, lr_scheduler,
-                         loss if loss is not None else ContrastiveLoss())
+                         loss if loss is not None else ContrastiveLoss(),
+                         compute_validation_loss, compute_test_loss)
         mapping: dict[str, ModuleKeySpec] = {}
         for m, spec in (modality_module_mapping or {}).items():
             if isinstance(spec, Mapping):

@@ -105,8 +105,11 @@ class IJEPA(TrainingTask):
         modality: str = "rgb",
         mask_generator: Optional[IJEPAMaskGenerator] = None,
         generator: Optional[torch.Generator] = None,
+        compute_validation_loss: bool = True,
+        compute_test_loss: bool = True,
     ) -> None:
-        super().__init__(optimizer, lr_scheduler)
+        super().__init__(optimizer, lr_scheduler, None, compute_validation_loss,
+                         compute_test_loss)
         cfg = encoder.config
         if predictor is None:
             grid = cfg["img_size"] // cfg["patch_size"]

@@ -1,6 +1,26 @@
-"""The port's trainer: the training step and a minimal fit loop."""
+"""The port's trainer: the fit loop, callbacks, loggers, checkpoints,
+checkpoint averaging and the FLOP counter."""
 
+from mmlearn_tpu_torch.trainer.averaging import average_checkpoints
+from mmlearn_tpu_torch.trainer.callbacks import (
+    Callback,
+    LearningRateMonitor,
+    ModelCheckpoint,
+    Timer,
+)
+from mmlearn_tpu_torch.trainer.loggers import ConsoleLogger, JSONLLogger, Logger
 from mmlearn_tpu_torch.trainer.state import TrainState
 from mmlearn_tpu_torch.trainer.trainer import Trainer
 
-__all__ = ["TrainState", "Trainer"]
+__all__ = [
+    "Callback",
+    "ConsoleLogger",
+    "JSONLLogger",
+    "LearningRateMonitor",
+    "Logger",
+    "ModelCheckpoint",
+    "Timer",
+    "TrainState",
+    "Trainer",
+    "average_checkpoints",
+]

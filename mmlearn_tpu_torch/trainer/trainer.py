@@ -1,119 +1,574 @@
-"""A minimal trainer, counterpart of the step of
-:class:`mmlearn_tpu.trainer.Trainer` (``_build_tx`` :386,
-``_make_train_step`` :494-537, ``fit`` :634).
+"""The training loop, counterpart of :class:`mmlearn_tpu.trainer.Trainer`.
 
-One step: ``task.prepare_batch(batch, step)``, ``task.loss_fn(batch)``,
-backward, the global gradient norm, optional clipping (``"norm"``: by the
+One micro-step (``_make_train_step`` :494-537 of the JAX trainer):
+``task.prepare_batch(batch, step)``, ``task.loss_fn(batch)``, backward, the
+global norm of the micro-batch's gradient (``grad_norm``). Without
+accumulation the optimizer then steps: optional clipping (``"norm"``: by the
 global norm, as ``optax.clip_by_global_norm``; ``"value"``: elementwise, as
-``optax.clip``), the optimizer update, ``task.post_update(step)`` (an EMA
-teacher follows the new weights) and the schedule's step. Each step records ``loss``,
-``lr`` (the rate that step used), ``logit_scale`` where the task reports
-one, and ``grad_norm`` (before clipping), plus the task's other metrics.
-The records stay on the device and are read back every
-``log_every_n_steps`` steps and at the end, so the host does not wait on
-the card each step.
+``optax.clip``), the update, ``task.post_update(step)`` (an EMA teacher
+follows the new weights) and the schedule's step.
 
-Not ported yet (ROADMAP P7): validation, callbacks, checkpoints, gradient
-accumulation, preemption, device input. The step draws no random numbers on
-the device (the towers' dropout rates are 0): the weights come seeded from
-the function that makes the task, and ``seed`` seeds only the task's
-host-side ``prepare_batch`` (``task.prepare_seed``, as the JAX trainer sets
-it).
+Gradient accumulation has the JAX package's semantics (``optax.MultiSteps``
+around the clipping and the optimizer, ``_build_tx`` :386-401), not
+Lightning's: ``max_steps`` and ``state.step`` count micro-batches; the
+gradients of ``k = accumulate_grad_batches`` micro-batches are kept as
+their running mean (MultiSteps' ``acc + (g - acc) / (n + 1)``), which is
+clipped and applied once, at the window's last micro-batch; the schedule,
+built for ``max_steps`` micro-steps, advances once per optimizer step, and
+``post_update`` fires once per optimizer step with its 0-based count.
+
+The fit loop (``fit`` :634, ``_fit_loop`` :833) covers ``max_epochs`` and
+``max_steps``, ``limit_{train,val,test}_batches`` (an int, a fraction or 0),
+``val_check_interval``, ``check_val_every_n_epoch`` and the final epoch's
+validation, ``num_sanity_val_steps``, ``fast_dev_run``, ``detect_anomaly``,
+callbacks and loggers, ``should_stop`` and a clean stop on SIGTERM or
+SIGUSR1 (on the main thread), the loop position with ``set_epoch`` where
+the loader has it, and resume from a checkpoint (``ckpt_path``), the loader
+fast-forwarded to the saved epoch and batch. Validation computes the task's
+loss (:meth:`~mmlearn_tpu_torch.tasks.base.TrainingTask.validation_loss`);
+the evaluation hooks wait (ROADMAP P8).
+
+Each step's records (``loss``, ``lr``: the rate of the optimizer update this
+micro-batch goes into, ``logit_scale`` where the task reports one,
+``grad_norm`` and the task's other metrics) stay on the device and are read
+back every ``log_every_n_steps`` steps and at the end, so no step waits on
+the card. The step draws no random numbers on the device (the towers'
+dropout rates are 0): the weights come seeded from the function that makes
+the task, and ``seed`` seeds only the task's host-side ``prepare_batch``
+(``task.prepare_seed``, as the JAX trainer sets it).
+
+The JAX trainer's XLA-only options (``compilation_cache_dir``,
+``donate_state``, the profiler trace, ``precision``'s attention switch) have
+no counterpart; its device feeder, ``overfit_batches`` and ``mesh_shape``
+wait for the data layer and parallelism (ROADMAP P13, P10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
-from typing import Any, Iterable, Mapping, Optional
+import signal
+import time
+from typing import Any, Iterable, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
+from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.tasks.base import TrainingTask
+from mmlearn_tpu_torch.trainer.flops import FlopCounter, device_peak_tflops
 from mmlearn_tpu_torch.trainer.state import TrainState
 
 logger = logging.getLogger(__name__)
 
 
+def validate_batch_shapes(batch: Mapping[str, Any], context: str = "train") -> int:
+    """Check a collated batch: one leading dimension across the modality
+    keys, no object dtypes, no empty arrays. Returns the batch size (0
+    without a modality key)."""
+    batch_dim: Optional[int] = None
+    offender = None
+    for key, value in batch.items():
+        if isinstance(value, Mapping):
+            validate_batch_shapes(value, context=f"{context}.{key}")
+            continue
+        if not hasattr(value, "shape") or len(value.shape) == 0:
+            continue
+        if getattr(value, "dtype", None) == object:
+            raise ValueError(
+                f"[{context}] batch key '{key}' has object dtype: collate must "
+                "produce numeric arrays (strings stay python lists)")
+        if int(np.prod(tuple(value.shape))) == 0:
+            raise ValueError(f"[{context}] batch key '{key}' is empty")
+        # only modality keys share the batch dimension (I-JEPA's masks lead
+        # with the number of masks)
+        if not Modalities.has_modality(str(key)):
+            continue
+        lead = int(value.shape[0])
+        if batch_dim is None:
+            batch_dim, offender = lead, key
+        elif lead != batch_dim:
+            raise ValueError(
+                f"[{context}] inconsistent batch dims: '{offender}' has {batch_dim} but "
+                f"'{key}' has {lead}")
+    return batch_dim or 0
+
+
+def _resolve_limit(limit: Any, loader: Any, name: str) -> Optional[int]:
+    """A ``limit_*_batches`` value as a batch count: an int as it is, a
+    float in [0, 1] as that fraction of the loader's length (1.0: no limit,
+    0.0: the phase is off)."""
+    if limit is None or isinstance(limit, int):
+        return limit
+    fraction = float(limit)
+    if not 0.0 <= fraction <= 1.0:
+        raise ValueError(f"{name}={limit!r}: float limits are fractions and must lie in "
+                         "[0.0, 1.0]; pass an int for an absolute batch count")
+    if fraction == 1.0:
+        return None
+    try:
+        n = len(loader)
+    except TypeError:
+        raise ValueError(f"{name}={limit!r}: float fractions need a sized dataloader; this "
+                         "loader has no length -- pass an int batch count instead") from None
+    resolved = int(n * fraction)
+    if resolved == 0 and fraction > 0.0:
+        raise ValueError(f"{name}={limit!r} of {n} batches resolves to 0 batches; increase "
+                         "the fraction or pass an int")
+    return resolved
+
+
+def _batch_size_of(batch: Mapping[str, Any]) -> int:
+    fallback = 0
+    for k, v in batch.items():
+        if hasattr(v, "shape") and len(v.shape) > 0:
+            if Modalities.has_modality(str(k)):
+                return int(v.shape[0])
+            fallback = fallback or int(v.shape[0])
+        elif isinstance(v, list):
+            fallback = fallback or len(v)
+    return fallback
+
+
 class Trainer:
-    """Runs ``max_steps`` training steps of a task over a loader."""
+    """The fit loop, validation and test (see the module docstring)."""
 
     def __init__(
         self,
-        max_steps: int,
+        max_epochs: Optional[int] = None,
+        max_steps: Optional[int] = None,
+        limit_train_batches: Optional[Union[int, float]] = None,
+        limit_val_batches: Optional[Union[int, float]] = None,
+        limit_test_batches: Optional[Union[int, float]] = None,
+        check_val_every_n_epoch: int = 1,
+        val_check_interval: Optional[Union[int, float]] = None,
         log_every_n_steps: int = 50,
+        accumulate_grad_batches: int = 1,
         gradient_clip_val: Optional[float] = None,
         gradient_clip_algorithm: str = "norm",
-        device: torch.device | str = "cuda",
+        callbacks: Optional[Sequence[Any]] = None,
+        loggers: Optional[Sequence[Any]] = None,
+        default_root_dir: str = "outputs",
         seed: int = 0,
+        num_sanity_val_steps: int = 0,
+        fast_dev_run: Any = False,
+        detect_anomaly: bool = False,
+        log_mfu: bool = False,
+        device: torch.device | str = "cuda",
     ) -> None:
+        if fast_dev_run:
+            # N (default 1) train and val batches, no checkpoints
+            n = 1 if fast_dev_run is True else int(fast_dev_run)
+            max_epochs, max_steps = 1, n
+            limit_train_batches = limit_val_batches = limit_test_batches = n
+            callbacks = [c for c in (callbacks or []) if not hasattr(c, "restore_latest")]
         if gradient_clip_algorithm not in ("norm", "value"):
-            raise ValueError(
-                f"gradient_clip_algorithm must be 'norm' or 'value', got "
-                f"{gradient_clip_algorithm!r}"
-            )
-        self.max_steps = int(max_steps)
+            raise ValueError(f"gradient_clip_algorithm must be 'norm' or 'value', got "
+                             f"{gradient_clip_algorithm!r}")
+        if int(accumulate_grad_batches) < 1:
+            raise ValueError(f"accumulate_grad_batches must be >= 1, got {accumulate_grad_batches}")
+        self.max_epochs = max_epochs
+        self.max_steps = None if max_steps is None else int(max_steps)
+        self.limit_train_batches = limit_train_batches
+        self.limit_val_batches = limit_val_batches
+        self.limit_test_batches = limit_test_batches
+        self.check_val_every_n_epoch = check_val_every_n_epoch
+        self.val_check_interval = val_check_interval
         self.log_every_n_steps = max(1, int(log_every_n_steps))
+        self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.gradient_clip_val = gradient_clip_val
         self.gradient_clip_algorithm = gradient_clip_algorithm
-        self.device = torch.device(device)
+        self.callbacks = list(callbacks or [])
+        self.loggers = list(loggers or [])
+        self.default_root_dir = default_root_dir
         self.seed = int(seed)
-        #: one dict of floats per step taken by the last :meth:`fit`
+        self.num_sanity_val_steps = num_sanity_val_steps
+        self.detect_anomaly = detect_anomaly
+        #: log achieved TFLOP/s (and MFU against the card's peak) from a
+        #: count of the first step (:class:`~mmlearn_tpu_torch.trainer.flops.FlopCounter`)
+        self.log_mfu = log_mfu
+        #: FLOPs of one micro-step, counted at the first step of a fit with
+        #: ``log_mfu``
+        self._step_flops: Optional[float] = None
+        self.device = torch.device(device)
+        self._limit_train: Optional[int] = None
+        self._val_interval: Optional[int] = None
+
+        self.state: Optional[TrainState] = None
+        #: the step the run restored (None for a fresh run), and the loop
+        #: position saved with it
+        self.restored_step: Optional[int] = None
+        self._restored_position: Optional[dict] = None
+        #: set by a callback, a task or SIGTERM/SIGUSR1 to end training after
+        #: the step in flight
+        self.should_stop = False
+        #: (epoch, batch_in_epoch) of the next batch, saved with checkpoints
+        self.loop_position: Optional[dict] = None
+        #: the schedule ``optimizer step -> learning rate``, for the LR monitor
+        self._lr_schedule = None
+        #: one dict of floats per micro-step taken by the last :meth:`fit`
         self.history: list[dict[str, float]] = []
 
-    def fit(self, task: TrainingTask, loader: Iterable[Mapping[str, Any]]) -> TrainState:
-        """Move ``task`` to the trainer's device and take ``max_steps``
-        steps, cycling over ``loader`` as often as needed."""
+    # -- setup ------------------------------------------------------------------
+    def _batches_per_epoch(self, loader: Any) -> Optional[int]:
+        """``len(loader)`` cut by ``limit_train_batches``; None if unsized."""
+        try:
+            per_epoch = len(loader)
+        except TypeError:
+            return None
+        limit = _resolve_limit(self.limit_train_batches, loader, "limit_train_batches")
+        return per_epoch if limit is None else min(per_epoch, limit)
+
+    def _resolve_val_interval(self, loader: Any) -> Optional[int]:
+        """A float ``val_check_interval`` in (0, 1] as that fraction of the
+        (limited) training epoch, in steps."""
+        interval = self.val_check_interval
+        if interval is None or isinstance(interval, int):
+            return interval
+        fraction = float(interval)
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(f"val_check_interval={interval!r}: float intervals are fractions "
+                             "of the training epoch and must lie in (0.0, 1.0]; pass an int "
+                             "for an absolute step interval")
+        per_epoch = self._batches_per_epoch(loader)
+        if per_epoch is None:
+            raise ValueError(f"val_check_interval={interval!r}: float fractions need a sized "
+                             "train dataloader -- pass an int step interval instead")
+        return max(1, int(per_epoch * fraction))
+
+    def _resolve_max_steps(self, loader: Any) -> int:
+        if self.max_steps is not None:
+            return self.max_steps
+        if self.max_epochs is not None:
+            per_epoch = self._batches_per_epoch(loader)
+            if per_epoch is not None:
+                return self.max_epochs * per_epoch
+        return 1000
+
+    def _install_stop_handlers(self) -> dict:
+        """SIGTERM and SIGUSR1 (SLURM's preemption warnings) set
+        ``should_stop``, so the loop ends after the step in flight and the
+        end-of-train checkpoint makes the run resumable. Returns the previous
+        handlers; does nothing off the main thread."""
+
+        def request_stop(signum, frame):
+            logger.warning("Received signal %d: stopping after the current step", signum)
+            self.should_stop = True
+
+        prev = {}
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                prev[sig] = signal.signal(sig, request_stop)
+            except ValueError:  # not the main thread
+                pass
+        return prev
+
+    def _restore(self, ckpt_path: str, strict: bool) -> None:
+        """Load ``ckpt_path`` (``"last"`` or a checkpoint directory) into
+        the state; ``"last"`` that finds nothing starts from scratch."""
+        ckpt_cb = next((c for c in self.callbacks if hasattr(c, "restore_latest")), None)
+        if ckpt_cb is None:
+            from mmlearn_tpu_torch.trainer.callbacks import ModelCheckpoint
+
+            ckpt_cb = ModelCheckpoint(dirpath=None)  # restores only: not registered
+        if ckpt_path != "last":
+            ckpt_cb.dirpath = ckpt_path
+            ckpt_cb._ckpt_path = None
+        restored = ckpt_cb.restore_latest(self, strict=strict)
+        if restored is not None:
+            # a completed run's end-of-train save of this step is then a no-op
+            self.restored_step = int(self.state.step)
+            self._restored_position = ckpt_cb.read_loop_position(self)
+        elif ckpt_path == "last":
+            logger.warning("ckpt_path='last': no checkpoint found, starting from scratch")
+        else:
+            raise FileNotFoundError(f"No checkpoint found under '{ckpt_path}'")
+
+    # -- fit --------------------------------------------------------------------
+    def fit(
+        self,
+        task: TrainingTask,
+        train_loader: Iterable[Mapping[str, Any]],
+        val_loader: Optional[Iterable[Mapping[str, Any]]] = None,
+        ckpt_path: Optional[str] = None,
+        strict_loading: bool = True,
+    ) -> TrainState:
+        """Move ``task`` to the trainer's device and train it over
+        ``train_loader`` (any re-iterable of batch dicts; ``set_epoch(e)``
+        is called where it exists), validating on ``val_loader``; resume
+        from ``ckpt_path`` (``"last"`` or a checkpoint directory)."""
+        max_steps = self._resolve_max_steps(train_loader)
+        self._limit_train = _resolve_limit(self.limit_train_batches, train_loader,
+                                           "limit_train_batches")
+        self._val_interval = self._resolve_val_interval(train_loader)
+        try:
+            if len(train_loader) == 0:
+                raise ValueError("train_loader yields no batches")
+        except TypeError:
+            pass
         task.to(self.device).train()
         task.prepare_seed = self.seed
-        optimizer, lr_scheduler = task.configure_optimizers(max_steps=self.max_steps)
-        state = TrainState(0, task, optimizer, lr_scheduler)
-        params = [p for group in optimizer.param_groups for p in group["params"]]
+        optimizer, lr_scheduler = task.configure_optimizers(max_steps=max_steps)
+        self._lr_schedule = None if lr_scheduler is None else lr_scheduler.lr_lambdas[0]
+        self.state = TrainState(0, task, optimizer, lr_scheduler)
+        self.restored_step = None
+        self._restored_position = None
+        if ckpt_path is not None:
+            self._restore(ckpt_path, strict_loading)
+
+        for cb in self.callbacks:
+            cb.on_train_start(self)
+        self.should_stop = False
+        prev_handlers = self._install_stop_handlers()
+        try:
+            if self.num_sanity_val_steps and val_loader is not None:
+                self._run_evaluation(task, val_loader, "validation",
+                                     limit_batches=self.num_sanity_val_steps, log=False)
+            anomaly = (torch.autograd.set_detect_anomaly(True) if self.detect_anomaly
+                       else contextlib.nullcontext())
+            with anomaly:
+                return self._fit_loop(task, train_loader, val_loader, max_steps)
+        finally:
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+
+    def _start_position(self, train_loader: Any) -> tuple[int, int]:
+        """The epoch and the batches to skip in it for the restored step."""
+        step = self.state.step
+        if step == 0:
+            return 0, 0
+        per_epoch = self._batches_per_epoch(train_loader)
+        pos = self._restored_position
+        if per_epoch:
+            epoch, skip = divmod(step, per_epoch)
+        elif pos is not None and pos.get("step") == step:
+            epoch, skip = int(pos.get("epoch", 0)), int(pos.get("batch_in_epoch", 0))
+        else:
+            logger.warning("Resuming at step %d with an unsized loader and no saved loop "
+                           "position: the stream restarts from epoch 0", step)
+            return 0, 0
+        logger.info("Resuming at step %d: epoch %d, skipping %d batches", step, epoch, skip)
+        return epoch, skip
+
+    def _fit_loop(self, task, train_loader, val_loader, max_steps: int) -> TrainState:
+        state = self.state
+        epoch, skip = self._start_position(train_loader)
+        # a completed run resumed trains no more; limit_train_batches=0 turns training off
+        done = state.step >= max_steps or self._limit_train == 0
+        per_epoch = self._batches_per_epoch(train_loader)
         self.history = []
         pending: list[dict[str, Any]] = []
-        while state.step < self.max_steps:
-            empty = True
-            for batch in loader:
-                empty = False
-                pending.append(self._step(state, batch, params))
-                if len(pending) == self.log_every_n_steps or state.step == self.max_steps:
-                    self._read_back(pending)
-                if state.step == self.max_steps:
+        t_log = time.perf_counter()
+        examples_since_log = steps_since_log = 0
+        checked_shapes = False
+        while not done:
+            if self.max_epochs is not None and epoch >= self.max_epochs:
+                break
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            epoch_completed = False
+            seen = 0
+            for batch_idx, raw in enumerate(train_loader):
+                seen += 1
+                if self._limit_train is not None and batch_idx >= self._limit_train:
                     break
-            if empty:
-                raise ValueError(
-                    f"the loader yielded no batch after step {state.step}: a "
-                    "one-pass iterator runs out after its first pass"
-                )
+                if skip > 0:  # consumed before the checkpoint
+                    skip -= 1
+                    continue
+                batch = task.prepare_batch(dict(raw), state.step)
+                if not checked_shapes:
+                    validate_batch_shapes(batch)
+                    checked_shapes = True
+                if self.log_mfu and self._step_flops is None:
+                    pending.append(self._counted_step(batch))
+                else:
+                    pending.append(self._train_step(batch))
+                step = state.step
+                self.loop_position = {"epoch": epoch, "batch_in_epoch": batch_idx + 1}
+                examples_since_log += _batch_size_of(batch)
+                steps_since_log += 1
+
+                if step % self.log_every_n_steps == 0 or step >= max_steps:
+                    host = self._read_back(pending)
+                    now = time.perf_counter()
+                    if now > t_log:
+                        host["examples_per_sec"] = examples_since_log / (now - t_log)
+                        if self._step_flops:
+                            tflops = self._step_flops * steps_since_log / (now - t_log) / 1e12
+                            host["tflops_per_sec"] = tflops
+                            peak = device_peak_tflops(self.device)
+                            if peak:
+                                host["mfu"] = tflops / peak
+                    t_log, examples_since_log, steps_since_log = now, 0, 0
+                    for cb in self.callbacks:
+                        cb.on_train_batch_end(self, host, step)
+                    for lg in self.loggers:
+                        lg.log_metrics({f"train/{k}": v for k, v in host.items()}, step)
+                else:
+                    for cb in self.callbacks:
+                        cb.on_train_batch_end(self, {}, step)
+
+                if self._val_interval and val_loader is not None and step % self._val_interval == 0:
+                    self._run_evaluation(task, val_loader, "validation", step=step)
+                if step >= max_steps:
+                    done = True
+                    # the budget ending at an epoch's end still validates it
+                    epoch_completed = per_epoch is not None and batch_idx + 1 >= per_epoch
+                    break
+                if self.should_stop:
+                    logger.warning("Stop requested at step %d: ending training cleanly", step)
+                    done = True
+                    break
+            if seen == 0:
+                raise ValueError(f"the loader yielded no batch after step {state.step}: a "
+                                 "one-pass iterator runs out after its first pass")
+            if ((not done or epoch_completed) and val_loader is not None
+                    and self.val_check_interval is None
+                    and (epoch + 1) % self.check_val_every_n_epoch == 0):
+                self._run_evaluation(task, val_loader, "validation", step=state.step)
+            if not done:
+                self.loop_position = {"epoch": epoch + 1, "batch_in_epoch": 0}
+            for cb in self.callbacks:
+                cb.on_train_epoch_end(self, epoch)
+            epoch += 1
+            if self.max_epochs is None and self.max_steps is None:
+                done = True
+        if pending:
+            self._read_back(pending)
+        for cb in self.callbacks:
+            cb.on_train_end(self)
+        for lg in self.loggers:
+            lg.finalize()
         return state
 
-    def _step(self, state: TrainState, batch: Mapping[str, Any], params) -> dict[str, Any]:
-        optimizer = state.optimizer
+    def _counted_step(self, batch: Mapping[str, Any]) -> dict[str, Any]:
+        """:meth:`_train_step` under a FLOP counter, once a fit: the FLOPs of
+        one micro-step, the kernels' included."""
+        with FlopCounter() as counter:
+            record = self._train_step(batch)
+        self._step_flops = float(counter.total())
+        logger.info("Train step: %.2f GFLOPs a micro-step", self._step_flops / 1e9)
+        return record
+
+    def _train_step(self, batch: Mapping[str, Any]) -> dict[str, Any]:
+        """One micro-step; returns its records, still on the device."""
+        state = self.state
+        task, optimizer = state.task, state.optimizer
+        k = self.accumulate_grad_batches
+        i = state.step
         lr = optimizer.param_groups[0]["lr"]
         optimizer.zero_grad(set_to_none=True)
-        batch = state.task.prepare_batch(dict(batch), state.step)
-        loss, metrics = state.task.loss_fn(batch)
+        loss, metrics = task.loss_fn(batch)
         loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = torch.nn.utils.get_total_norm(grads)
-        if self.gradient_clip_val:
-            if self.gradient_clip_algorithm == "value":
-                for g in grads:
-                    g.clamp_(-self.gradient_clip_val, self.gradient_clip_val)
+        params = state.params()
+        grads = [p.grad for p in params]
+        grad_norm = torch.nn.utils.get_total_norm([g for g in grads if g is not None])
+        record = {"step": i, "lr": lr, **metrics, "grad_norm": grad_norm}
+        state.step = i + 1
+        if k > 1:
+            m = i % k
+            acc = state.accumulated if m else None
+            if acc is None:
+                state.accumulated = [None if g is None else g.div_(m + 1) if m else g
+                                     for g in grads]
             else:
-                coef = torch.clamp(self.gradient_clip_val / grad_norm, max=1.0)
-                for g in grads:
-                    g.mul_(coef)
-        optimizer.step()
-        state.task.post_update(state.step)
+                # acc + (g - acc) / (m + 1), MultiSteps' running mean, in
+                # three multi-tensor launches; a first gradient (acc None) is
+                # acc 0's
+                both = [j for j, (a, g) in enumerate(zip(acc, grads))
+                        if a is not None and g is not None]
+                deltas = [grads[j] for j in both]
+                torch._foreach_sub_(deltas, [acc[j] for j in both])
+                torch._foreach_div_(deltas, m + 1)
+                torch._foreach_add_([acc[j] for j in both], deltas)
+                for j, g in enumerate(grads):
+                    if g is not None and acc[j] is None:
+                        acc[j] = g.div_(m + 1)
+            for p, acc in zip(params, state.accumulated):
+                p.grad = acc  # the window's mean so far
+            if m < k - 1:
+                return record
+            grads, state.accumulated = state.accumulated, None
+            clip_norm = None
+        else:
+            clip_norm = grad_norm
+        self._clip([g for g in grads if g is not None], clip_norm)
+        optimizer.step()  # the applied gradient stays in .grad until the next step
+        task.post_update(i // k)
         if state.lr_scheduler is not None:
             state.lr_scheduler.step()
-        state.step += 1
-        return {"step": state.step - 1, "lr": lr, **metrics, "grad_norm": grad_norm}
+        return record
 
-    def _read_back(self, pending: list[dict[str, Any]]) -> None:
+    def _clip(self, grads: list[torch.Tensor], norm: Optional[torch.Tensor]) -> None:
+        if not self.gradient_clip_val:
+            return
+        if self.gradient_clip_algorithm == "value":
+            for g in grads:
+                g.clamp_(-self.gradient_clip_val, self.gradient_clip_val)
+            return
+        if norm is None:
+            norm = torch.nn.utils.get_total_norm(grads)
+        coef = torch.clamp(self.gradient_clip_val / norm, max=1.0)
+        for g in grads:
+            g.mul_(coef)
+
+    def _read_back(self, pending: list[dict[str, Any]]) -> dict[str, float]:
+        """Move the pending records to :attr:`history`; the last one's
+        metrics (without ``step``) for the callbacks and loggers."""
         for record in pending:
             self.history.append({k: float(v) for k, v in record.items()})
+        pending.clear()
         last = self.history[-1]
         logger.info("step %d loss %.6f lr %.3e grad_norm %.4f", last["step"],
                     last["loss"], last["lr"], last["grad_norm"])
-        pending.clear()
+        return {k: v for k, v in last.items() if k != "step"}
+
+    # -- validation and test --------------------------------------------------
+    def validate(self, task: TrainingTask, loader: Iterable[Mapping[str, Any]]) -> dict[str, float]:
+        """The validation loop over ``loader`` with the task as it is."""
+        return self._run_evaluation(task, loader, "validation")
+
+    def test(self, task: TrainingTask, loader: Iterable[Mapping[str, Any]]) -> dict[str, float]:
+        """The test loop over ``loader`` with the task as it is."""
+        return self._run_evaluation(task, loader, "test")
+
+    def _run_evaluation(
+        self,
+        task: TrainingTask,
+        loader: Iterable[Mapping[str, Any]],
+        phase: str,
+        step: Optional[int] = None,
+        limit_batches: Optional[int] = None,
+        log: bool = True,
+    ) -> dict[str, float]:
+        """The mean of the task's loss over the loader's batches
+        (``<phase>/loss``) where the task computes it; logged, and passed to
+        the callbacks' ``on_validation_end``."""
+        task.to(self.device)
+        task.prepare_seed = self.seed
+        compute_loss = (task.compute_validation_loss if phase == "validation"
+                        else task.compute_test_loss)
+        name = "limit_test_batches" if phase == "test" else "limit_val_batches"
+        limit = limit_batches if limit_batches is not None else _resolve_limit(
+            self.limit_test_batches if phase == "test" else self.limit_val_batches, loader, name)
+        if limit is not None and limit < 0:
+            limit = None  # -1: the whole loader (num_sanity_val_steps=-1)
+        losses = []
+        for batch_idx, batch in enumerate(loader):
+            if limit is not None and batch_idx >= limit:
+                break  # 0 turns the phase off
+            if not compute_loss:
+                continue
+            batch = task.prepare_batch(dict(batch), batch_idx, training=False)
+            losses.append(task.validation_loss(batch)[0].float())
+        results: dict[str, float] = {}
+        if losses:
+            results[f"{phase}/loss"] = float(np.mean(torch.stack(losses).tolist()))
+        if log and results:
+            at = step if step is not None else (self.state.step if self.state else 0)
+            logger.info("%s results: %s", phase, results)
+            for lg in self.loggers:
+                lg.log_metrics(results, at)
+            for cb in self.callbacks:
+                cb.on_validation_end(self, results, at)
+        return results
