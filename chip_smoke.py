@@ -112,10 +112,32 @@ Phases, each fatal on failure:
    the card, the plain versions counted on the CPU). Prints ms a
    micro-step, pairs/s a global
    batch, checkpoint bytes, save (sync and async) and restore seconds, the
-   counted FLOPs, TFLOP/s and MFU, and phase 5's pairs/s again.
+   counted FLOPs, TFLOP/s and MFU, and phase 5's pairs/s again;
+10. the input-fed path: the flagship trained on host batches of
+    ``Uint8Pairs`` (uint8 NHWC images at 224 px, class by class correlated
+    with token patterns; 16 distinct batches a pass) through
+    ``RandomSampler``, ``DefaultDataCollator`` and the port's ``DataLoader``
+    (8 fetch threads), then the trainer's ``DeviceFeeder`` (pinned staging,
+    a side stream) with the uint8 pixels normalized on the card by
+    ``device_normalize`` (CLIP's statistics). The MB/s of pinned and of
+    pageable copies of one batch; then, with every count set to 0,
+    ``Trainer.fit`` at batch 256 (3 warm-up steps, 3 timed windows of 10,
+    one more step): the launches a step exactly the flagship's, every
+    gradient of the first step finite and nonzero, the loss finite and
+    falling, and the images of 3 batches, copied on the compute stream as
+    the step read them, equal to the host's f32 normalization cast to bf16
+    bit for bit, their example indices the sampler's (and every batch's, on
+    the host side); pairs/s, its ratio to phase 5's, ms a step, the step's
+    wait on the feeder and peak memory. Run U (12 steps, a checkpoint at
+    6) and run R (a fresh task resumed from it): R's records, example
+    indices and weights equal U's bit for bit, and R fetches no example of
+    the 6 skipped batches. Last, for context, 10 steps on the port's
+    ``SyntheticImageText`` (f32 host images, 154 MB a batch): pairs/s and
+    the wait.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth and the ninth.
+checks that K5 never launched there; so do the eighth, the ninth and the
+tenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -310,6 +332,12 @@ TRAINER_MICRO_BATCH, TRAINER_ACCUMULATE, TRAINER_STEPS = 128, 2, 12
 TRAINER_EVERY, TRAINER_STOP_AT, TRAINER_PASS, TRAINER_VAL_BATCHES = 6, 4, 8, 2
 TRAINER_PARITY_MICRO = PARITY_BATCH
 TRAINER_CLIP = 1.0
+
+# the input-fed path (phase 10): the flagship at b256 on uint8 host batches,
+# 16 distinct batches a pass fetched by 8 threads; 3 batches held to the
+# host's normalization; resume at 6 of 12 steps; 10 steps on f32 host data
+INPUT_PASS, INPUT_WORKERS, INPUT_CLASSES, INTEGRITY_STEPS = 16, 8, 64, 3
+INPUT_RESUME_STEPS, INPUT_CONTEXT_STEPS = 12, 10
 
 
 class SmokeError(RuntimeError):
@@ -1557,28 +1585,37 @@ def main_path(device) -> dict:
 
 
 class TimedBatches:
-    """Yields ``batch`` without end; before the batches numbered in
-    ``marks`` it waits for the card and notes the host clock, so the gaps
-    between marks time whole training steps. ``after_first``, where given,
-    is called before the second batch: the first step's gradients are still
-    in place then."""
+    """Yields ``batch`` without end. As a callback of the trainer, after
+    the steps numbered in ``marks`` it waits for the card and notes the
+    host clock, so the gaps between marks time whole training steps (the
+    feeder's producer thread draws batches ahead of the steps, so the clock
+    is read on the trainer's side). ``after_first``, where given, is called
+    after the first step: its gradients are still in place then."""
 
     def __init__(self, batch, marks, after_first=None) -> None:
         self.batch, self.marks, self.times = batch, set(marks), []
         self.after_first = after_first
 
     def __iter__(self):
+        while True:
+            yield self.batch
+
+    def on_train_start(self, trainer) -> None: ...
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
         import torch
 
-        i = 0
-        while True:
-            if i == 1 and self.after_first is not None:
-                self.after_first()
-            if i in self.marks:
-                torch.cuda.synchronize()
-                self.times.append(time.perf_counter())
-            yield self.batch
-            i += 1
+        if step == 1 and self.after_first is not None:
+            self.after_first()
+        if step in self.marks:
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None: ...
+
+    def on_train_end(self, trainer) -> None: ...
 
 
 def _cosine(a, b) -> float:
@@ -1681,7 +1718,7 @@ def fit_flagship(task, device, label: str, want: dict, highres: bool = False,
         first["bad"], first["zero"] = _bad_grads(task.named_parameters())
 
     loader = TimedBatches(batch, marks, note_first_grads if first_step_grads else None)
-    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device)
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, callbacks=[loader], device=device)
     reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
     state = trainer.fit(task, loader)
@@ -1766,7 +1803,7 @@ def ijepa_fit(master, device, packed: bool) -> tuple[dict, list]:
     marks = [WARMUP_STEPS + i * IJEPA_WINDOW_STEPS for i in range(WINDOWS + 1)]
     steps = marks[-1] + 1  # the last mark is taken before the last step
     loader = TimedBatches(batch, marks)
-    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device)
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, callbacks=[loader], device=device)
     teacher_before = [p.detach().clone() for p in task.teacher.parameters()]
     name = "K1f-p/K1b-p" if packed else "K1f/K1b"
     with packed_attention(packed):
@@ -2038,8 +2075,10 @@ class TrainerProbe:
     gradient checked (``first_grads``), and SIGTERM to this process after
     micro-step ``stop_at``."""
 
-    def __init__(self, marks=(), first_grads: bool = False, stop_at=None) -> None:
+    def __init__(self, marks=(), first_grads: bool = False, stop_at=None,
+                 label: str = "trainer path") -> None:
         self.marks, self.first_grads, self.stop_at = set(marks), first_grads, stop_at
+        self.label = label
         self.times: dict = {}
         self.val: dict = {}
 
@@ -2054,7 +2093,7 @@ class TrainerProbe:
             grads = state.accumulated or [p.grad for p in state.params()]
             bad = [n for n, g in zip(state._names(), grads)
                    if g is None or not bool(g.isfinite().all()) or not bool(g.any())]
-            print(f"trainer path: gradients of the first micro-step: {len(grads) - len(bad)} "
+            print(f"{self.label}: gradients of the first micro-step: {len(grads) - len(bad)} "
                   f"of {len(grads)} trained tensors finite and nonzero")
             check(not bad, f"missing, non-finite or zero gradients at the first micro-step: "
                   f"{bad[:10]}")
@@ -2372,6 +2411,337 @@ def trainer_path(device) -> dict:
     return counts
 
 
+class Uint8Pairs:
+    """Phase 10's map-style source: ``BATCH * INPUT_PASS`` image-text
+    pairs from ``seed``, as ``SyntheticImageText`` correlates them: class k
+    of ``INPUT_CLASSES`` shows a uint8 NHWC image pattern k at 224 px,
+    rolled along the width by the index (cheap on the host), and token
+    pattern k ending in the end-of-text id. Fetches have no side effect
+    (``all_map_style``), so a resumed epoch skips them; ``fetched`` lists
+    the indices fetched."""
+
+    all_map_style = True
+
+    def __init__(self, seed: int) -> None:
+        import numpy as np
+
+        from mmlearn_tpu_torch.flagship import IMAGE_SIZE, TEXT_LENGTH, VOCAB_SIZE
+
+        rng = np.random.default_rng(seed)
+        self.size = BATCH * INPUT_PASS
+        self.labels = rng.integers(0, INPUT_CLASSES, self.size)
+        self.patterns = rng.integers(0, 256, (INPUT_CLASSES, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                     dtype=np.uint8)
+        self.tokens = rng.integers(2, VOCAB_SIZE - 1, (INPUT_CLASSES, TEXT_LENGTH)).astype(
+            np.int32)
+        self.tokens[:, -1] = VOCAB_SIZE - 1  # end of text: the largest id, for EOS pooling
+        self.fetched: list = []  # appended from the loader's threads (atomic)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, idx: int):
+        import numpy as np
+
+        from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
+        from mmlearn_tpu_torch.datasets.core import Example
+
+        self.fetched.append(int(idx))
+        k = self.labels[idx]
+        return Example({"rgb": np.roll(self.patterns[k], int(idx) % 16, axis=1),
+                        "text": self.tokens[k], EXAMPLE_INDEX_KEY: int(idx)})
+
+
+class InputProbe(TrainerProbe):
+    """Phase 9's probe, for phase 10: also the consumer's total wait on the
+    feeder at the ``marks``, and the checks of ``integrity`` (step -> the
+    tensors the step read, set by :func:`watch_inputs`) once their step has
+    run, before the clock is read."""
+
+    def __init__(self, marks=(), first_grads: bool = False, integrity=None) -> None:
+        super().__init__(marks, first_grads, label="input path")
+        self.integrity = integrity
+        self.waits: dict = {}
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        if self.integrity is not None and step - 1 in self.integrity["device"]:
+            self.integrity["check"](step - 1)
+        super().on_train_batch_end(trainer, metrics, step)
+        if step in self.marks:
+            self.waits[step] = trainer.feeder_wait_s
+
+
+def watch_inputs(task, trainer, host_steps: int = 0) -> dict:
+    """Wrap ``task``'s hooks: ``prepare_batch`` (the feeder's thread) notes
+    each training batch's example indices, and keeps the host images of the
+    first ``host_steps`` steps; ``loss_fn`` copies, on the compute stream
+    where the step reads them, the images and indices of those steps as the
+    step sees them. Returns ``{"order": [...], "host": {...}, "device":
+    {...}}``."""
+    seen = {"order": [], "host": {}, "device": {}}
+    prepare, loss_fn = task.prepare_batch, task.loss_fn
+
+    def prepare_batch(batch, step, training=True):
+        if training:
+            seen["order"].append(batch["example_index"].tolist())
+            if step < host_steps:
+                seen["host"][step] = batch["rgb"]
+        return prepare(batch, step, training)
+
+    def watched_loss(batch):
+        step = trainer.state.step
+        if step < host_steps:
+            seen["device"][step] = (batch["rgb"].clone(), batch["example_index"].clone())
+        return loss_fn(batch)
+
+    task.prepare_batch, task.loss_fn = prepare_batch, watched_loss
+    return seen
+
+
+def sampler_order(seed: int, size: int, epoch: int) -> list:
+    """The indices ``RandomSampler(seed)`` gives an epoch, batch by batch."""
+    from mmlearn_tpu_torch.datasets.core import RandomSampler
+
+    sampler = RandomSampler(range(size), seed=seed)
+    sampler.set_epoch(epoch)
+    order = list(sampler)
+    return [order[i:i + BATCH] for i in range(0, size - BATCH + 1, BATCH)]
+
+
+def h2d_rates(device) -> None:
+    """MB/s of one b256 uint8 batch to the card from pinned and from
+    pageable host memory, 10 copies each after one warm-up."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.flagship import IMAGE_SIZE
+
+    shape = (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
+    host = np.random.default_rng(SEED + 30).integers(0, 256, shape, dtype=np.uint8)
+    pinned = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(torch.from_numpy(host))
+    check(pinned.is_pinned(), "a pinned host buffer could not be allocated")
+    dev = torch.empty(shape, dtype=torch.uint8, device=device)
+    rates = {}
+    for name, src in (("pinned", pinned), ("pageable", torch.from_numpy(host))):
+        dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        rates[name] = 10 * host.nbytes / (time.perf_counter() - t0) / 1e6
+    check(torch.equal(dev.cpu(), pinned), "the copied batch differs from the host's")
+    print(f"input path: H2D of one b{BATCH} uint8 batch ({host.nbytes:,} B): pinned "
+          f"{rates['pinned']:.1f} MB/s, pageable {rates['pageable']:.1f} MB/s")
+
+
+def input_normalize() -> dict:
+    """The trainer's ``device_normalize`` of phase 10: CLIP's statistics."""
+    from mmlearn_tpu_torch.datasets.processors import CLIP_MEAN, CLIP_STD
+
+    return {"rgb": {"mean": CLIP_MEAN, "std": CLIP_STD}}
+
+
+def input_loader(dataset, workers: int = INPUT_WORKERS):
+    """Phase 10's loader: b256, shuffled by ``RandomSampler(SEED)``, whole
+    batches, ``workers`` fetch threads."""
+    from mmlearn_tpu_torch.datasets.core import DataLoader
+
+    return DataLoader(dataset, batch_size=BATCH, shuffle=True, seed=SEED, drop_last=True,
+                      num_workers=workers)
+
+
+def input_fit(master, device, loader, label: str, integrity: bool = False) -> tuple[dict, float]:
+    """``Trainer.fit`` of a copy of ``master`` at b256 over ``loader`` (its
+    uint8 images normalized on the card), with every count set to 0
+    first: 3 warm-up steps, 3 timed windows of 10, one more step. Checks
+    the launches a step exactly, every gradient of the first step finite
+    and nonzero and the loss finite and falling; with ``integrity``, also
+    the images and example indices of the first ``INTEGRITY_STEPS`` steps
+    as the step read them (the host's f32 normalization in bf16, bit for
+    bit; the sampler's order) and every step's indices on the host side.
+    Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
+    the feeder and peak memory; returns the launch counts and pairs/s."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.datasets.processors import CLIP_MEAN, CLIP_STD, normalize_image
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    marks = [WARMUP_STEPS + i * WINDOW_STEPS for i in range(WINDOWS + 1)]
+    steps = marks[-1] + 1
+    task = copy.deepcopy(master).to(device)
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device,
+                      device_normalize=input_normalize())
+    seen = watch_inputs(task, trainer, host_steps=INTEGRITY_STEPS if integrity else 0)
+    size = len(loader.dataset) if integrity else None
+
+    def check_step(step):
+        torch.cuda.synchronize()
+        images, index = seen["device"].pop(step)
+        x = seen["host"].pop(step)
+        want = torch.from_numpy(normalize_image(x.astype(np.float32) / np.float32(255.0),
+                                                CLIP_MEAN, CLIP_STD)).to(torch.bfloat16)
+        got = images.cpu()
+        differ = int((got != want).sum())
+        print(f"input path: step {step}: the b{BATCH} images the step read equal the host's "
+              f"f32 normalization cast to bf16 at {got.numel() - differ:,} of {got.numel():,} "
+              f"elements (max abs diff {float((got.float() - want.float()).abs().max()):.3e})")
+        check(differ == 0, f"step {step}'s normalized images differ from the host's at "
+              f"{differ} elements")
+        check(index.cpu().tolist() == sampler_order(SEED, size, 0)[step],
+              f"step {step}'s example indices are not the sampler's")
+
+    probe = InputProbe(marks, first_grads=True,
+                       integrity={"device": seen["device"], "check": check_step})
+    trainer.callbacks.append(probe)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    state = trainer.fit(task, loader)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = flagship_launches(task, 0)
+    print(f"input path{label}: {state.step} steps launched " + ", ".join(
+        f"{k} {v} ({v / state.step:g} a step, want {want[k]})" for k, v in counts.items()))
+    check(counts == {k: v * state.step for k, v in want.items()},
+          f"input path launches {counts}, want {want} a step")
+    if integrity:
+        check(not seen["device"], f"steps {sorted(seen['device'])} were not checked")
+        passes = len(loader)
+        orders = [sampler_order(SEED, size, e) for e in range(steps // passes + 1)]
+        want_order = [orders[s // passes][s % passes] for s in range(steps)]
+        print(f"input path: the {steps} batches' example indices in the sampler's order: "
+              f"{seen['order'] == want_order}")
+        check(seen["order"] == want_order, "the batches' example indices are not the sampler's")
+    losses = [h["loss"] for h in trainer.history]
+    tail = statistics.mean(losses[-3:])
+    print(f"input path{label}: loss step 0 {losses[0]:.6f}, mean of the last 3 {tail:.6f} "
+          f"(step {len(losses) - 1} {losses[-1]:.6f})")
+    check(all(math.isfinite(x) for x in losses) and tail < losses[0],
+          f"input path losses {losses[0]} -> {losses[-3:]}")
+    window_s = [probe.times[b] - probe.times[a] for a, b in zip(marks, marks[1:])]
+    waits = [probe.waits[b] - probe.waits[a] for a, b in zip(marks, marks[1:])]
+    rates = [BATCH * WINDOW_STEPS / w for w in window_s]
+    median = statistics.median(rates)
+    print(f"input path{label} train b{BATCH} on uint8 host batches: {median:.1f} pairs/s median "
+          f"of {WINDOWS} windows of {WINDOW_STEPS} steps (windows "
+          f"{', '.join(f'{r:.1f}' for r in rates)}; spread {(max(rates) - min(rates)) / median:.2%}"
+          f"), {statistics.median(window_s) / WINDOW_STEPS * 1e3:.2f} ms a step, "
+          f"{median / FIT_RATES['']:.4f} x phase 5's {FIT_RATES['']:.1f} pairs/s; the step's "
+          f"wait on the feeder {sum(waits) * 1e3:.2f} ms of {sum(window_s) * 1e3:.2f} ms timed "
+          f"({sum(waits) / sum(window_s):.2%}; by window "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in waits)} ms; {trainer.feeder_wait_s:.3f} s over "
+          f"the fit; a pass is {len(loader)} steps); peak memory {peak_gb:.2f} GB")
+    del task, trainer, state, seen
+    torch.cuda.empty_cache()
+    return counts, median
+
+
+def input_path(device) -> dict:
+    """Phase 10, the input-fed path: the flagship trained on host batches
+    (``Uint8Pairs`` through ``RandomSampler``, ``DefaultDataCollator`` and
+    the port's ``DataLoader``, the trainer's ``DeviceFeeder``, uint8 pixels
+    normalized on the card). The H2D rates; ``Trainer.fit`` at b256 with
+    every count set to 0 first (3 warm-up steps, 3 timed windows of 10, one
+    more step): exact launches a step, the first step's gradients, the
+    falling loss, and 3 batches read back as the step read them, equal to
+    the host's normalization cast to bf16 bit for bit, in the sampler's
+    order; a run resumed from step 6 of 12 bit-equal to the uninterrupted
+    one, fetching no example of the skipped batches; then 10 steps on
+    ``SyntheticImageText``'s f32 host batches for context. Returns the
+    fit's launch counts."""
+    import math
+    import shutil
+
+    import torch
+
+    from mmlearn_tpu_torch.datasets.builtin import SyntheticImageText
+    from mmlearn_tpu_torch.flagship import flagship_training_task
+    from mmlearn_tpu_torch.trainer import ModelCheckpoint, Trainer
+
+    h2d_rates(device)
+    t0 = time.perf_counter()
+    master = flagship_training_task("cpu", seed=SEED)
+    print(f"input path: flagship task built on the CPU in {time.perf_counter() - t0:.1f} s")
+    data_seed = SEED + 31
+
+    # the main path: Trainer.fit on uint8 host batches
+    counts, _ = input_fit(master, device, input_loader(Uint8Pairs(data_seed)), "",
+                          integrity=True)
+
+    # resume through the loader: run U, 12 steps with a checkpoint at 6; run
+    # R, a fresh task resumed from it
+    root = os.path.join(WORK_DIR, "input")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    half = INPUT_RESUME_STEPS // 2
+    runs = {}
+    for name in ("U", "R"):
+        task = copy.deepcopy(master).to(device)
+        trainer = Trainer(max_steps=INPUT_RESUME_STEPS, log_every_n_steps=INPUT_RESUME_STEPS,
+                          device=device, device_normalize=input_normalize())
+        if name == "U":
+            trainer.callbacks.append(ModelCheckpoint(os.path.join(root, "u"),
+                                                     every_n_train_steps=half,
+                                                     every_n_epochs=None, save_last=False))
+        else:
+            shutil.copytree(os.path.join(root, "u", str(half)), os.path.join(root, "r", str(half)))
+            shutil.copy(os.path.join(root, "u", f"loop_position-{half}.json"),
+                        os.path.join(root, "r"))
+        seen = watch_inputs(task, trainer)
+        dataset = Uint8Pairs(data_seed)
+        t0 = time.perf_counter()
+        trainer.fit(task, input_loader(dataset),
+                    ckpt_path=None if name == "U" else os.path.join(root, "r"))
+        torch.cuda.synchronize()
+        runs[name] = (trainer, task, seen["order"], dataset.fetched)
+        print(f"input path: run {name}: {len(trainer.history)} steps in "
+              f"{time.perf_counter() - t0:.1f} s, {len(dataset.fetched)} examples fetched")
+    (tu, task_u, order_u, _), (tr, task_r, order_r, fetched_r) = runs["U"], runs["R"]
+    check(tr.restored_step == half, f"run R restored step {tr.restored_step}, want {half}")
+    weights_u = task_u.state_dict()
+    diff = [n for n, v in task_r.state_dict().items() if not torch.equal(v, weights_u[n])]
+    skipped = {i for batch in order_u[:half] for i in batch}
+    fetched_skipped = len(skipped & set(fetched_r))
+    ok = tr.history == tu.history[half:] and order_r == order_u[half:] and not diff
+    print(f"input path: run R (resumed at {half}) bit-equal to run U's steps {half}-"
+          f"{INPUT_RESUME_STEPS - 1} (records, example indices, all {len(weights_u)} weight "
+          f"tensors): {ok}; {len(diff)} tensors differ; {fetched_skipped} of the {len(skipped)} "
+          f"examples of the {half} skipped batches fetched")
+    check(ok, "run R is not bit-equal to run U")
+    check(fetched_skipped == 0, f"run R fetched {fetched_skipped} examples of skipped batches")
+    del runs, tu, tr, task_u, task_r, weights_u
+    torch.cuda.empty_cache()
+
+    # context: f32 host batches of SyntheticImageText through the same path
+    steps = INPUT_CONTEXT_STEPS + 1
+    task = copy.deepcopy(master).to(device)
+    del master
+    probe = InputProbe(marks=(1, steps))
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device, callbacks=[probe])
+    t0 = time.perf_counter()
+    synthetic = SyntheticImageText(size=BATCH * (steps + 2), seed=data_seed)
+    built_s = time.perf_counter() - t0
+    trainer.fit(task, input_loader(synthetic))
+    window = probe.times[steps] - probe.times[1]
+    wait = probe.waits[steps] - probe.waits[1]
+    rate = BATCH * INPUT_CONTEXT_STEPS / window
+    losses = [h["loss"] for h in trainer.history]
+    check(all(math.isfinite(x) for x in losses), f"SyntheticImageText losses {losses}")
+    print(f"input path, context: SyntheticImageText (f32 host images, "
+          f"{BATCH * 224 * 224 * 3 * 4:,} B a batch; dataset built in {built_s:.1f} s): "
+          f"{rate:.1f} pairs/s over {INPUT_CONTEXT_STEPS} steps after one, "
+          f"{window / INPUT_CONTEXT_STEPS * 1e3:.2f} ms a step, {rate / FIT_RATES['']:.4f} x "
+          f"phase 5; the step's wait on the feeder {wait * 1e3:.2f} ms ({wait / window:.2%})")
+    del task, trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2452,10 +2822,17 @@ def main() -> int:
     check(trainer_launches["int8_qmm"] == trainer_launches["int8_qmm_bytes"] == 0,
           f"K5 launched on the trainer path without {QUANT_ENV}")
     print(f"trainer path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    input_launches = input_path(device)
+    check(input_launches["int8_qmm"] == input_launches["int8_qmm_bytes"] == 0,
+          f"K5 launched on the input path without {QUANT_ENV}")
+    print(f"input path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
-    # int8_sb, 448 encode and 448 training, the trainer path's run A
-    for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches):
+    # int8_sb, 448 encode and 448 training, the trainer path's run A, the
+    # input path's fit
+    for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
+                   input_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -1,1 +1,20 @@
-"""Host-side data abstractions the port needs (the modality registry)."""
+"""The port's data layer: core abstractions (examples, collation, samplers,
+the host loader and the device feeder), processors and synthetic datasets."""
+
+from mmlearn_tpu_torch.datasets.core import (
+    CombinedDataset,
+    DataLoader,
+    DefaultDataCollator,
+    DeviceFeeder,
+    Example,
+    Modalities,
+)
+
+__all__ = [
+    "CombinedDataset",
+    "DataLoader",
+    "DefaultDataCollator",
+    "DeviceFeeder",
+    "Example",
+    "Modalities",
+]

@@ -19,14 +19,28 @@ built for ``max_steps`` micro-steps, advances once per optimizer step, and
 
 The fit loop (``fit`` :634, ``_fit_loop`` :833) covers ``max_epochs`` and
 ``max_steps``, ``limit_{train,val,test}_batches`` (an int, a fraction or 0),
-``val_check_interval``, ``check_val_every_n_epoch`` and the final epoch's
-validation, ``num_sanity_val_steps``, ``fast_dev_run``, ``detect_anomaly``,
-callbacks and loggers, ``should_stop`` and a clean stop on SIGTERM or
-SIGUSR1 (on the main thread), the loop position with ``set_epoch`` where
-the loader has it, and resume from a checkpoint (``ckpt_path``), the loader
-fast-forwarded to the saved epoch and batch. Validation computes the task's
-loss (:meth:`~mmlearn_tpu_torch.tasks.base.TrainingTask.validation_loss`);
-the evaluation hooks wait (ROADMAP P8).
+``overfit_batches`` (Lightning's: a fixed leading subset, shuffling turned
+off, validated on itself; ``_apply_overfit`` :587), ``val_check_interval``,
+``check_val_every_n_epoch`` and the final epoch's validation,
+``num_sanity_val_steps``, ``fast_dev_run``, ``detect_anomaly``, callbacks
+and loggers, ``should_stop`` and a clean stop on SIGTERM or SIGUSR1 (on the
+main thread), the loop position with ``set_epoch`` where the loader has it,
+and resume from a checkpoint (``ckpt_path``), the loader fast-forwarded to
+the saved epoch and batch: through ``iter_from_batch`` where the loader has
+it (the skipped batches' indices are drawn, their examples never fetched),
+else by fetching and discarding. Validation computes the task's loss
+(:meth:`~mmlearn_tpu_torch.tasks.base.TrainingTask.validation_loss`); the
+evaluation hooks wait (ROADMAP P8).
+
+Every training batch reaches the step through a
+:class:`~mmlearn_tpu_torch.datasets.core.loader.DeviceFeeder`
+(``_epoch_feeder`` :781): its producer thread does the limit and skip
+accounting and ``task.prepare_batch(batch, step)`` with its own step
+counter, stops at ``max_steps``, and places the batch on the card (pinned
+staging, a side stream, ``prefetch_batches`` batches ahead, a dead producer
+a ``TimeoutError`` after ``prefetch_timeout_s``), where ``device_normalize``
+turns configured uint8 images into normalized floats and floating inputs
+are cast to the task's compute dtype (:meth:`Trainer._device_inputs`).
 
 Each step's records (``loss``, ``lr``: the rate of the optimizer update this
 micro-batch goes into, ``logit_scale`` where the task reports one,
@@ -39,8 +53,7 @@ the task, and ``seed`` seeds only the task's host-side ``prepare_batch``
 
 The JAX trainer's XLA-only options (``compilation_cache_dir``,
 ``donate_state``, the profiler trace, ``precision``'s attention switch) have
-no counterpart; its device feeder, ``overfit_batches`` and ``mesh_shape``
-wait for the data layer and parallelism (ROADMAP P13, P10).
+no counterpart; ``mesh_shape`` waits for parallelism (ROADMAP P10).
 """
 
 from __future__ import annotations
@@ -54,8 +67,10 @@ from typing import Any, Iterable, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.datasets.core.loader import DeviceFeeder
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
-from mmlearn_tpu_torch.tasks.base import TrainingTask
+from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
+from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
 from mmlearn_tpu_torch.trainer.flops import FlopCounter, device_peak_tflops
 from mmlearn_tpu_torch.trainer.state import TrainState
 
@@ -130,6 +145,26 @@ def _batch_size_of(batch: Mapping[str, Any]) -> int:
     return fallback
 
 
+def compute_dtype(task: torch.nn.Module) -> torch.dtype:
+    """The dtype a task's encoders compute in, read from the ``dtype``
+    attribute of its modules (the towers and their layers set it): bf16
+    where any computes in bf16 (the flagship), f32 otherwise. It stands in
+    for the JAX trainer's ``precision`` (:413-417)."""
+    dtypes = {m.dtype for m in task.modules() if isinstance(getattr(m, "dtype", None), torch.dtype)}
+    return torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    """A batch's arrays as tensors on ``device``, copied synchronously (the
+    validation and test loops)."""
+    if isinstance(tree, Mapping):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) or (isinstance(tree, np.ndarray)
+                                          and tree.dtype.kind in "biufc"):
+        return as_tensor(tree, device)
+    return tree
+
+
 class Trainer:
     """The fit loop, validation and test (see the module docstring)."""
 
@@ -140,6 +175,7 @@ class Trainer:
         limit_train_batches: Optional[Union[int, float]] = None,
         limit_val_batches: Optional[Union[int, float]] = None,
         limit_test_batches: Optional[Union[int, float]] = None,
+        overfit_batches: Union[int, float] = 0.0,
         check_val_every_n_epoch: int = 1,
         val_check_interval: Optional[Union[int, float]] = None,
         log_every_n_steps: int = 50,
@@ -151,6 +187,9 @@ class Trainer:
         default_root_dir: str = "outputs",
         seed: int = 0,
         num_sanity_val_steps: int = 0,
+        prefetch_batches: int = 2,
+        prefetch_timeout_s: float = 300.0,
+        device_normalize: Optional[Mapping[str, Mapping[str, Any]]] = None,
         fast_dev_run: Any = False,
         detect_anomaly: bool = False,
         log_mfu: bool = False,
@@ -167,11 +206,15 @@ class Trainer:
                              f"{gradient_clip_algorithm!r}")
         if int(accumulate_grad_batches) < 1:
             raise ValueError(f"accumulate_grad_batches must be >= 1, got {accumulate_grad_batches}")
+        if isinstance(overfit_batches, int) and overfit_batches < 0:
+            raise ValueError(f"overfit_batches={overfit_batches!r} must be >= 0 (0 disables; an "
+                             "int is a batch count, a float a fraction)")
         self.max_epochs = max_epochs
         self.max_steps = None if max_steps is None else int(max_steps)
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
+        self.overfit_batches = overfit_batches
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.val_check_interval = val_check_interval
         self.log_every_n_steps = max(1, int(log_every_n_steps))
@@ -183,6 +226,17 @@ class Trainer:
         self.default_root_dir = default_root_dir
         self.seed = int(seed)
         self.num_sanity_val_steps = num_sanity_val_steps
+        #: the feeder's queue depth: placed batches held ahead of the step
+        self.prefetch_batches = max(1, int(prefetch_batches))
+        #: the wait for one batch before the producer is declared dead
+        self.prefetch_timeout_s = float(prefetch_timeout_s)
+        #: ``{key: {"mean": ..., "std": ...}}``: uint8 images under these
+        #: keys are normalized on the card
+        self.device_normalize = dict(device_normalize or {})
+        self._norm_stats: dict[tuple, tuple[torch.Tensor, ...]] = {}
+        self._active_feeder: Optional[DeviceFeeder] = None
+        #: the consumer's total wait on the feeders' queues in the last fit, s
+        self._feeder_wait_s = 0.0
         self.detect_anomaly = detect_anomaly
         #: log achieved TFLOP/s (and MFU against the card's peak) from a
         #: count of the first step (:class:`~mmlearn_tpu_torch.trainer.flops.FlopCounter`)
@@ -284,6 +338,119 @@ class Trainer:
         else:
             raise FileNotFoundError(f"No checkpoint found under '{ckpt_path}'")
 
+    def _apply_overfit(self, train_loader: Any, val_loader: Any) -> Any:
+        """Lightning's ``overfit_batches``: train on a fixed leading subset
+        (an int is a batch count, a float a fraction of the epoch) with
+        shuffling turned off, and validate on the same batches (the
+        training loader replaces the validation loader). Returns the
+        validation loader."""
+        if not self.overfit_batches:
+            return val_loader
+        n = _resolve_limit(self.overfit_batches, train_loader, "overfit_batches")
+        if self.limit_train_batches not in (None, n) or (
+                val_loader is not None and self.limit_val_batches not in (None, n)):
+            logger.warning("overfit_batches=%r overrides limit_train_batches/limit_val_batches",
+                           self.overfit_batches)
+        self.limit_train_batches = n
+        # every epoch replays the same leading batches
+        sampler = getattr(train_loader, "sampler", None)
+        if isinstance(sampler, RandomSampler):
+            train_loader.sampler = SequentialSampler(train_loader.dataset)
+            logger.warning("overfit_batches: train-loader shuffling disabled so each epoch "
+                           "replays the same batches")
+        elif getattr(sampler, "shuffle", False):
+            sampler.shuffle = False
+            logger.warning("overfit_batches: sampler shuffle=False so each epoch replays the "
+                           "same batches")
+        if val_loader is not None:
+            val_loader = train_loader
+            self.limit_val_batches = n
+        return val_loader
+
+    def _device_inputs(self, batch: Mapping[str, Any], dtype: torch.dtype) -> dict[str, Any]:
+        """A placed batch as the step takes it (the JAX trainer's
+        ``_device_normalize`` :403 and ``_cast_inputs`` :437, on the card):
+        a uint8 tensor of rank 3 or more under a ``device_normalize`` key
+        becomes ``(x / 255 - mean) / std`` in ``dtype`` (f32 arithmetic, each
+        operation rounded as numpy rounds it on the host); an unconfigured
+        uint8 image raises; other uint8 tensors pass; floating tensors, also
+        in nested mappings, are cast to ``dtype``."""
+        out = {}
+        for key, val in batch.items():
+            if isinstance(val, Mapping):
+                out[key] = self._device_inputs(val, dtype)
+            elif not isinstance(val, torch.Tensor):
+                out[key] = val
+            elif val.dtype == torch.uint8 and val.ndim >= 3:
+                out[key] = self._normalized(key, val, dtype)
+            elif val.is_floating_point():
+                out[key] = val.to(dtype)
+            else:
+                out[key] = val
+        return out
+
+    def _normalized(self, key: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        stats = self.device_normalize.get(key)
+        if stats is None:
+            raise ValueError(
+                f"batch['{key}'] is uint8 but no normalization stats are configured -- set "
+                f"trainer.device_normalize.{key}.{{mean,std}} (or use a host-side float "
+                "transform)")
+        if (key, x.device) not in self._norm_stats:
+            # device tensors, not python scalars: a CUDA division by a
+            # python scalar multiplies by its reciprocal instead
+            self._norm_stats[(key, x.device)] = tuple(
+                torch.as_tensor(v, dtype=torch.float32, device=x.device)
+                for v in (255.0, stats["mean"], stats["std"]))
+        scale, mean, std = self._norm_stats[(key, x.device)]
+        return ((x.float() / scale - mean) / std).to(dtype)
+
+    @property
+    def feeder_wait_s(self) -> float:
+        """The consumer's total wait on the feeders' queues since the last
+        :meth:`fit` began, the open feeder's included, in seconds."""
+        feeder = self._active_feeder
+        return self._feeder_wait_s + (feeder.wait_s if feeder is not None else 0.0)
+
+    def _epoch_feeder(self, task, epoch_iter, epoch_base: int, skip: int, step0: int,
+                      max_steps: int, seen: list) -> DeviceFeeder:
+        """One epoch's batches through a :class:`DeviceFeeder`, which yields
+        ``(batch_idx, host_batch, device_batch)``. Its producer thread does
+        the limit and skip accounting, ``task.prepare_batch`` with its own
+        step counter and the placement; it stops at ``max_steps``.
+        ``seen[0]`` counts the batches the loader yielded."""
+        dtype = compute_dtype(task)
+
+        def source():
+            s = step0
+            skips = skip
+            for batch_idx, raw in enumerate(epoch_iter, start=epoch_base):
+                seen[0] += 1
+                if self._limit_train is not None and batch_idx >= self._limit_train:
+                    return
+                if skips > 0:  # consumed before the checkpoint
+                    skips -= 1
+                    continue
+                yield batch_idx, task.prepare_batch(dict(raw), s)
+                s += 1
+                if s >= max_steps:  # no step would take a further batch
+                    return
+
+        def device_put(item, place):
+            batch_idx, batch = item
+            return batch_idx, batch, self._device_inputs(place(batch), dtype)
+
+        feeder = DeviceFeeder(source(), self.device, prefetch=self.prefetch_batches,
+                              timeout_s=self.prefetch_timeout_s, device_put=device_put)
+        self._active_feeder = feeder
+        return feeder
+
+    def _close_feeder(self) -> None:
+        feeder, self._active_feeder = self._active_feeder, None
+        if feeder is not None:
+            feeder.close()
+            self._feeder_wait_s += feeder.wait_s
+
     # -- fit --------------------------------------------------------------------
     def fit(
         self,
@@ -297,6 +464,7 @@ class Trainer:
         ``train_loader`` (any re-iterable of batch dicts; ``set_epoch(e)``
         is called where it exists), validating on ``val_loader``; resume
         from ``ckpt_path`` (``"last"`` or a checkpoint directory)."""
+        val_loader = self._apply_overfit(train_loader, val_loader)
         max_steps = self._resolve_max_steps(train_loader)
         self._limit_train = _resolve_limit(self.limit_train_batches, train_loader,
                                            "limit_train_batches")
@@ -329,6 +497,7 @@ class Trainer:
             with anomaly:
                 return self._fit_loop(task, train_loader, val_loader, max_steps)
         finally:
+            self._close_feeder()  # abnormal exits release the producer too
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
 
@@ -357,6 +526,7 @@ class Trainer:
         done = state.step >= max_steps or self._limit_train == 0
         per_epoch = self._batches_per_epoch(train_loader)
         self.history = []
+        self._feeder_wait_s = 0.0
         pending: list[dict[str, Any]] = []
         t_log = time.perf_counter()
         examples_since_log = steps_since_log = 0
@@ -365,19 +535,24 @@ class Trainer:
             if self.max_epochs is not None and epoch >= self.max_epochs:
                 break
             if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
+                # overfit_batches pins the epoch: epoch-seeded samplers replay
+                # the same leading batches
+                train_loader.set_epoch(0 if self.overfit_batches else epoch)
+            epoch_iter, epoch_base = train_loader, 0
+            if skip > 0 and hasattr(train_loader, "iter_from_batch"):
+                # the skipped batches' indices are drawn, their examples
+                # never fetched (a map-style dataset; streams fetch and drop)
+                fast = train_loader.iter_from_batch(skip)
+                if fast is not None:
+                    epoch_iter, epoch_base, skip = fast, skip, 0
             epoch_completed = False
-            seen = 0
-            for batch_idx, raw in enumerate(train_loader):
-                seen += 1
-                if self._limit_train is not None and batch_idx >= self._limit_train:
-                    break
-                if skip > 0:  # consumed before the checkpoint
-                    skip -= 1
-                    continue
-                batch = task.prepare_batch(dict(raw), state.step)
+            seen = [0]
+            feeder = self._epoch_feeder(task, epoch_iter, epoch_base, skip, state.step,
+                                        max_steps, seen)
+            skip = 0  # consumed by the feeder's source
+            for batch_idx, host_batch, batch in feeder:
                 if not checked_shapes:
-                    validate_batch_shapes(batch)
+                    validate_batch_shapes(host_batch)
                     checked_shapes = True
                 if self.log_mfu and self._step_flops is None:
                     pending.append(self._counted_step(batch))
@@ -385,8 +560,9 @@ class Trainer:
                     pending.append(self._train_step(batch))
                 step = state.step
                 self.loop_position = {"epoch": epoch, "batch_in_epoch": batch_idx + 1}
-                examples_since_log += _batch_size_of(batch)
+                examples_since_log += _batch_size_of(host_batch)
                 steps_since_log += 1
+                del host_batch, batch
 
                 if step % self.log_every_n_steps == 0 or step >= max_steps:
                     host = self._read_back(pending)
@@ -419,7 +595,8 @@ class Trainer:
                     logger.warning("Stop requested at step %d: ending training cleanly", step)
                     done = True
                     break
-            if seen == 0:
+            self._close_feeder()
+            if seen[0] == 0:
                 raise ValueError(f"the loader yielded no batch after step {state.step}: a "
                                  "one-pass iterator runs out after its first pass")
             if ((not done or epoch_completed) and val_loader is not None
@@ -560,6 +737,7 @@ class Trainer:
             if not compute_loss:
                 continue
             batch = task.prepare_batch(dict(batch), batch_idx, training=False)
+            batch = self._device_inputs(_to_device(batch, self.device), compute_dtype(task))
             losses.append(task.validation_loss(batch)[0].float())
         results: dict[str, float] = {}
         if losses:
