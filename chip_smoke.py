@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and evaluation paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -39,7 +39,8 @@ Phases, each fatal on failure:
    ``encode`` at batch 256;
 4. the serving path, with every launch count set to 0 first: write an rgb
    and a text artifact with ``save_encoder``, embed 8,192 synthetic images
-   into ``.npz`` shards plus a manifest, start two ``serve()`` servers on
+   into ``.npz`` shards plus a manifest through the port's
+   ``EmbeddingExport``, start two ``serve()`` servers on
    127.0.0.1 (image->image and text->image search over the same index), and
    send ``/healthz``, ``/embed`` and ``/search`` to each; then check the
    results: finite, unit-norm embeddings; every queried indexed image found
@@ -133,11 +134,38 @@ Phases, each fatal on failure:
     indices and weights equal U's bit for bit, and R fetches no example of
     the 6 skipped batches. Last, for context, 10 steps on the port's
     ``SyntheticImageText`` (f32 host images, 154 MB a batch): pairs/s and
-    the wait.
+    the wait. The main fit's state is saved at its end for phase 11;
+11. the eval path: the flagship's eval-only job at b256 over held-out
+    pairs of phase 10's classes (``EvalPairs``: 2,048 of all 64 classes with
+    two prompt templates, 200 of a 2-class subset, the binary path; the
+    last batch padded), uint8 images normalized on the card. Check 1, with
+    every count set to 0: one eval batch's image tower launches K1f
+    ``depth`` times unmasked, its text tower ``depth`` times causal, a
+    chunk of the ragged class prompts ``depth`` times masked and causal;
+    K2f ``2 * depth`` a tower; nothing else. Then ``Trainer.validate`` of
+    the weights phase 10's fit left, with zero-shot retrieval (rgb->text at
+    1, 5, 10; text->rgb at 5), zero-shot classification (top-1, top-5) and
+    two exports (normalized and raw): launches exactly ``depth`` K1f and
+    ``2 * depth`` K2f a tower forward, K1f's cases counted; eval pairs/s,
+    export MB/s and peak memory. Check 2: each recall and accuracy equal to
+    its f64 recomputation from the raw export, ties to the lower row. Check
+    5: ``EmbeddingIndex`` over the normalized export serves each row as its
+    own rank-1 neighbour (or an earlier row of the same bits). The fresh
+    weights' accuracy beside the trained and chance; then the eval-only
+    route: ``prepare_eval_state`` from phase 10's checkpoint and
+    ``Trainer.test``, its metrics equal validate's bit for bit. Check 3: the
+    same hooks over 64 pairs (two batches of 32) on the card and on an f32
+    CPU copy with the plain versions: per-row cosines of the exported and
+    the class embeddings >= ``MIN_COSINE``, the loss within ``LOSS_RTOL``,
+    each recall and accuracy within ``EVAL_ROWS`` rows, the other metrics
+    within ``EVAL_OTHER_ATOL``. Check 4: the blockwise top-k at 8,192 x
+    262,144 (integer-valued f32, so every product is exact) equal to the
+    full-axis top-k in query chunks and, on 256 queries, to a stable
+    descending sort (the lower row first among equal scores); the recall
+    pass's times at 2,048^2 and 8,192 x 262,144.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth, the ninth and the
-tenth.
+checks that K5 never launched there; so do the eighth to the eleventh.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -159,8 +187,8 @@ checked, run twice on the same input for equal bits, and timed.
 
 The lines before the last give the card's name and power limit (from
 ``nvidia-smi``), the kernels' errors, times and bounds, ``encode``
-throughput, ``/search`` latency, training pairs/s, and one JSON line of
-per-kernel results. The last line is ``{"ok": true, "device": {...}}``.
+throughput, ``/search`` latency, training pairs/s, eval pairs/s, and one
+JSON line of per-kernel results. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card the script exits non-zero and prints no result.
 """
 
@@ -170,6 +198,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import gc
 import json
 import os
 import signal
@@ -338,6 +367,31 @@ TRAINER_CLIP = 1.0
 # host's normalization; resume at 6 of 12 steps; 10 steps on f32 host data
 INPUT_PASS, INPUT_WORKERS, INPUT_CLASSES, INTEGRITY_STEPS = 16, 8, 64, 3
 INPUT_RESUME_STEPS, INPUT_CONTEXT_STEPS = 12, 10
+INPUT_STEPS = WARMUP_STEPS + WINDOWS * WINDOW_STEPS + 1  # the main fit's
+
+# the eval path (phase 11): 2,048 held-out pairs of phase 10's 64 classes
+# and 200 of a 2-class subset (the binary path; the last batch padded),
+# labels and rolls from EVAL_SEED; exports in shards of 1,024 rows; the card
+# against an f32 CPU copy on 48 + 16 pairs in two batches of 32; the
+# blockwise top-k at 8,192 x 262,144 (8 GiB of f32 similarities, past the
+# 4 GiB budget)
+EVAL_PAIRS, EVAL_BINARY_PAIRS, EVAL_BINARY_CLASSES = 2048, 200, (5, 40)
+EVAL_SEED, EVAL_SHARD_ROWS, EVAL_RGB_KS = SEED + 41, 1024, [1, 5, 10]
+EVAL_CPU_PAIRS, EVAL_CPU_BINARY, EVAL_CPU_BATCH = 64, 16, 32
+BLOCKWISE_QUERIES, BLOCKWISE_TARGETS, TIE_RULE_QUERIES = 8192, 262144, 256
+# the eval metrics, card (bf16, kernels) against the CPU copy (f32, plain
+# versions) on those 64 pairs. Each recall and accuracy counts rows (64 for
+# retrieval, 48 and 16 for the two sets), so it is held in rows decided the
+# other way: a sound run reads 1 (R@5 over the 64, or top-5 over the 48);
+# the limit is 2. The other metrics (macro precision, recall, F1, AUROC) are
+# held to an absolute limit about 2x a sound run's reading (AUROC over the
+# 48, 1.98e-3; PERF.md section 2)
+EVAL_ROWS, EVAL_OTHER_ATOL = 2, 4e-3
+# check 3 on the fresh flagship, the rows with the CPU rows' mean taken out:
+# least cosine 0.998045 (rgb), 0.999851 (text) on one H100 at 700 W; K1f's
+# image-side scale x 1.25 reads 0.968185, its output x 1.03 on half the
+# batch 0.973257 (PERF.md section 6). 1 - cos at 2x the sound rgb reading.
+EVAL_CENTERED_COS = 0.996
 
 
 class SmokeError(RuntimeError):
@@ -1379,32 +1433,23 @@ def _start(server) -> threading.Thread:
 
 def write_index(task, device, index_dir: str):
     """Embed N_IMAGES synthetic images (standard-normal pixels drawn on the
-    card from SEED) in batches of BATCH into ``.npz`` shards plus a
-    manifest, laid out as the JAX package's ``EmbeddingExport`` writes
-    them. Returns the images' generator so queries can redraw them."""
-    import numpy as np
+    card from SEED) in batches of BATCH into ``.npz`` shards of SHARD_ROWS
+    rows plus a manifest, through the port's ``EmbeddingExport`` (driven as
+    the trainer's evaluation loop drives it; example ids in drawing
+    order)."""
     import torch
 
-    os.makedirs(index_dir, exist_ok=True)
+    from mmlearn_tpu_torch.tasks import EmbeddingExport, EvalRuntime
+
+    export = EmbeddingExport(index_dir, modalities=["rgb"], shard_size=SHARD_ROWS)
+    runtime = EvalRuntime(task, device)
+    export.on_evaluation_epoch_start(runtime)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    shards, buf, done = [], [], 0
-    with torch.inference_mode():
-        while done < N_IMAGES:
-            imgs = torch.randn(BATCH, 224, 224, 3, generator=gen, device=device)
-            buf.append(task.encode({"rgb": imgs}, "rgb", normalize=True).float().cpu())
-            done += BATCH
-            if sum(len(b) for b in buf) >= SHARD_ROWS or done >= N_IMAGES:
-                emb = torch.cat(buf).numpy()
-                start = done - len(emb)
-                name = f"rgb_{len(shards):05d}.npz"
-                np.savez(os.path.join(index_dir, name), embeddings=emb,
-                         example_index=np.arange(start, done),
-                         dataset_index=np.zeros(len(emb), np.int64))
-                shards.append(name)
-                buf = []
-    with open(os.path.join(index_dir, "manifest.json"), "w") as f:
-        json.dump({"rgb": {"shards": shards, "rows": done, "dim": 512,
-                           "normalized": True}}, f, indent=2)
+    for batch_idx in range(N_IMAGES // BATCH):
+        imgs = torch.randn(BATCH, 224, 224, 3, generator=gen, device=device)
+        export.evaluation_step(runtime, {"rgb": imgs}, batch_idx)
+    rows = export.on_evaluation_epoch_end(runtime)["export/rgb_rows"]
+    check(rows == N_IMAGES, f"the index export wrote {rows} rows, want {N_IMAGES}")
 
 
 def indexed_images(device, ids):
@@ -2552,7 +2597,8 @@ def input_loader(dataset, workers: int = INPUT_WORKERS):
                       num_workers=workers)
 
 
-def input_fit(master, device, loader, label: str, integrity: bool = False) -> tuple[dict, float]:
+def input_fit(master, device, loader, label: str, integrity: bool = False,
+              ckpt_dir=None) -> tuple[dict, float, object]:
     """``Trainer.fit`` of a copy of ``master`` at b256 over ``loader`` (its
     uint8 images normalized on the card), with every count set to 0
     first: 3 warm-up steps, 3 timed windows of 10, one more step. Checks
@@ -2562,7 +2608,9 @@ def input_fit(master, device, loader, label: str, integrity: bool = False) -> tu
     as the step read them (the host's f32 normalization in bf16, bit for
     bit; the sampler's order) and every step's indices on the host side.
     Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
-    the feeder and peak memory; returns the launch counts and pairs/s."""
+    the feeder and peak memory; returns the launch counts, pairs/s and, with
+    ``ckpt_dir``, the trained task, whose state a ``ModelCheckpoint`` there
+    writes once the fit ends (after the timed windows), else None."""
     import math
 
     import numpy as np
@@ -2598,6 +2646,10 @@ def input_fit(master, device, loader, label: str, integrity: bool = False) -> tu
     probe = InputProbe(marks, first_grads=True,
                        integrity={"device": seen["device"], "check": check_step})
     trainer.callbacks.append(probe)
+    if ckpt_dir is not None:
+        from mmlearn_tpu_torch.trainer import ModelCheckpoint
+
+        trainer.callbacks.append(ModelCheckpoint(ckpt_dir, every_n_epochs=None, save_last=True))
     reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
     state = trainer.fit(task, loader)
@@ -2636,9 +2688,12 @@ def input_fit(master, device, loader, label: str, integrity: bool = False) -> tu
           f"({sum(waits) / sum(window_s):.2%}; by window "
           f"{', '.join(f'{w * 1e3:.2f}' for w in waits)} ms; {trainer.feeder_wait_s:.3f} s over "
           f"the fit; a pass is {len(loader)} steps); peak memory {peak_gb:.2f} GB")
+    del task.prepare_batch, task.loss_fn  # watch_inputs' wrappers off
+    task.zero_grad(set_to_none=True)
+    kept = task if ckpt_dir is not None else None
     del task, trainer, state, seen
     torch.cuda.empty_cache()
-    return counts, median
+    return counts, median, kept
 
 
 def input_path(device) -> dict:
@@ -2653,7 +2708,8 @@ def input_path(device) -> dict:
     order; a run resumed from step 6 of 12 bit-equal to the uninterrupted
     one, fetching no example of the skipped batches; then 10 steps on
     ``SyntheticImageText``'s f32 host batches for context. Returns the
-    fit's launch counts."""
+    fit's launch counts, its trained task (for phase 11) and the directory
+    of the checkpoint written at its end."""
     import math
     import shutil
 
@@ -2669,9 +2725,12 @@ def input_path(device) -> dict:
     print(f"input path: flagship task built on the CPU in {time.perf_counter() - t0:.1f} s")
     data_seed = SEED + 31
 
-    # the main path: Trainer.fit on uint8 host batches
-    counts, _ = input_fit(master, device, input_loader(Uint8Pairs(data_seed)), "",
-                          integrity=True)
+    # the main path: Trainer.fit on uint8 host batches, its state saved at
+    # the end for phase 11's eval-only job
+    trained_dir = os.path.join(WORK_DIR, "input_trained")
+    shutil.rmtree(trained_dir, ignore_errors=True)
+    counts, _, trained = input_fit(master, device, input_loader(Uint8Pairs(data_seed)), "",
+                                   integrity=True, ckpt_dir=trained_dir)
 
     # resume through the loader: run U, 12 steps with a checkpoint at 6; run
     # R, a fresh task resumed from it
@@ -2739,6 +2798,610 @@ def input_path(device) -> dict:
           f"phase 5; the step's wait on the feeder {wait * 1e3:.2f} ms ({wait / window:.2%})")
     del task, trainer
     torch.cuda.empty_cache()
+    return counts, trained, trained_dir
+
+
+# ------------------------------------------------------------ the eval path
+
+
+class EvalPairs:
+    """Phase 11's held-out pairs: ``size`` pairs of the classes ``classes``
+    of phase 10's ``source`` (its image and token patterns, so the classes
+    are the ones trained on), labels drawn from ``seed`` and each image
+    rolled along the width by an offset drawn from ``seed``, distinct within
+    a class (no two images alike). ``rgb_target`` is the label's position in
+    ``classes``; ``id2label`` and the prompt templates are the zero-shot
+    classifier's."""
+
+    all_map_style = True
+
+    def __init__(self, source, classes, size: int, seed: int, templates) -> None:
+        import numpy as np
+
+        from mmlearn_tpu_torch.flagship import IMAGE_SIZE
+
+        rng = np.random.default_rng(seed)
+        self.patterns, self.tokens, self.classes = source.patterns, source.tokens, list(classes)
+        self.labels = rng.integers(0, len(self.classes), size)
+        self.rolls = np.zeros(size, np.int64)
+        for c in range(len(self.classes)):
+            rows = np.flatnonzero(self.labels == c)
+            self.rolls[rows] = rng.permutation(IMAGE_SIZE)[:len(rows)]
+        self.id2label = {i: f"class {k}" for i, k in enumerate(self.classes)}
+        self.zero_shot_prompt_templates = list(templates)
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def __getitem__(self, idx: int):
+        import numpy as np
+
+        from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
+        from mmlearn_tpu_torch.datasets.core import Example
+
+        c = int(self.labels[idx])
+        k = self.classes[c]
+        return Example({"rgb": np.roll(self.patterns[k], int(self.rolls[idx]), axis=1),
+                        "rgb_target": c, "text": self.tokens[k], EXAMPLE_INDEX_KEY: int(idx)})
+
+
+class Head:
+    """The first ``n`` examples of an eval set, with its labels and
+    templates (phase 11's card-against-CPU subset)."""
+
+    all_map_style = True
+
+    def __init__(self, dataset, n: int) -> None:
+        self.dataset, self.n = dataset, n
+        self.id2label = dataset.id2label
+        self.zero_shot_prompt_templates = dataset.zero_shot_prompt_templates
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, idx: int):
+        return self.dataset[idx]
+
+
+class PromptTokenizer:
+    """Class prompts to token ids, ragged: ``'<words> class <k>.'`` takes
+    class k's token pattern of phase 10 cut to ``77 - 8 * words - k % 8``
+    tokens, the end-of-text id last, right-padded with 0, and the matching
+    ``int32`` attention mask."""
+
+    def __init__(self, tokens) -> None:
+        self.tokens = tokens
+
+    def __call__(self, prompts):
+        import numpy as np
+
+        from mmlearn_tpu_torch.flagship import TEXT_LENGTH, VOCAB_SIZE
+
+        ids = np.zeros((len(prompts), TEXT_LENGTH), np.int32)
+        mask = np.zeros((len(prompts), TEXT_LENGTH), np.int32)
+        for i, prompt in enumerate(prompts):
+            words, k = prompt.split("class ")
+            k = int(k.rstrip("."))
+            length = TEXT_LENGTH - 8 * len(words.split()) - k % 8
+            ids[i, :length] = self.tokens[k][:length]
+            ids[i, length - 1] = VOCAB_SIZE - 1
+            mask[i, :length] = 1
+        return {"text": ids, "text_attention_mask": mask}
+
+
+def eval_sets(source) -> list:
+    """Phase 11's two eval sets: all ``INPUT_CLASSES`` classes with two
+    prompt templates, and a 2-class subset (the binary path)."""
+    return [EvalPairs(source, range(INPUT_CLASSES), EVAL_PAIRS, EVAL_SEED,
+                      ["{}.", "a photo of {}."]),
+            EvalPairs(source, EVAL_BINARY_CLASSES, EVAL_BINARY_PAIRS, EVAL_SEED + 1,
+                      ["a close-up of {}."])]
+
+
+def eval_loader(datasets, batch: int = BATCH):
+    """Phase 11's loader: the sets in one ``CombinedDataset``, in order,
+    the last batch padded (``batch_validity``)."""
+    from mmlearn_tpu_torch.datasets.core import CombinedDataset, DataLoader
+
+    return DataLoader(CombinedDataset(datasets), batch_size=batch, pad_partial_batches=True,
+                      num_workers=INPUT_WORKERS)
+
+
+def eval_hooks(tokens, out_dir: str, exports: bool = True) -> dict:
+    """The eval job's hooks: retrieval rgb->text at 1, 5, 10 and text->rgb
+    at 5, classification top-1 and top-5 (ragged prompts), and with
+    ``exports`` two exports of rgb and text under ``out_dir``: ``index``
+    (normalized, what serving loads) and ``raw`` (un-normalized, what the
+    recall metric accumulates)."""
+    from mmlearn_tpu_torch.tasks import (
+        ClassificationTaskSpec,
+        EmbeddingExport,
+        EvaluationSpec,
+        RetrievalTaskSpec,
+        ZeroShotClassification,
+        ZeroShotCrossModalRetrieval,
+    )
+
+    hooks = {
+        "retrieval": EvaluationSpec(ZeroShotCrossModalRetrieval(
+            [RetrievalTaskSpec("rgb", "text", EVAL_RGB_KS), RetrievalTaskSpec("text", "rgb", [5])])),
+        "classification": EvaluationSpec(ZeroShotClassification(
+            [ClassificationTaskSpec("rgb", [1, 5])], tokenizer=PromptTokenizer(tokens))),
+    }
+    if exports:
+        for name, normalize in (("index", True), ("raw", False)):
+            hooks[f"export_{name}"] = EvaluationSpec(EmbeddingExport(
+                os.path.join(out_dir, name), ["rgb", "text"], normalize=normalize,
+                shard_size=EVAL_SHARD_ROWS))
+    return hooks
+
+
+def class_embeddings(task) -> dict:
+    """Keep the classification hook's class embeddings (host f64) when its
+    epoch ends: ``{dataset index: (classes, dim)}``, filled by the run."""
+    hook = task.evaluation_tasks["classification"].task
+    kept: dict = {}
+    end = hook.on_evaluation_epoch_end
+
+    def keep(runtime):
+        kept.update({d: e.double().cpu().numpy() for d, e in hook._class_embeddings.items()})
+        return end(runtime)
+
+    hook.on_evaluation_epoch_end = keep
+    return kept
+
+
+@contextlib.contextmanager
+def k1_cases():
+    """K1f's launches in the block by case, ``{(masked, causal): n}``: a spy
+    on the wrapper's launch (the count stays the wrapper's)."""
+    import collections
+
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    cases: collections.Counter = collections.Counter()
+    launch = fa._fused_mha_cuda
+
+    def spy(qkv, mask, num_heads, scale, causal, packed=False):
+        cases[(mask is not None, bool(causal))] += 1
+        return launch(qkv, mask, num_heads, scale, causal, packed)
+
+    fa._fused_mha_cuda = spy
+    try:
+        yield cases
+    finally:
+        fa._fused_mha_cuda = launch
+
+
+def exported(out_dir: str, mod: str):
+    """An export's rows of ``mod``: (embeddings, example index, dataset index)."""
+    import numpy as np
+
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    parts = [np.load(os.path.join(out_dir, name)) for name in manifest[mod]["shards"]]
+    return tuple(np.concatenate([p[key] for p in parts])
+                 for key in ("embeddings", "example_index", "dataset_index"))
+
+
+def recall_f64(queries, targets, ks) -> tuple[dict, float]:
+    """Recall@k of row i's positive target i, in f64 from the exported
+    un-normalized rows, ties toward the lower target row; and the least
+    nonzero distance of a score from its row's positive score."""
+    import numpy as np
+
+    q = queries.astype(np.float64)
+    t = targets.astype(np.float64)
+    # identical target rows score identically: each distinct row once (a
+    # product's rounding may differ by a row's place in the matrix)
+    t, inverse = np.unique(t, axis=0, return_inverse=True)
+    sim = ((q / np.linalg.norm(q, axis=1, keepdims=True)) @ (
+        t / np.linalg.norm(t, axis=1, keepdims=True)).T)[:, inverse.reshape(-1)]
+    pos = np.diag(sim)[:, None]
+    rows = np.arange(len(targets))[None]
+    rank = (sim > pos).sum(1) + ((sim == pos) & (rows < np.arange(len(q))[:, None])).sum(1)
+    gap = np.abs(sim - pos)
+    return {k: float((rank < k).mean()) for k in ks}, float(gap[gap > 0].min())
+
+
+def accuracy_f64(emb, classes, labels, ks) -> dict:
+    """Top-k accuracies (a 2-class set: the sign of the softmax difference,
+    i.e. class 1's cosine above class 0's) in f64, from un-normalized
+    embeddings."""
+    import numpy as np
+
+    emb = emb.astype(np.float64)
+    sim = (emb / np.linalg.norm(emb, axis=1, keepdims=True)) @ classes.T
+    if classes.shape[0] == 2:
+        return {0: float(((sim[:, 1] > sim[:, 0]).astype(np.int64) == labels).mean())}
+    true = sim[np.arange(len(sim)), labels][:, None]
+    rank = (sim > true).sum(1)
+    return {k: float((rank < k).mean()) for k in ks}
+
+
+def eval_metric_checks(results: dict, out_dir: str, sets, kept: dict) -> None:
+    """Check 2: each R@k and each accuracy (with the class embeddings)
+    recomputed in f64 from the ``raw`` export with the lower-row tie rule,
+    equal to the job's."""
+    import numpy as np
+
+    q, ex, ds = exported(os.path.join(out_dir, "raw"), "rgb")
+    t, ex_t, ds_t = exported(os.path.join(out_dir, "raw"), "text")
+    check(np.array_equal(ex, ex_t) and np.array_equal(ds, ds_t),
+          "the raw export's rgb and text rows are not the same examples")
+    want = {}
+    for (a, b), ks in (((q, t), EVAL_RGB_KS), ((t, q), [5])):
+        recalls, gap = recall_f64(a, b, ks)
+        name = "rgb_to_text" if a is q else "text_to_rgb"
+        want.update({f"retrieval/{name}_R@{k}": v for k, v in recalls.items()})
+        print(f"eval path: {name} f64 recall {recalls}; least nonzero distance of a score from "
+              f"its positive's {gap:.3e}")
+    labels = np.array([sets[d].labels[e] for d, e in zip(ds, ex)])
+    for d, classes in kept.items():
+        acc = accuracy_f64(q[ds == d], classes, labels[ds == d], [1, 5])
+        for k, v in acc.items():
+            want[f"classification/ds{d}_rgb_" + (f"top{k}_accuracy" if k else "accuracy")] = v
+    differ = {k: (results[k], v) for k, v in want.items() if results[k] != v}
+    print(f"eval path: {len(want)} recalls and accuracies against their f64 recomputation "
+          f"from the exported shards (ties to the lower row): {len(want) - len(differ)} equal"
+          + (f"; differ {differ}" if differ else ""))
+    check(not differ, f"eval metrics differ from their f64 recomputation: {differ}")
+
+
+def cpu_copy_f32(task):
+    """``task``'s towers and weights on the CPU, computing in f32 (its
+    kernels' plain versions)."""
+    from mmlearn_tpu_torch.modules.encoders import TextTransformer, VisionTransformer
+    from mmlearn_tpu_torch.tasks import ContrastivePretraining
+
+    cls = {"rgb": VisionTransformer, "text": TextTransformer}
+    copy_ = ContrastivePretraining({m: cls[m](**{**enc.config, "dtype": "float32"})
+                                    for m, enc in task.encoders.items()})
+    copy_.load_state_dict(task.state_dict())
+    return copy_
+
+
+def _row_cosines(a, b):
+    import numpy as np
+
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+
+
+def _centered_agreement(card, cpu, keys) -> tuple[float, int, float]:
+    """Card rows against CPU rows, the CPU rows' mean taken from both
+    (unit rows): what remains is the part of each row that depends on its
+    input. The least cosine of a card row to its own CPU row; the rows
+    nearer another input's CPU row than their own (rows of equal ``keys``
+    share their input, the same text, and are not rivals); and the least
+    margin, own cosine minus the best rival's."""
+    import numpy as np
+
+    def unit(x):
+        x = x.astype(np.float64)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    a, b = unit(card), unit(cpu)
+    mean = b.mean(0)
+    sim = unit(a - mean) @ unit(b - mean).T
+    own = np.diag(sim)
+    rival = np.where(keys[:, None] == keys[None, :], -np.inf, sim).max(1)
+    return float(own.min()), int((own <= rival).sum()), float((own - rival).min())
+
+
+def eval_card_vs_cpu(task, device, sets, weights: str) -> None:
+    """Check 3: the same hooks over the first ``EVAL_CPU_PAIRS`` pairs (the
+    64-class set's first and the binary set's first, two batches of
+    ``EVAL_CPU_BATCH``) on the card and on an f32 CPU copy of the task with
+    the plain versions: per-row cosines of the exported embeddings and of
+    the class embeddings (>= ``MIN_COSINE``, the serving limit), and the
+    same rows with the CPU rows' mean taken out (``_centered_agreement``):
+    cosines >= ``EVAL_CENTERED_COS`` and each card row nearest its own
+    input's CPU row. The image tower's rows share most of their direction
+    (fresh weights: an error of 5.98e-05 in 1 - cos reads 1.95e-03 once
+    centered), so only the centered rows see a fault in it. The ``fresh``
+    flagship's rows are held to all of it; the ``trained`` weights (phase
+    10's, whose image tower is nearly collapsed: rows of equal bits for
+    different images) to the serving limit and to the CPU's metrics, their
+    centered readings printed."""
+    import numpy as np
+
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    heads = [Head(sets[0], EVAL_CPU_PAIRS - EVAL_CPU_BINARY), Head(sets[1], EVAL_CPU_BINARY)]
+    root = os.path.join(WORK_DIR, "eval_cpu", weights)
+    runs = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        model = task if side == "card" else cpu_copy_f32(task)
+        out_dir = os.path.join(root, side)
+        model.evaluation_tasks = eval_hooks(sets[0].tokens, out_dir)
+        kept = class_embeddings(model)
+        t0 = time.perf_counter()
+        results = Trainer(device=where, device_normalize=input_normalize()).validate(
+            model, eval_loader(heads, EVAL_CPU_BATCH))
+        runs[side] = (results, kept, out_dir)
+        print(f"eval path, {weights} weights, {side}: {EVAL_CPU_PAIRS} pairs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model
+    (card, card_cls, card_dir), (cpu, cpu_cls, cpu_dir) = runs["card"], runs["cpu"]
+    worst, centered = {}, {}
+    for mod in ("rgb", "text"):
+        got, ex, ds = exported(os.path.join(card_dir, "index"), mod)
+        want, ex_cpu, ds_cpu = exported(os.path.join(cpu_dir, "index"), mod)
+        check(np.array_equal(ex, ex_cpu) and np.array_equal(ds, ds_cpu),
+              f"card and CPU exported other {mod} rows")
+        # an image is its own input; a text is its class's token pattern
+        keys = (np.arange(len(ex)) if mod == "rgb" else
+                np.array([sets[d].classes[sets[d].labels[e]] for d, e in zip(ds, ex)]))
+        worst[mod] = _row_cosines(got, want).min()
+        centered[mod] = _centered_agreement(got, want, keys)
+    for d in cpu_cls:
+        worst[f"classes ds{d}"] = _row_cosines(card_cls[d], cpu_cls[d]).min()
+        centered[f"classes ds{d}"] = _centered_agreement(card_cls[d], cpu_cls[d],
+                                                         np.arange(len(cpu_cls[d])))
+    print(f"eval path, {weights} weights, card vs CPU: least row cosine " + ", ".join(
+        f"{k} {v:.6f}" for k, v in worst.items()) + f" (bound {MIN_COSINE}); centered: least "
+          "cosine, rows nearer another input's CPU row than their own, least margin " + ", ".join(
+              f"{k} {c:.6f} {n} {m:.3e}" for k, (c, n, m) in centered.items())
+          + (f" (bound {EVAL_CENTERED_COS}, 0 rows)" if weights == "fresh"
+             else " (printed, not held)"))
+    check(all(v >= MIN_COSINE for v in worst.values()),
+          f"eval embeddings card vs CPU ({weights}) {worst}")
+    if weights == "fresh":
+        check(all(c >= EVAL_CENTERED_COS and n == 0 for c, n, _ in centered.values()),
+              f"eval embeddings card vs CPU ({weights}), centered: {centered}")
+        return
+    check(sorted(card) == sorted(cpu), f"card and CPU metric keys differ: {sorted(card)} "
+          f"{sorted(cpu)}")
+    loss_err = abs(card["validation/loss"] - cpu["validation/loss"]) / abs(cpu["validation/loss"])
+    rows_of = {"retrieval/": EVAL_CPU_PAIRS, "classification/ds0_rgb_top": heads[0].n,
+               "classification/ds1_rgb_accuracy": heads[1].n}
+    rows, other = {}, {}
+    for k in card:
+        n = next((n for prefix, n in rows_of.items() if k.startswith(prefix)), None)
+        if n is not None:
+            rows[k] = round(abs(card[k] - cpu[k]) * n)
+        elif not k.startswith(("export/", "validation/")):
+            other[k] = abs(card[k] - cpu[k])
+    worst_rows, worst_other = max(rows, key=rows.get), max(other, key=other.get)
+    print(f"eval path, card vs CPU: loss rel diff {loss_err:.3e} (limit {LOSS_RTOL}); recalls "
+          f"and accuracies: at most {rows[worst_rows]} rows decided otherwise ({worst_rows}; "
+          f"limit {EVAL_ROWS}); other metrics: largest abs diff {other[worst_other]:.6f} "
+          f"({worst_other}; limit {EVAL_OTHER_ATOL}); card/CPU " + ", ".join(
+              f"{k} {card[k]:.4f}/{cpu[k]:.4f}" for k in sorted(card) if k in rows or k in other))
+    check(loss_err <= LOSS_RTOL, f"eval loss card vs CPU {card['validation/loss']} "
+          f"{cpu['validation/loss']}")
+    check(rows[worst_rows] <= EVAL_ROWS and other[worst_other] <= EVAL_OTHER_ATOL,
+          f"eval metrics card vs CPU: {worst_rows} {card[worst_rows]} {cpu[worst_rows]}, "
+          f"{worst_other} {card[worst_other]} {cpu[worst_other]}")
+
+
+def blockwise_checks(device) -> None:
+    """Check 4 and the recall pass's times: at ``BLOCKWISE_QUERIES`` x
+    ``BLOCKWISE_TARGETS`` of width 512 the top-k routes blockwise; its rows
+    equal the full-axis top-k in query chunks of 1,024. The inputs are
+    integers in [-2, 2] (as f32): every product is exact whatever the
+    product's order, so the check holds the selection alone, and its many
+    tied scores hold the lower-row rule. Then the times: that top-k, and
+    ``RetrievalRecallAtK.compute_many`` (R@1, 5, 10) at 2,048^2 and at
+    this size."""
+    import torch
+
+    from mmlearn_tpu_torch.modules.metrics import RetrievalRecallAtK
+    from mmlearn_tpu_torch.modules.metrics import retrieval_recall as rr
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    targets = torch.randint(-2, 3, (BLOCKWISE_TARGETS, 512), generator=gen, device=device).float()
+    queries = torch.randint(-2, 3, (BLOCKWISE_QUERIES, 512), generator=gen, device=device).float()
+    k = 10
+    check(rr._use_blockwise_topk(BLOCKWISE_QUERIES, BLOCKWISE_TARGETS, k),
+          "the blockwise route is not taken at this size")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        blocked = rr._topk_chunk(queries, targets, k)
+        peak_gib = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+        full, ties = [], 0
+        for start in range(0, BLOCKWISE_QUERIES, 1024):
+            s, rows = rr._topk_scores_chunk(queries[start:start + 1024], targets, k + 1)
+            full.append(rows[:, :k])
+            ties += int((s[:, k - 1] == s[:, k]).sum())
+        full = torch.cat(full)
+        same = bool(torch.equal(blocked, full))
+        # the tie rule itself: a stable descending sort keeps equal scores
+        # in row order
+        with rr.full_f32_matmul():
+            sim = queries[:TIE_RULE_QUERIES] @ targets.T
+        stable = torch.sort(sim, dim=1, descending=True, stable=True).indices[:, :k]
+        lower_first = bool(torch.equal(blocked[:TIE_RULE_QUERIES], stable))
+        del sim
+        ms = cuda_ms(lambda: rr._topk_chunk(queries, targets, k), iters=3, warmup=1)
+    print(f"eval path: top-{k} of {BLOCKWISE_QUERIES:,} x {BLOCKWISE_TARGETS:,} (width 512, "
+          f"f32 sims {BLOCKWISE_QUERIES * BLOCKWISE_TARGETS * 4 / 2**30:.0f} GiB): blockwise rows "
+          f"equal the full-axis top-k in chunks of 1,024: {same} ({ties} rows tie their k-th "
+          f"and (k+1)-th score); the first {TIE_RULE_QUERIES} rows equal a stable descending "
+          f"sort's (the lower row first among equal scores): {lower_first}; blockwise "
+          f"{ms:.2f} ms, peak {peak_gib:.3f} GiB above its inputs")
+    check(same, "the blockwise top-k differs from the full-axis top-k")
+    check(lower_first, "the top-k does not put the lower row first among equal scores")
+    for nq, nt in ((EVAL_PAIRS, EVAL_PAIRS), (BLOCKWISE_QUERIES, BLOCKWISE_TARGETS)):
+        metric = RetrievalRecallAtK(top_k=k)
+        metric.update(queries[:nq], targets[:nt])
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metric.compute_many([1, 5, k])
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"eval path: the recall pass (compute_many R@1/5/{k}) at {nq:,} x {nt:,}: "
+              f"{statistics.median(times[1:]):.2f} ms (median of {len(times) - 1} after one)")
+    del targets, queries, blocked, full
+    torch.cuda.empty_cache()
+
+
+def eval_path(device, trained, ckpt_dir: str) -> dict:
+    """Phase 11, the eval path: the flagship's eval-only job over phase 11's
+    held-out sets (``eval_sets``) at b256, uint8 images normalized on the
+    card. Check 1: one eval batch's launches a tower, and the class
+    prompts'. The job: ``Trainer.validate`` of the weights phase 10's fit
+    left, with the retrieval, classification and two export hooks, every
+    count set to 0 first (launches a tower forward exactly, K1f's cases);
+    check 2 (each recall and accuracy against an f64 recomputation from the
+    exports), check 5 (the exported index serves each rgb row as its own
+    rank-1 neighbour); the eval-only route (``prepare_eval_state`` from
+    phase 10's checkpoint, then ``Trainer.test``, equal bit for bit) with
+    the fresh weights' accuracy before the restore; check 3 (card against
+    an f32 CPU copy on 64 pairs) and check 4 (blockwise top-k). Returns the
+    job's launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.flagship import flagship_training_task
+    from mmlearn_tpu_torch.modules.metrics.retrieval_recall import _topk_scores_chunk
+    from mmlearn_tpu_torch.serving import EmbeddingIndex
+    from mmlearn_tpu_torch.tasks import EmbeddingExport, EvalRuntime
+    from mmlearn_tpu_torch.trainer import Trainer
+    from mmlearn_tpu_torch.trainer.trainer import _to_device
+
+    root = os.path.join(WORK_DIR, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    sets = eval_sets(Uint8Pairs(SEED + 31))  # phase 10's patterns
+    n_pairs = sum(len(d) for d in sets)
+    tokens = sets[0].tokens
+    trainer = Trainer(device=device, device_normalize=input_normalize())
+    depth = {m: len(enc.blocks) for m, enc in trained.encoders.items()}
+    idle = {k: 0 for k in ("fused_mha_bwd", "fused_mha_packed_fwd", "fused_mha_packed_bwd",
+                           "layernorm_bwd", "int8_qmm", "int8_qmm_bytes", *NO_FLASH)}
+
+    # check 1: one eval batch, a tower at a time, then one chunk of prompts
+    first = next(iter(eval_loader(sets)))
+    placed = trainer._device_inputs(_to_device(first, device), torch.bfloat16)
+    runtime = EvalRuntime(trained, device)
+    prompts = PromptTokenizer(tokens)([t.format(f"class {k}") for k in range(32)
+                                       for t in sets[0].zero_shot_prompt_templates])
+    for what, batch, modality, case in (("rgb", placed, "rgb", (False, False)),
+                                        ("text", placed, "text", (False, True)),
+                                        ("prompts", prompts, "text", (True, True))):
+        reset_counts()
+        with k1_cases() as cases:
+            runtime.encode(batch, modality)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {**idle, "fused_mha_fwd": depth[modality], "layernorm_fwd": 2 * depth[modality]}
+        print(f"eval path: one eval batch's {what} ({modality} tower, b{BATCH}) launched K1f "
+              f"{counts['fused_mha_fwd']} ({dict(cases)} by (masked, causal)), K2f "
+              f"{counts['layernorm_fwd']}; the rest {sum(counts[k] for k in idle)}")
+        check(counts == want and dict(cases) == {case: depth[modality]},
+              f"eval {what} launches {counts} {dict(cases)}, want {want} as {case}")
+    del runtime, placed, first
+
+    # the job: validate with every hook, counts from 0
+    trained.evaluation_tasks = eval_hooks(tokens, root)
+    kept = class_embeddings(trained)
+    forwards = {m: 0 for m in trained.encoders}
+    handles = [enc.register_forward_hook(
+        lambda mod, args, out, m=m: forwards.__setitem__(m, forwards[m] + 1))
+        for m, enc in trained.encoders.items()]
+    flush = [0.0]
+    flush_fn = EmbeddingExport._flush
+
+    def timed_flush(self, mod):
+        t0 = time.perf_counter()
+        flush_fn(self, mod)
+        flush[0] += time.perf_counter() - t0
+
+    EmbeddingExport._flush = timed_flush
+    reset_counts()
+    gc.collect()  # what earlier phases left unreferenced leaves the count
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        with k1_cases() as cases:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = trainer.validate(trained, eval_loader(sets))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        EmbeddingExport._flush = flush_fn
+        for h in handles:
+            h.remove()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    tower_blocks = sum(depth[m] * n for m, n in forwards.items())
+    want = {**idle, "fused_mha_fwd": tower_blocks, "layernorm_fwd": 2 * tower_blocks}
+    print(f"eval path: validate over {n_pairs} pairs ({len(eval_loader(sets))} batches of "
+          f"{BATCH}): tower forwards {forwards}; launched K1f {counts['fused_mha_fwd']} "
+          f"({dict(cases)} by (masked, causal)), K2f {counts['layernorm_fwd']}, the rest "
+          f"{sum(counts[k] for k in idle)}")
+    check(counts == want, f"eval job launches {counts}, want {want}")
+    check(cases[(True, True)] > 0 and cases[(False, False)] > 0,
+          f"the eval job's K1f cases {dict(cases)} lack masked causal or unmasked")
+    written = sum(os.path.getsize(os.path.join(root, d, f)) for d in ("index", "raw")
+                  for f in os.listdir(os.path.join(root, d)))
+    print(f"eval path: {n_pairs / seconds:.1f} eval pairs/s at b{BATCH} ({seconds:.2f} s: "
+          f"both towers, the loss, the hooks, the recall passes and the exports); export "
+          f"{written / 1e6:.2f} MB in {flush[0]:.3f} s of flushes ({written / 1e6 / flush[0]:.1f} "
+          f"MB/s); peak memory {peak_gb:.2f} GB ({held_gb:.2f} GB allocated before the job)")
+    print("eval path: results " + json.dumps(results, sort_keys=True))
+    check(all(np.isfinite(v) for v in results.values()), f"eval results {results}")
+    check(results["export/rgb_rows"] == results["export/text_rows"] == n_pairs,
+          f"exported rows {results['export/rgb_rows']}, {results['export/text_rows']}")
+
+    # check 2: recall and accuracy against the exports, in f64
+    eval_metric_checks(results, root, sets, kept)
+
+    # check 5: the exported index serves each rgb row as its own rank-1
+    # neighbour, or as a row of the same bits earlier in the index (ties go
+    # to the lower row)
+    index = EmbeddingIndex.load(os.path.join(root, "index"), modality="rgb", device=device)
+    emb, ex, ds = exported(os.path.join(root, "index"), "rgb")
+    _, ids = index.query(emb, k=1)
+    with torch.inference_mode():
+        rows = _topk_scores_chunk(index.embeddings, index.embeddings, 2)[1].cpu().numpy()
+    first = np.unique(emb, axis=0, return_index=True, return_inverse=True)
+    first_row = first[1][first[2].reshape(-1)]  # each row's first row of the same bits
+    own = (rows[:, 0] == first_row) & (ids[:, 0] == ex[first_row])
+    second = rows[:, 1]
+    cos = (emb * emb[second]).sum(1) / np.linalg.norm(emb, axis=1) / np.linalg.norm(
+        emb[second], axis=1)
+    print(f"eval path: EmbeddingIndex over the normalized export ({len(index)} rows, "
+          f"{int((first_row != np.arange(len(emb))).sum())} the same bits as an earlier row): "
+          f"each row its own rank-1 neighbour (or that earlier row) at {int(own.sum())} of "
+          f"{len(own)}; rank-2 cosine median {np.median(cos):.6f}, max {cos.max():.6f}")
+    check(bool(own.all()) and len(index) == n_pairs, "exported rows are not their own rank-1")
+
+    # the eval-only route, with the fresh weights' accuracy first
+    chance = 1 / INPUT_CLASSES
+    top1 = "classification/ds0_rgb_top1_accuracy"
+    fresh = flagship_training_task("cpu", seed=SEED)
+    fresh.evaluation_tasks = eval_hooks(tokens, root, exports=False)
+    fresh_results = Trainer(device=device, device_normalize=input_normalize()).validate(
+        fresh, eval_loader(sets))
+    print(f"eval path: top-1 accuracy over {INPUT_CLASSES} classes: trained "
+          f"{results[top1]:.4f}, fresh {fresh_results[top1]:.4f}, chance {chance:.4f}; "
+          f"R@1 rgb->text trained {results['retrieval/rgb_to_text_R@1']:.4f}, fresh "
+          f"{fresh_results['retrieval/rgb_to_text_R@1']:.4f}")
+    eval_card_vs_cpu(fresh, device, sets, "fresh")  # before the restore below
+    fresh.evaluation_tasks = eval_hooks(tokens, os.path.join(root, "test"))
+    tester = Trainer(device=device, device_normalize=input_normalize())
+    t0 = time.perf_counter()
+    state = tester.prepare_eval_state(fresh, eval_loader(sets), ckpt_path=ckpt_dir)
+    restore_s = time.perf_counter() - t0
+    tested = tester.test(fresh, eval_loader(sets))
+    same = {k.replace("test/", "validation/"): v for k, v in tested.items()} == results
+    print(f"eval path: prepare_eval_state from phase 10's checkpoint (step {state.step}, "
+          f"{restore_s:.1f} s), then Trainer.test: metrics equal validate's bit for bit: {same}")
+    check(state.step == INPUT_STEPS and same, f"test after restore {tested} != {results}")
+    del fresh, tester, state
+    torch.cuda.empty_cache()
+
+    eval_card_vs_cpu(trained, device, sets, "trained")
+    blockwise_checks(device)
     return counts
 
 
@@ -2823,16 +3486,20 @@ def main() -> int:
           f"K5 launched on the trainer path without {QUANT_ENV}")
     print(f"trainer path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    input_launches = input_path(device)
+    input_launches, trained, trained_dir = input_path(device)
     check(input_launches["int8_qmm"] == input_launches["int8_qmm_bytes"] == 0,
           f"K5 launched on the input path without {QUANT_ENV}")
     print(f"input path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_launches = eval_path(device, trained, trained_dir)
+    del trained
+    print(f"eval path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
-    # input path's fit
+    # input path's fit, the eval path's validate
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
-                   input_launches):
+                   input_launches, eval_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -30,6 +30,15 @@ def as_tensor(value: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(value), device=device)
 
 
+def compute_dtype(task: nn.Module) -> torch.dtype:
+    """The dtype a task's encoders compute in, read from the ``dtype``
+    attribute of its modules (the towers and their layers set it): bf16
+    where any computes in bf16 (the flagship), f32 otherwise. It stands in
+    for the JAX trainer's ``precision``."""
+    dtypes = {m.dtype for m in task.modules() if isinstance(getattr(m, "dtype", None), torch.dtype)}
+    return torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32
+
+
 def decay_mask(module: nn.Module) -> dict[str, bool]:
     """``{parameter name: decayed}``: True for parameters with ``ndim >= 2``."""
     return {name: p.ndim >= 2 for name, p in module.named_parameters()}

@@ -8,8 +8,11 @@ modality in the batch is encoded and L2-normalised, presence masks and the
 batch's ``batch_validity`` select the valid rows, and the contrastive loss
 runs over ``modality_loss_pairs`` (every pair of modalities by default).
 ``encode`` is encoder, then postprocessor, then head, then optional L2 norm.
-Auxiliary tasks, evaluation tasks, PEFT and frozen encoders are not
-ported yet and raise.
+``evaluation_tasks`` maps names to :class:`EvaluationSpec` entries (a hook such as
+:class:`~mmlearn_tpu_torch.tasks.ZeroShotCrossModalRetrieval` and whether it
+runs on validation and on test), which the trainer's evaluation loop
+drives. Auxiliary tasks, PEFT and frozen encoders are not ported yet and
+raise.
 
 PyTorch idiom: the modules hold their weights, so ``encode`` and
 ``loss_fn`` take no parameter tree; inputs may be numpy arrays or tensors
@@ -31,6 +34,15 @@ from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.losses import ContrastiveLoss, LossPairSpec
 from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
+
+
+@dataclass
+class EvaluationSpec:
+    """An evaluation task and when it runs."""
+
+    task: Any = None
+    run_on_validation: bool = True
+    run_on_test: bool = True
 
 
 @dataclass(frozen=True)
@@ -61,14 +73,13 @@ class ContrastivePretraining(TrainingTask):
         auxiliary_tasks: Optional[Mapping[str, Any]] = None,
         compute_validation_loss: bool = True,
         compute_test_loss: bool = True,
-        evaluation_tasks: Optional[Mapping[str, Any]] = None,
+        evaluation_tasks: Optional[Mapping[str, EvaluationSpec | Mapping]] = None,
         peft_configs: Optional[Mapping[str, Any]] = None,
         freeze_encoders: Optional[Mapping[str, Any]] = None,
     ) -> None:
-        if auxiliary_tasks or peft_configs or freeze_encoders or evaluation_tasks:
+        if auxiliary_tasks or peft_configs or freeze_encoders:
             raise NotImplementedError(
-                "auxiliary tasks, evaluation tasks, PEFT and frozen encoders are "
-                "not ported yet"
+                "auxiliary tasks, PEFT and frozen encoders are not ported yet"
             )
         super().__init__(optimizer, lr_scheduler,
                          loss if loss is not None else ContrastiveLoss(),
@@ -134,6 +145,10 @@ class ContrastivePretraining(TrainingTask):
                         f"modality '{m}' (have {self.modalities})"
                     )
         self.modality_loss_pairs = pairs
+        self.evaluation_tasks: dict[str, EvaluationSpec] = {
+            name: spec if isinstance(spec, EvaluationSpec) else EvaluationSpec(**spec)
+            for name, spec in (evaluation_tasks or {}).items()
+        }
 
     def _encoder_inputs(
         self, batch: Mapping[str, Any], modality: str, device: torch.device
@@ -149,7 +164,15 @@ class ContrastivePretraining(TrainingTask):
     def encode(
         self, batch: Mapping[str, Any], modality: str, normalize: bool = False
     ) -> torch.Tensor:
-        """Encoder, then postprocessor, then head, then optional L2 norm."""
+        """Encoder, then postprocessor, then head, then optional L2 norm.
+
+        The norm is taken in the compute dtype, as the JAX package takes it:
+        the loss and serving's ``/embed`` use these rows. Evaluation
+        (``EvalRuntime.encode(normalize=True)``: the exports an index is
+        built from, and so ``/search``'s corpus) normalizes the un-normalized
+        rows in f32 instead: in bf16 a row's norm lies up to 2^-8 from 1,
+        enough for a near-duplicate to outscore the row itself in an index.
+        """
         modality = str(modality).lower()
         encoder = self.encoders[self.encoder_keys[modality]]
         device = next(encoder.parameters()).device

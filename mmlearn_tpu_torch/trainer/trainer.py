@@ -28,9 +28,11 @@ main thread), the loop position with ``set_epoch`` where the loader has it,
 and resume from a checkpoint (``ckpt_path``), the loader fast-forwarded to
 the saved epoch and batch: through ``iter_from_batch`` where the loader has
 it (the skipped batches' indices are drawn, their examples never fetched),
-else by fetching and discarding. Validation computes the task's loss
-(:meth:`~mmlearn_tpu_torch.tasks.base.TrainingTask.validation_loss`); the
-evaluation hooks wait (ROADMAP P8).
+else by fetching and discarding. Validation and test compute the task's
+loss (:meth:`~mmlearn_tpu_torch.tasks.base.TrainingTask.validation_loss`)
+and run its evaluation hooks (zero-shot retrieval and classification,
+embedding export); :meth:`Trainer.prepare_eval_state` restores a checkpoint
+for an eval-only job.
 
 Every training batch reaches the step through a
 :class:`~mmlearn_tpu_torch.datasets.core.loader.DeviceFeeder`
@@ -70,7 +72,8 @@ import torch
 from mmlearn_tpu_torch.datasets.core.loader import DeviceFeeder
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
-from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
+from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor, compute_dtype
+from mmlearn_tpu_torch.tasks.hooks import EvalRuntime
 from mmlearn_tpu_torch.trainer.flops import FlopCounter, device_peak_tflops
 from mmlearn_tpu_torch.trainer.state import TrainState
 
@@ -143,15 +146,6 @@ def _batch_size_of(batch: Mapping[str, Any]) -> int:
         elif isinstance(v, list):
             fallback = fallback or len(v)
     return fallback
-
-
-def compute_dtype(task: torch.nn.Module) -> torch.dtype:
-    """The dtype a task's encoders compute in, read from the ``dtype``
-    attribute of its modules (the towers and their layers set it): bf16
-    where any computes in bf16 (the flagship), f32 otherwise. It stands in
-    for the JAX trainer's ``precision`` (:413-417)."""
-    dtypes = {m.dtype for m in task.modules() if isinstance(getattr(m, "dtype", None), torch.dtype)}
-    return torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -701,6 +695,38 @@ class Trainer:
         return {k: v for k, v in last.items() if k != "step"}
 
     # -- validation and test --------------------------------------------------
+    def prepare_eval_state(
+        self,
+        task: TrainingTask,
+        loader: Optional[Iterable[Mapping[str, Any]]] = None,
+        ckpt_path: Optional[str] = None,
+        strict_loading: bool = True,
+    ) -> TrainState:
+        """The state of an eval-only job: ``task`` on the trainer's device
+        with its optimizer and schedule built as a fit builds them (so a
+        training checkpoint restores into it), restored from ``ckpt_path``
+        (``"last"`` or a checkpoint directory) through the registered
+        ``ModelCheckpoint``'s ``restore_latest``. ``loader`` is taken for the
+        JAX signature (its first batch shapes the JAX state). Raises
+        ``FileNotFoundError`` when there is no checkpoint to restore."""
+        del loader  # the port's modules hold their weights already
+        task.to(self.device)
+        task.prepare_seed = self.seed
+        optimizer, lr_scheduler = task.configure_optimizers(max_steps=1)
+        self.state = TrainState(0, task, optimizer, lr_scheduler)
+        if ckpt_path is not None:
+            ckpt_cb = next((c for c in self.callbacks if hasattr(c, "restore_latest")), None)
+            if ckpt_cb is None:
+                from mmlearn_tpu_torch.trainer.callbacks import ModelCheckpoint
+
+                ckpt_cb = ModelCheckpoint(dirpath=None)  # restores only: not registered
+            if ckpt_path != "last":
+                ckpt_cb.dirpath = ckpt_path
+                ckpt_cb._ckpt_path = None
+            if ckpt_cb.restore_latest(self, strict=strict_loading) is None:
+                raise FileNotFoundError(f"No checkpoint found under '{ckpt_path}'")
+        return self.state
+
     def validate(self, task: TrainingTask, loader: Iterable[Mapping[str, Any]]) -> dict[str, float]:
         """The validation loop over ``loader`` with the task as it is."""
         return self._run_evaluation(task, loader, "validation")
@@ -718,11 +744,22 @@ class Trainer:
         limit_batches: Optional[int] = None,
         log: bool = True,
     ) -> dict[str, float]:
-        """The mean of the task's loss over the loader's batches
-        (``<phase>/loss``) where the task computes it; logged, and passed to
-        the callbacks' ``on_validation_end``."""
+        """One pass over the loader (the JAX trainer's ``_run_evaluation``
+        :1078): the mean of the task's loss (``<phase>/loss``) where the task
+        computes it, and the task's evaluation hooks that run in this phase
+        (``EvaluationSpec.run_on_validation`` / ``run_on_test``). Each hook
+        sees the host batch updated with the placed one (floats in the
+        compute dtype, uint8 images normalized by ``device_normalize``); its
+        metrics join the results, which are logged and passed to the
+        callbacks' ``on_validation_end``."""
         task.to(self.device)
         task.prepare_seed = self.seed
+        runtime = EvalRuntime(task, self.device)
+        runtime.dataloader = loader
+        hooks = [spec.task for spec in getattr(task, "evaluation_tasks", {}).values()
+                 if (spec.run_on_validation if phase == "validation" else spec.run_on_test)]
+        for hook in hooks:
+            hook.on_evaluation_epoch_start(runtime)
         compute_loss = (task.compute_validation_loss if phase == "validation"
                         else task.compute_test_loss)
         name = "limit_test_batches" if phase == "test" else "limit_val_batches"
@@ -731,17 +768,26 @@ class Trainer:
         if limit is not None and limit < 0:
             limit = None  # -1: the whole loader (num_sanity_val_steps=-1)
         losses = []
+        dtype = compute_dtype(task)
         for batch_idx, batch in enumerate(loader):
             if limit is not None and batch_idx >= limit:
                 break  # 0 turns the phase off
-            if not compute_loss:
+            if not (compute_loss or hooks):
                 continue
             batch = task.prepare_batch(dict(batch), batch_idx, training=False)
-            batch = self._device_inputs(_to_device(batch, self.device), compute_dtype(task))
-            losses.append(task.validation_loss(batch)[0].float())
+            placed = self._device_inputs(_to_device(batch, self.device), dtype)
+            if compute_loss:
+                losses.append(task.validation_loss(placed)[0].float())
+            full_batch = dict(batch)
+            full_batch.update(placed)
+            for hook in hooks:
+                hook.evaluation_step(runtime, full_batch, batch_idx)
         results: dict[str, float] = {}
         if losses:
             results[f"{phase}/loss"] = float(np.mean(torch.stack(losses).tolist()))
+        for hook in hooks:
+            for k, v in (hook.on_evaluation_epoch_end(runtime) or {}).items():
+                results[str(k)] = float(v)
         if log and results:
             at = step if step is not None else (self.state.step if self.state else 0)
             logger.info("%s results: %s", phase, results)

@@ -46,6 +46,22 @@ def test_every_module_imports_without_jax_or_flax():
     assert int(proc.stdout.split()[0]) >= 20  # every module was walked
 
 
+def test_evaluation_layer_imports_without_jax():
+    """The evaluation slice's public names, with JAX and the JAX package
+    blocked."""
+    names = ("from mmlearn_tpu_torch.tasks import EvaluationSpec, EvaluationHooks, "
+             "EvalRuntime, ZeroShotCrossModalRetrieval, RetrievalTaskSpec, "
+             "ZeroShotClassification, ClassificationTaskSpec, EmbeddingExport\n"
+             "from mmlearn_tpu_torch.modules.metrics import RetrievalRecallAtK, "
+             "top_k_accuracy, macro_precision, macro_recall, macro_f1, macro_auroc, "
+             "binary_precision, binary_recall, binary_f1\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_a_cuda_card(tmp_path):
     if not torch.cuda.is_available():
         # no CUDA card: the script must refuse, not fall back
