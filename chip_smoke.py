@@ -162,7 +162,33 @@ Phases, each fatal on failure:
     262,144 (integer-valued f32, so every product is exact) equal to the
     full-axis top-k in query chunks and, on 256 queries, to a stable
     descending sort (the lower row first among equal scores); the recall
-    pass's times at 2,048^2 and 8,192 x 262,144.
+    pass's times at 2,048^2 and 8,192 x 262,144;
+12. the large presets' path: OpenCLIP ViT-H/14 (``vit_huge`` at 14-px
+    patches: 32 blocks of 16 heads of dim 80, 257 tokens on K1; a 24-block
+    text tower of width 1024) and ViT-g/14 (``vit_giant``: 40 blocks of 16
+    heads of dim 88, 257 tokens, past K1's limit at D=88, on K3), random
+    weights from the seed, bf16. (a) One ViT-H/14 tower forward each,
+    counted exactly: K1f 32 at D=80 and K2f 64 (image), K1f 24 at D=64 and
+    K2f 48 (text). (b) One step of the pair at batch 8, both towers cut to
+    4 blocks at full width, under activation checkpointing (``remat``,
+    ``dots_no_batch``) and drop-path 0.1 with the same masks, on the card
+    against the plain versions on the CPU: the loss and every gradient at
+    phase 5's limits. (c) The full pair at batch 8 with remat and without,
+    on the card: losses and every gradient equal bit for bit. (d)
+    ``Trainer.fit`` of the pair at batch 128 under remat on ``Uint8Pairs``
+    through the ``DataLoader`` (3 warm-up steps, 3 timed windows of 5, one
+    more step): launches a step exactly (per block K1f twice, its forward
+    and its recompute; K1b's two kernels once; K2f four times; K2b twice),
+    by head dim too; every gradient of the first step finite and nonzero;
+    the loss finite; pairs/s, ms a step, peak memory, the counted FLOPs
+    (the recompute included), TFLOP/s and MFU. (e) The same fit at batch
+    64 with remat off, then on: the same checks and figures. (f) ViT-g/14 image ``encode``
+    at batch 64: exact launches (K3f 40 at D=88, K2f 80, K1 0), finite
+    embeddings, images/s; then ViT-g/16 (197 tokens: K1 at D=88), ViT-g/14
+    (K3 at D=88) and ViT-H/14 at 448 px (1,025 tokens: K3 at D=80) image
+    towers, cut to 2 blocks at full width, one forward and backward at
+    batch 4 on the card against the CPU (pooled output, loss, every
+    gradient), their launches counted exactly.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
 checks that K5 never launched there; so do the eighth to the eleventh.
@@ -173,7 +199,16 @@ where their code branches (``PACKED_LENGTHS``), and at the I-JEPA step's
 grids (teacher and student at batch 256, the predictor at 1,024 rows); in
 bf16 their output and dqkv also equal K1's on the same input bit for bit.
 They are timed at those grids beside K1, the plain version, SDPA and their
-bound; K2 is held at the predictor's width 384 too. K3
+bound; K2 is held at the predictor's width 384 too. K1 and K3 at the large
+presets' head dims 80 and 88 (``HEAD_DIM_K1_CASES``: where K1's code
+branches there and ``supports_fused``'s limits, N = 336 at D=80 and 208 at
+D=88, held to the JAX rule; K3 at N 257 and 1,000 over its four masks;
+causal or not; f32 and bf16) are held to their plain versions at batch 8,
+then in bf16 at phase 12's grids (K1 at ViT-H/14's b128 and ViT-g/16's b64,
+K3 on the packed projection at ViT-g/14's b64 at D=88 and 80; K2f and K2b
+at the presets' widths 1280, 1024 and 1408 on those rows, K2b's sums held
+to f64 and run twice for equal bits), at each kernel's limits, and timed
+there beside the plain version, the library call and the bound. K3
 (``mmlearn_tpu_torch/csrc/flash_attention.cu``) is held to its plain
 versions at batch 8 over every case (N 785, 1,000 and 2,049; no mask,
 right and left padding, a wholly masked sample; causal or not; D 32 and 64;
@@ -477,6 +512,17 @@ def reset_counts() -> None:
     for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES, fl.LAUNCHES):
         for key in table:
             table[key] = 0
+    fa.HEAD_DIM_LAUNCHES.clear()
+    fl.HEAD_DIM_LAUNCHES.clear()
+
+
+def head_dim_counts() -> dict:
+    """``{(kernel, head dim): launches}`` of K1 and K3 since the last
+    :func:`reset_counts`."""
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    return {**fa.HEAD_DIM_LAUNCHES, **fl.HEAD_DIM_LAUNCHES}
 
 
 def launch_counts() -> dict:
@@ -774,17 +820,25 @@ def kernels_at_batch(device, gen, err: dict) -> dict:
     return rows
 
 
-def norm_batch_inputs(device):
+# the towers' norms at batch 256 and the I-JEPA predictor's (1,024 x 118 =
+# 120,832 rows of 384): (label, B, N, C)
+NORM_GRIDS = (("N=197 C=768", BATCH, 197, 768), ("N=77 C=512", BATCH, 77, 512),
+              ("B=1024 N=118 C=384", 1024, 118, 384))
+# the large presets' (phase 12's grids): ViT-H/14's image tower at b128, its
+# text tower's, ViT-g/14's at b64
+LARGE_NORM_GRIDS = (("B=128 N=257 C=1280", 128, 257, 1280),
+                    ("B=128 N=77 C=1024", 128, 77, 1024),
+                    ("B=64 N=257 C=1408", 64, 257, 1408))
+
+
+def norm_batch_inputs(device, grids=NORM_GRIDS, seed: int = NORMS_SEED):
     """The inputs :func:`norms_at_batch` checks and times, from a generator
-    of their own (``NORMS_SEED``): for each of the towers' norms at batch
-    256 and the I-JEPA predictor's, ``(label, c, x, branch, dy, dr, gamma,
-    beta)``, bf16 rows and f32 weights."""
+    of their own (``seed``): for each of ``grids``, ``(label, c, x, branch,
+    dy, dr, gamma, beta)``, bf16 rows and f32 weights."""
     import torch
 
-    gen = torch.Generator(device=device).manual_seed(NORMS_SEED)
-    # the I-JEPA predictor's norms: 1,024 x 118 = 120,832 rows of 384
-    for label, b, n, c in (("N=197 C=768", BATCH, 197, 768), ("N=77 C=512", BATCH, 77, 512),
-                           ("B=1024 N=118 C=384", 1024, 118, 384)):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for label, b, n, c in grids:
         x, br, dy, dr = (torch.randn(b, n, c, generator=gen, device=device).bfloat16()
                          for _ in range(4))
         g = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
@@ -792,11 +846,12 @@ def norm_batch_inputs(device):
         yield label, c, x, br, dy, dr, g, beta
 
 
-def norms_at_batch(device, err: dict) -> dict:
-    """K2 as :func:`kernels_at_batch` holds K1, on :func:`norm_batch_inputs`;
-    K2b's column sums against their f64 evaluation (the plain version's own
-    f32 sums are further off than the limit there), and K2b run twice on one
-    input for equal bits. Returns rows as :func:`kernels_at_batch`."""
+def norms_at_batch(device, err: dict, grids=NORM_GRIDS, seed: int = NORMS_SEED) -> dict:
+    """K2 as :func:`kernels_at_batch` holds K1, on :func:`norm_batch_inputs`
+    at ``grids``; K2b's column sums against their f64 evaluation (the plain
+    version's own f32 sums are further off than the limit there), and K2b
+    run twice on one input for equal bits. Returns rows as
+    :func:`kernels_at_batch`."""
     import torch
     import torch.nn.functional as F
 
@@ -807,7 +862,7 @@ def norms_at_batch(device, err: dict) -> dict:
 
     ln_fwd, ln_bwd = tol("layernorm_fwd", "bfloat16"), tol("layernorm_bwd", "bfloat16")
     rows = {}
-    for label, c, x, br, dy, dr, g, beta in norm_batch_inputs(device):
+    for label, c, x, br, dy, dr, g, beta in norm_batch_inputs(device, grids, seed):
         tag = f"{label} bf16" if "B=" in label else f"B={BATCH} {label} bf16"
         r, y2 = fn.fused_add_layernorm(x, br, g, beta)
         worst("layernorm_fwd",
@@ -1401,6 +1456,229 @@ def flash_packed_at_grid(device, gen, err: dict) -> dict:
               f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
     del qkv, dout, out, lse, views, lx, lq, lk, lv, lib_out
     torch.cuda.empty_cache()
+    reset_counts()
+    return rows
+
+
+# ------------------------------------------------ the large presets' head dims
+
+# K1 at batch 8, (N, H, D), where its code branches at the head dims of
+# vit_huge (D=80, heads in groups of 8) and vit_giant (D=88, groups of 16):
+# whole rows of up to 128 and 224 keys, two sweeps past 224, the backward's
+# first kernel's 128, 224 and (D=80) 352 keys, and the longest that
+# supports_fused admits (336 at D=80, 208 at D=88)
+HEAD_DIM_K1_CASES = (
+    (128, 8, 80), (129, 8, 80), (224, 8, 80), (225, 8, 80), (257, 8, 80), (336, 8, 80),
+    (128, 16, 88), (129, 16, 88), (197, 16, 88), (208, 16, 88),
+)
+# K3 at batch 8: ViT-H/14's and ViT-g/14's 257 tokens and a ragged 1,000
+HEAD_DIM_K3_LENGTHS = (257, 1000)
+# the bf16 grids of phase 12: ViT-H/14's image attention on K1 (b128, N=257,
+# 16 heads of 80), ViT-g/16's on K1 (N=197, 16 heads of 88), ViT-g/14's on
+# K3 (b64, N=257, 16 heads of 88) and the same grid at D=80 on K3
+LARGE_B, GIANT_B = 128, 64
+
+
+def head_dim_kernel_checks(device, gen, err: dict) -> None:
+    """K1 and K3 at head dims 80 and 88 against their plain versions at
+    batch 8, through ``fused_mha`` / ``flash_attention`` and autograd, in
+    bf16 and f32: K1 at ``HEAD_DIM_K1_CASES`` unmasked, causal and causal
+    under a left-padded key mask (its forward and backward element-wise and
+    as a whole, at K1's limits); K3 at ``HEAD_DIM_K3_LENGTHS`` over its four
+    masks, causal or not (output, log-sum-exp, dQ, dK, dV, at K3's limits).
+    The largest errors join ``err`` under ``<kernel>_d<D>``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    b = 8
+    # supports_fused's limits at these head dims, the JAX package's
+    for h, d, n, admits in ((8, 80, 336, True), (8, 80, 337, False), (16, 88, 208, True),
+                            (16, 88, 209, False)):
+        check(fa.supports_fused(h, d, n) == admits,
+              f"supports_fused(H={h}, D={d}, N={n}) is not {admits}")
+    for d in (80, 88):
+        for key in ("fused_mha_fwd", "fused_mha_bwd", "flash_attention_fwd",
+                    "flash_attention_bwd"):
+            err.setdefault(f"{key}_d{d}", 0.0)
+    for n, h, d in HEAD_DIM_K1_CASES:
+        check(fa.supports_fused(h, d, n), f"supports_fused refuses N={n} H={h} D={d}")
+        left = torch.arange(n, device=device)[None].expand(b, n) >= (n // 3)
+        for label, m, causal in (("", None, False), ("causal ", None, True),
+                                 ("causal+left-pad mask ", left.clone(), True)):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
+                dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
+                x.requires_grad_()
+                out = fa.fused_mha(x, m, num_heads=h, causal=causal)
+                (dqkv,) = torch.autograd.grad(out, x, dout)
+                x = x.detach()
+                torch.cuda.synchronize()
+                part = {"fused_mha_fwd": 0.0, "fused_mha_bwd": 0.0}
+                k1_check(f"{label}B={b} N={n} H={h} D={d} {_dtype_name(dtype)}", x, m, h,
+                         causal, out.detach(), dqkv, dout, part)
+                for key, value in part.items():
+                    err[f"{key}_d{d}"] = max(err[f"{key}_d{d}"], value)
+    h = 4
+    for n in HEAD_DIM_K3_LENGTHS:
+        for d in (80, 88):
+            for kind in ("no mask", "right pad", "left pad", "empty sample"):
+                mask = _flash_mask(kind, b, n, device)
+                for causal in (False, True):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        dn, scale = _dtype_name(dtype), d ** -0.5
+                        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=device)
+                                       .to(dtype) for _ in range(4))
+                        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                        out = fl.flash_attention(*leaves, mask, causal=causal)
+                        grads = torch.autograd.grad(out, leaves, do)
+                        _, lse = fl._flash_fwd_cuda(q, k, v, mask, scale, causal)
+                        torch.cuda.synchronize()
+                        want, want_lse = fl.flash_fwd_reference(q, k, v, mask, scale, causal)
+                        want_b = fl.flash_bwd_reference(q, k, v, mask, out.detach(), lse, do,
+                                                        scale, causal)
+                        tag = (f"{kind}{' causal' if causal else ''} B={b} N={n} H={h} D={d} "
+                               f"{dn}")
+                        err[f"flash_attention_fwd_d{d}"] = max(
+                            err[f"flash_attention_fwd_d{d}"],
+                            compare(f"K3f flash out {tag}", out, want,
+                                    tol("flash_attention_fwd", dn),
+                                    FLASH_REL_TOL["flash_attention_fwd"][dn]))
+                        compare(f"K3f flash lse {tag}", lse, want_lse, LSE_TOL)
+                        if kind == "empty sample":
+                            mean = v[1].float().mean(dim=1, keepdim=True).expand(h, n, d)
+                            compare(f"K3f flash out of the masked sample {tag}", out[1], mean,
+                                    MASKED_ROW_TOL)
+                        err[f"flash_attention_bwd_d{d}"] = max(
+                            err[f"flash_attention_bwd_d{d}"], *(
+                                compare(f"K3b flash d{name} {tag}", got, w,
+                                        tol("flash_attention_bwd", dn),
+                                        FLASH_REL_TOL["flash_attention_bwd"][dn])
+                                for name, got, w in zip("qkv", grads, want_b)))
+                        del q, k, v, do, leaves, out, grads, want, want_b
+    torch.cuda.empty_cache()
+    reset_counts()
+
+
+def _sdpa_views(qkv, h: int):
+    """q, k, v ``(B, H, N, D)`` contiguous copies of a packed projection, as
+    leaves: the library call's own layout."""
+    b, n, three_c = qkv.shape
+    d = three_c // (3 * h)
+    return tuple(t.contiguous().requires_grad_() for t in
+                 qkv.view(b, n, h, 3, d).permute(3, 0, 2, 1, 4).unbind(0))
+
+
+def head_dim_grids(device, gen, err: dict) -> dict:
+    """K1 and K3 in bf16 at the large presets' grids (phase 12's): K1 at
+    ViT-H/14's (B=128, N=257, 16 heads of 80) and at ViT-g/16's (B=64,
+    N=197, 16 heads of 88); K3 on the packed projection at ViT-g/14's (B=64,
+    N=257, 16 heads of 88) and at the same grid with 16 heads of 80. Each
+    forward and backward against its plain version (element-wise and as a
+    whole), then timed beside the plain version, SDPA (a yardstick the port
+    never calls; its backward through autograd) and its bound. Returns rows
+    as :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+
+    rows = {}
+    for label, b, n, h, d in ((f"ViT-H/14 B={LARGE_B} N=257 H=16 D=80", LARGE_B, 257, 16, 80),
+                              (f"ViT-g/16 B={GIANT_B} N=197 H=16 D=88", GIANT_B, 197, 16, 88)):
+        scale = d ** -0.5
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=device).bfloat16()
+        dout = torch.randn(b, n, h * d, generator=gen, device=device).bfloat16()
+        out = fa._fused_mha_cuda(qkv, None, h, scale, False)
+        dqkv = fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False)
+        torch.cuda.synchronize()
+        part = {"fused_mha_fwd": 0.0, "fused_mha_bwd": 0.0}
+        k1_check(f"{label} bf16", qkv, None, h, False, out, dqkv, dout, part)
+        for key, value in part.items():
+            err[f"{key}_d{d}"] = max(err[f"{key}_d{d}"], value)
+        del dqkv
+        q, k, v = _sdpa_views(qkv, h)
+        lib_out = F.scaled_dot_product_attention(q, k, v)
+        lib_dout = dout.view(b, n, h, d).transpose(1, 2).contiguous()
+        pairs = b * n * n
+        rows[f"K1f {label}"] = (
+            cuda_ms(lambda: fa.fused_mha(qkv, None, num_heads=h)),
+            cuda_ms(lambda: fa.mha_reference(qkv, None, h, scale, False), iters=5),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            *bound(nbytes(qkv, out), 4 * h * d * pairs, "bfloat16"),
+        )
+        rows[f"K1b {label}"] = (
+            cuda_ms(lambda: fa._fused_mha_bwd_cuda(qkv, None, out, dout, h, scale, False)),
+            cuda_ms(lambda: fa.mha_bwd_reference(qkv, None, out, dout, h, scale, False),
+                    iters=3, warmup=1),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_dout,
+                                                retain_graph=True)),
+            *bound(nbytes(qkv, out, dout, qkv), 10 * h * d * pairs, "bfloat16"),
+        )
+        del qkv, dout, out, q, k, v, lib_out, lib_dout
+        torch.cuda.empty_cache()
+    for d in (88, 80):
+        b, n, h = GIANT_B, 257, 16
+        label = f"ViT-g/14 B={b} N=257 H=16 D={d} packed"
+        scale = d ** -0.5
+        qkv = torch.randn(b, n, h * 3 * d, generator=gen, device=device).bfloat16()
+        dout = torch.randn(b, n, h * d, generator=gen, device=device).bfloat16()
+        x = qkv.clone().requires_grad_()
+        reset_counts()
+        out = fl.flash_attention_qkv(x, num_heads=h)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 1,
+              f"flash_attention_qkv launched {counts}")
+        q, k, v = fl.split_qkv(qkv, h)
+        do = dout.view(b, n, h, d).transpose(1, 2)
+        out_v = out.detach().view(b, n, h, d).transpose(1, 2)
+        _, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+
+        def plain_fwd():
+            return fl.flash_fwd_reference(q, k, v, None, scale, False)
+
+        def plain_bwd():
+            return fl.flash_bwd_reference(q, k, v, None, out_v, lse, do, scale, False)
+
+        want, want_lse = plain_fwd()
+        err[f"flash_attention_fwd_d{d}"] = max(err[f"flash_attention_fwd_d{d}"], compare(
+            f"K3f flash out {label} bf16", out_v, want, tol("flash_attention_fwd",
+                                                                "bfloat16"),
+            FLASH_REL_TOL["flash_attention_fwd"]["bfloat16"]))
+        compare(f"K3f flash lse {label} bf16", lse, want_lse, LSE_TOL)
+        del want, want_lse
+        dqkv = x.grad.view(b, n, h, 3, d)
+        for i, w in enumerate(plain_bwd()):
+            err[f"flash_attention_bwd_d{d}"] = max(err[f"flash_attention_bwd_d{d}"], compare(
+                f"K3b flash d{'qkv'[i]} written in place {label} bf16",
+                dqkv[:, :, :, i].transpose(1, 2), w, tol("flash_attention_bwd", "bfloat16"),
+                FLASH_REL_TOL["flash_attention_bwd"]["bfloat16"]))
+        del x, dqkv
+        views = torch.empty(b, n, h, 3, d, dtype=qkv.dtype, device=device)
+        views = views.permute(3, 0, 2, 1, 4).unbind(0)
+        lq, lk, lv = _sdpa_views(qkv, h)
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+        pairs = b * n * n
+        rows[f"K3f {label}"] = (
+            cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False)),
+            cuda_ms(plain_fwd, iters=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv)),
+            *bound(nbytes(q, k, v, out_v, lse), 4 * h * d * pairs, "bfloat16"),
+        )
+        rows[f"K3b {label}"] = (
+            cuda_ms(lambda: fl._flash_bwd_cuda(q, k, v, None, out_v, lse, do, scale, False,
+                                               grads=views)),
+            cuda_ms(plain_bwd, iters=3, warmup=1),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)),
+            *bound(nbytes(q, k, v, out_v, do, lse, q, k, v), 10 * h * d * pairs, "bfloat16"),
+        )
+        del qkv, dout, out, lse, views, lq, lk, lv, lib_out, q, k, v, do, out_v
+        torch.cuda.empty_cache()
+    print_times(rows)
     reset_counts()
     return rows
 
@@ -3405,6 +3683,338 @@ def eval_path(device, trained, ckpt_dir: str) -> dict:
     return counts
 
 
+# ------------------------------------------------- the large presets' path
+
+# phase 12: OpenCLIP ViT-H/14 (vit_huge, 16 heads of 80, 257 tokens on K1)
+# and ViT-g/14 (vit_giant, 16 heads of 88, 257 tokens on K3), random
+# weights from SEED. The CPU comparisons keep LARGE_CPU_DEPTH blocks a
+# tower at full width; the fit runs at LARGE_FIT_BATCH on Uint8Pairs through
+# the DataLoader (distinct batches: 32 a pass at b128)
+LARGE_CPU_DEPTH, LARGE_DROP_PATH, LARGE_FIT_BATCH, LARGE_MEM_BATCH = 4, 0.1, 128, 64
+GIANT_ENCODE_BATCH, TOWER_PARITY_BATCH, TOWER_CPU_DEPTH = 64, 4, 2
+LARGE_WINDOW_STEPS = 5
+
+
+def large_launches(task, remat: bool) -> dict:
+    """Launches a step of a pair trained on K1 (every block's attention):
+    per block K1f once (twice under remat: its recompute), K1b's two kernels
+    once, K2f twice (four times under remat), K2b twice."""
+    depth = sum(len(enc.blocks) for enc in task.encoders.values())
+    k = 2 if remat else 1
+    return {"fused_mha_fwd": k * depth, "fused_mha_bwd": 2 * depth, "fused_mha_packed_fwd": 0,
+            "fused_mha_packed_bwd": 0, "layernorm_fwd": 2 * k * depth,
+            "layernorm_bwd": 2 * depth, "int8_qmm": 0, "int8_qmm_bytes": 0, **NO_FLASH}
+
+
+def large_step(task, batch, source_seed=None):
+    """``task.loss_fn(batch)`` and its backward, the masks drawn from a CPU
+    source seeded ``source_seed`` (the same draws for every device; none
+    without a seed). Returns the loss."""
+    from mmlearn_tpu_torch.modules.layers.dropout import MaskSource, masks_from
+
+    source = None if source_seed is None else MaskSource(source_seed, "cpu")
+    with masks_from(source):
+        loss, _ = task.loss_fn(batch)
+    loss.backward()
+    return loss
+
+
+def vit_h14_parity(device) -> None:
+    """Phase 12 (b): one step of the ViT-H/14 pair at b8, both towers cut to
+    ``LARGE_CPU_DEPTH`` blocks at full width, under remat and drop-path 0.1
+    (the same masks on both sides), on the card against the plain versions
+    on the CPU: the loss and every gradient at phase 5's limits."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import synthetic_batch, vit_h14_training_task
+
+    batch = synthetic_batch(PARITY_BATCH, torch.Generator().manual_seed(SEED + 51), "cpu")
+    master = vit_h14_training_task("cpu", SEED, drop_path_rate=LARGE_DROP_PATH,
+                                   image_depth=LARGE_CPU_DEPTH, text_depth=LARGE_CPU_DEPTH)
+    losses, grads = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        task = copy.deepcopy(master).to(dev) if where == "card" else master
+        loss = large_step(task, {k: v.to(dev) for k, v in batch.items()}, (SEED, 52))
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()}
+        print(f"large path: ViT-H/14 step b={PARITY_BATCH} depth {LARGE_CPU_DEPTH}+"
+              f"{LARGE_CPU_DEPTH}, remat, drop-path {LARGE_DROP_PATH}, on the {where}: loss "
+              f"{losses[where]:.6f} ({time.perf_counter() - t0:.1f} s)")
+    del task, master
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(cos, key=cos.get)
+    print(f"large path: ViT-H/14 step parity, card vs CPU: loss rel diff {rel:.3e} (tol "
+          f"{LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, median "
+          f"{statistics.median(cos.values()):.6f} over {len(cos)} tensors (bound "
+          f"{MIN_GRAD_COSINE})")
+    check(rel <= LOSS_RTOL, f"ViT-H/14 loss on the card {losses['card']} vs CPU {losses['cpu']}")
+    check(cos[worst] >= MIN_GRAD_COSINE, f"ViT-H/14 gradient of {worst}: cosine {cos[worst]}")
+
+
+def remat_equal(task, device) -> None:
+    """Phase 12 (c): the full-depth ViT-H/14 pair at b8 on the card with
+    drop-path 0.1 on the image tower, one step with remat and one without on
+    the same weights, batch and masks: the losses and every gradient equal
+    bit for bit (the recompute runs the same kernels on the same inputs, and
+    the saved products are the forward's own)."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.flagship import synthetic_batch
+
+    batch = synthetic_batch(PARITY_BATCH, torch.Generator(device=device).manual_seed(SEED + 53),
+                            device)
+    blocks = task.encoders["rgb"].blocks
+    rates = np.linspace(0, LARGE_DROP_PATH, len(blocks))
+    for block, r in zip(blocks, rates):
+        block.drop_path_rate = float(r)
+    runs = {}
+    for remat in (True, False):
+        for enc in task.encoders.values():
+            enc.blocks.remat = remat
+        task.zero_grad(set_to_none=True)
+        loss = large_step(task, batch, (SEED, 54))
+        runs[remat] = (loss.detach().clone(),
+                       {n: p.grad.clone() for n, p in task.named_parameters()})
+    for block in blocks:
+        block.drop_path_rate = 0.0
+    for enc in task.encoders.values():
+        enc.blocks.remat = True
+    task.zero_grad(set_to_none=True)
+    same_loss = torch.equal(runs[True][0], runs[False][0])
+    differ = [n for n in runs[True][1] if not torch.equal(runs[True][1][n], runs[False][1][n])]
+    print(f"large path: ViT-H/14 b{PARITY_BATCH} remat on vs off (drop-path "
+          f"{LARGE_DROP_PATH}, the same masks): loss {runs[True][0].item():.6f} / "
+          f"{runs[False][0].item():.6f} bit-equal {same_loss}; gradients bit-equal at "
+          f"{len(runs[True][1]) - len(differ)} of {len(runs[True][1])} tensors")
+    check(same_loss and not differ, f"remat changes the step: loss equal {same_loss}, "
+          f"gradients differ at {differ[:10]}")
+
+
+def tower_parity(make, device, label: str, images_px: int) -> dict:
+    """One forward and backward of an image tower (``make(device)``, cut to
+    ``TOWER_CPU_DEPTH`` blocks at full width) at ``TOWER_PARITY_BATCH`` on the
+    card against the plain versions on the CPU, the loss ``sum(pooled *
+    probe)`` for a fixed probe: the pooled output, the loss and every
+    gradient at phase 5's limits. The card's run is counted from 0; returns
+    its launches by head dim."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 55)
+    x = torch.randn(TOWER_PARITY_BATCH, images_px, images_px, 3, generator=g).bfloat16()
+    master = make("cpu")
+    probe = torch.randn(master.config["proj_dim"], generator=g)
+    outs, grads = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        tower = copy.deepcopy(master).to(dev).train() if where == "card" else master.train()
+        if where == "card":
+            reset_counts()
+        pooled = tower(x.to(dev)).pooler_output
+        loss = (pooled.float() * probe.to(dev)).sum()
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            counts = head_dim_counts()
+        outs[where] = (pooled.detach().float().cpu(), loss.item())
+        grads[where] = {n: p.grad.float().cpu() for n, p in tower.named_parameters()}
+    del tower, master
+    cos = _cosine(outs["card"][0], outs["cpu"][0])
+    rel = abs(outs["card"][1] - outs["cpu"][1]) / max(abs(outs["cpu"][1]), 1e-6)
+    gcos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(gcos, key=gcos.get)
+    print(f"large path: {label} image tower b{TOWER_PARITY_BATCH} depth {TOWER_CPU_DEPTH}, card "
+          f"vs CPU: pooled cosine {cos:.6f}, loss {outs['card'][1]:.6f} / {outs['cpu'][1]:.6f}; "
+          f"gradient cosine min {gcos[worst]:.6f} at {worst} over {len(gcos)} tensors; "
+          f"launches {counts}")
+    check(cos >= MIN_GRAD_COSINE and gcos[worst] >= MIN_GRAD_COSINE,
+          f"{label} tower card vs CPU: pooled cosine {cos}, gradient {worst} {gcos[worst]}")
+    return counts
+
+
+def large_fit(task, device, batch_size: int, remat: bool) -> tuple[dict, dict]:
+    """Phase 12 (d, e): ``Trainer.fit`` of the ViT-H/14 pair at ``batch_size``
+    with both towers' remat set to ``remat``, on ``Uint8Pairs`` through the
+    ``DataLoader`` (normalized on the card), every count set to 0 first: 3
+    warm-up steps, 3 timed windows of 5, one more step. Checks the launches
+    a step exactly (by head dim too), every gradient of the first step
+    finite and nonzero and the loss finite; prints pairs/s, ms a step, the
+    peak memory of the fit (weights, gradients and AdamW's moments
+    included), the counted FLOPs, TFLOP/s and MFU. Returns the launches and
+    their counts by head dim."""
+    import math
+
+    import torch
+
+    from mmlearn_tpu_torch.datasets.core import DataLoader
+    from mmlearn_tpu_torch.trainer import Trainer
+    from mmlearn_tpu_torch.trainer.flops import device_peak_tflops
+
+    for enc in task.encoders.values():
+        enc.blocks.remat = remat
+    task.zero_grad(set_to_none=True)
+    loader = DataLoader(Uint8Pairs(SEED + 56), batch_size=batch_size, shuffle=True,
+                        seed=SEED, drop_last=True, num_workers=INPUT_WORKERS)
+    marks = [WARMUP_STEPS + i * LARGE_WINDOW_STEPS for i in range(WINDOWS + 1)]
+    steps = marks[-1] + 1
+    trainer = Trainer(max_steps=steps, log_every_n_steps=steps, device=device, log_mfu=True,
+                      device_normalize=input_normalize())
+    probe = InputProbe(marks, first_grads=True)
+    probe.label = f"large path: ViT-H/14 fit b{batch_size} remat {'on' if remat else 'off'}"
+    trainer.callbacks.append(probe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    state = trainer.fit(task, loader)
+    torch.cuda.synchronize()
+    counts, dims = launch_counts(), head_dim_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = large_launches(task, remat)
+    k = 2 if remat else 1
+    want_dims = {("fused_mha_fwd", 80): 32 * k, ("fused_mha_bwd", 80): 64,
+                 ("fused_mha_fwd", 64): 24 * k, ("fused_mha_bwd", 64): 48}
+    print(f"{probe.label}: {state.step} steps launched " + ", ".join(
+        f"{key} {v} ({v / state.step:g} a step, want {want[key]})" for key, v in counts.items())
+          + f"; by head dim {dims}")
+    check(counts == {key: v * state.step for key, v in want.items()},
+          f"ViT-H/14 fit launches {counts}, want {want} a step")
+    check(dims == {key: v * state.step for key, v in want_dims.items()},
+          f"ViT-H/14 fit launches by head dim {dims}, want {want_dims} a step")
+    losses = [h["loss"] for h in trainer.history]
+    check(all(math.isfinite(x) for x in losses), f"ViT-H/14 fit losses {losses}")
+    window_s = [probe.times[b] - probe.times[a] for a, b in zip(marks, marks[1:])]
+    rates = [batch_size * LARGE_WINDOW_STEPS / w for w in window_s]
+    median = statistics.median(rates)
+    ms = statistics.median(window_s) / LARGE_WINDOW_STEPS * 1e3
+    flops = trainer._step_flops
+    tflops = flops / (ms / 1e3) / 1e12
+    peak = device_peak_tflops(device)
+    print(f"{probe.label}{' (dots_no_batch)' if remat else ''}: loss step 0 {losses[0]:.6f}, "
+          f"step {len(losses) - 1} {losses[-1]:.6f}; {median:.1f} pairs/s median of {WINDOWS} "
+          f"windows of {LARGE_WINDOW_STEPS} steps (windows {', '.join(f'{r:.1f}' for r in rates)}"
+          f"; spread {(max(rates) - min(rates)) / median:.2%}), {ms:.2f} ms a step, peak memory "
+          f"{peak_gb:.2f} GB; {flops:.6e} FLOPs a step counted (any recompute included), "
+          f"{tflops:.1f} TFLOP/s, MFU "
+          f"{'not in the table' if peak is None else f'{tflops / peak:.2%} of {peak:g}'}")
+    del trainer, state, loader
+    return counts, dims
+
+
+def large_path(device) -> tuple[dict, dict]:
+    """Phase 12, the large presets. Returns the launch counts of its main
+    runs, and their launches by (kernel, head dim)."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import (
+        synthetic_batch,
+        vit_g14_task,
+        vit_h14_training_task,
+    )
+
+    by_dim: dict = {}
+    totals: dict = {}
+
+    def add(counts, dims):
+        for key, v in counts.items():
+            totals[key] = totals.get(key, 0) + v
+        for key, v in dims.items():
+            by_dim[key] = by_dim.get(key, 0) + v
+
+    t0 = time.perf_counter()
+    master = vit_h14_training_task("cpu", SEED)
+    n_img = sum(p.numel() for p in master.encoders["rgb"].parameters())
+    n_txt = sum(p.numel() for p in master.encoders["text"].parameters())
+    print(f"large path: ViT-H/14 pair built on the CPU in {time.perf_counter() - t0:.1f} s: image "
+          f"{n_img:,} parameters, text {n_txt:,}")
+    task = master.to(device)
+    del master
+
+    # (a) one tower forward each, counted exactly
+    batch = synthetic_batch(PARITY_BATCH, torch.Generator(device=device).manual_seed(SEED + 50),
+                            device)
+    for mod, depth, d in (("rgb", 32, 80), ("text", 24, 64)):
+        reset_counts()
+        with torch.no_grad():
+            task.encode(batch, mod)
+        torch.cuda.synchronize()
+        counts, dims = launch_counts(), head_dim_counts()
+        print(f"large path: one ViT-H/14 {mod} tower forward b{PARITY_BATCH} launched {counts}, "
+              f"by head dim {dims}")
+        check(dims == {("fused_mha_fwd", d): depth} and counts["layernorm_fwd"] == 2 * depth
+              and sum(counts.values()) == 3 * depth,
+              f"{mod} tower forward launched {counts} {dims}, want K1f {depth} at D={d} and "
+              f"K2f {2 * depth}")
+        add(counts, dims)
+
+    # (b) card vs CPU under remat and drop-path, (c) remat on against off
+    vit_h14_parity(device)
+    remat_equal(task, device)
+
+    # (d) Trainer.fit at b128 under remat on distinct host batches; (e) at b64
+    # with remat off and on
+    for batch_size, remat in ((LARGE_FIT_BATCH, True), (LARGE_MEM_BATCH, False),
+                              (LARGE_MEM_BATCH, True)):
+        add(*large_fit(task, device, batch_size, remat))
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) ViT-g/14: encode at b64 on K3 (D=88); ViT-g/16 and ViT-g/14 image
+    # towers forward and backward against the CPU (K1 and K3 at D=88)
+    t0 = time.perf_counter()
+    giant = vit_g14_task(device, SEED)
+    print(f"large path: ViT-g/14 pair built in {time.perf_counter() - t0:.1f} s: image "
+          f"{sum(p.numel() for p in giant.encoders['rgb'].parameters()):,} parameters")
+    images = torch.randn(GIANT_ENCODE_BATCH, 224, 224, 3, device=device,
+                         generator=torch.Generator(device=device).manual_seed(SEED + 58)
+                         ).bfloat16()
+    reset_counts()
+    with torch.no_grad():
+        emb = giant.encode({"rgb": images}, "rgb", normalize=True)
+    torch.cuda.synchronize()
+    counts, dims = launch_counts(), head_dim_counts()
+    print(f"large path: ViT-g/14 image encode b{GIANT_ENCODE_BATCH} launched {counts}, by head "
+          f"dim {dims}")
+    check(dims == {("flash_fwd", 88): 40} and counts["layernorm_fwd"] == 80
+          and counts["fused_mha_fwd"] == 0 and sum(counts.values()) == 120,
+          f"ViT-g/14 encode launched {counts} {dims}, want K3f 40 at D=88, K2f 80, K1 0")
+    check(bool(emb.float().isfinite().all()) and emb.shape == (GIANT_ENCODE_BATCH, 1024),
+          f"ViT-g/14 embeddings {tuple(emb.shape)} not finite")
+    add(counts, dims)
+    with torch.no_grad():
+        ms_enc = cuda_ms(lambda: giant.encode({"rgb": images}, "rgb"), iters=5, warmup=1)
+    print(f"large path: ViT-g/14 image encode b{GIANT_ENCODE_BATCH}: "
+          f"{GIANT_ENCODE_BATCH / ms_enc * 1e3:.1f} images/s ({ms_enc:.2f} ms a batch)")
+    del giant, images, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, make, px, want_dims in (
+        ("ViT-g/16", lambda dev: vit_g14_task(dev, SEED, patch_size=16,
+                                              image_depth=TOWER_CPU_DEPTH,
+                                              text_depth=1).encoders["rgb"], 224,
+         {("fused_mha_fwd", 88): TOWER_CPU_DEPTH, ("fused_mha_bwd", 88): 2 * TOWER_CPU_DEPTH}),
+        ("ViT-g/14", lambda dev: vit_g14_task(dev, SEED, image_depth=TOWER_CPU_DEPTH,
+                                              text_depth=1).encoders["rgb"], 224,
+         {("flash_fwd", 88): TOWER_CPU_DEPTH, ("flash_bwd_dq", 88): TOWER_CPU_DEPTH,
+          ("flash_bwd_dkv", 88): TOWER_CPU_DEPTH}),
+        # (g) ViT-H/14 at 448 px: 1,025 tokens, past K1's limit at D=80
+        ("ViT-H/14 448 px", lambda dev: vit_h14_training_task(
+            dev, SEED, remat=False, image_depth=TOWER_CPU_DEPTH, text_depth=1,
+            image_size=448).encoders["rgb"], 448,
+         {("flash_fwd", 80): TOWER_CPU_DEPTH, ("flash_bwd_dq", 80): TOWER_CPU_DEPTH,
+          ("flash_bwd_dkv", 80): TOWER_CPU_DEPTH}),
+    ):
+        dims = tower_parity(make, device, label, px)
+        check(dims == want_dims, f"{label} tower launched {dims}, want {want_dims}")
+        add(launch_counts(), dims)
+        gc.collect()
+        torch.cuda.empty_cache()
+    reset_counts()
+    return totals, by_dim
+
+
 def main() -> int:
     import torch
 
@@ -3461,6 +4071,13 @@ def main() -> int:
     times.update(int8_at_batch(device, gen))
     times.update(flash_at_grids(device, gen, errors))
     times.update(flash_packed_at_grid(device, gen, errors))
+    # K1 and K3 at the large presets' head dims, from generators of their own
+    t0 = time.perf_counter()
+    head_dim_kernel_checks(device, torch.Generator(device=device).manual_seed(SEED + 60), errors)
+    times.update(norms_at_batch(device, errors, LARGE_NORM_GRIDS, SEED + 62))
+    times.update(head_dim_grids(device, torch.Generator(device=device).manual_seed(SEED + 61),
+                                errors))
+    print(f"K1 and K3 at D=80 and 88 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving = main_path(device)
     check(launch_counts()["int8_qmm"] == launch_counts()["int8_qmm_bytes"] == 0,
@@ -3494,12 +4111,17 @@ def main() -> int:
     eval_launches = eval_path(device, trained, trained_dir)
     del trained
     print(f"eval path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    large_launches_run, large_by_dim = large_path(device)
+    check(large_launches_run.get("int8_qmm", 0) == large_launches_run.get("int8_qmm_bytes", 0)
+          == 0, f"K5 launched on the large presets' path without {QUANT_ENV}")
+    print(f"large presets' path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
-                   input_launches, eval_launches):
+                   input_launches, eval_launches, large_launches_run):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]
@@ -3539,12 +4161,34 @@ def main() -> int:
                                 "mmlearn_tpu/ops/flash_attention.py:267",
                                 "K3b image N=785 packed", ("flash_bwd_dkv", "flash_bwd_dq")),
     }
+    # the large presets' head dims: launches of phase 12's runs at that head dim
+    for d, k1_row in ((80, f"ViT-H/14 B={LARGE_B} N=257 H=16 D=80"),
+                      (88, f"ViT-g/16 B={GIANT_B} N=197 H=16 D=88")):
+        k3_row = f"ViT-g/14 B={GIANT_B} N=257 H=16 D={d} packed"
+        rows[f"fused_mha_fwd_d{d}"] = (
+            "cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
+            "mmlearn_tpu/ops/fused_attention.py:173", f"K1f {k1_row}", (("fused_mha_fwd", d),))
+        rows[f"fused_mha_bwd_d{d}"] = (
+            "cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
+            "mmlearn_tpu/ops/fused_attention.py:207", f"K1b {k1_row}", (("fused_mha_bwd", d),))
+        rows[f"flash_attention_fwd_d{d}"] = (
+            "cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
+            "mmlearn_tpu/ops/flash_attention.py:76", f"K3f {k3_row}", (("flash_fwd", d),))
+        rows[f"flash_attention_bwd_d{d}"] = (
+            "cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
+            "mmlearn_tpu/ops/flash_attention.py:267", f"K3b {k3_row}",
+            (("flash_bwd_dkv", d), ("flash_bwd_dq", d)))
+    launches.update(large_by_dim)
+    for name in rows:
+        if name.endswith(("_d80", "_d88")):
+            check(sum(launches.get(c, 0) for c in rows[name][4]) > 0,
+                  f"{name} was never launched on phase 12's main path")
     kernels = []
     for name, (route, source, replaces, row, counts) in rows.items():
         ms, plain, lib_ms, bound_ms, bound_by = times[row]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": sum(launches[c] for c in counts), "max_abs_err": errors[name],
+            "launches": sum(launches.get(c, 0) for c in counts), "max_abs_err": errors[name],
             "ms": ms,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,

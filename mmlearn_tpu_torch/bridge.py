@@ -10,12 +10,18 @@ modules, so a path maps to a ``state_dict`` key by four rules:
   layer along a leading depth axis and unstacks to ``blocks.{i}.<rest>``;
   per-layer ``blocks_{i}/<rest>`` maps to the same key;
 - Dense ``kernel`` ``(in, out)`` is the transpose of Linear ``weight``;
-- the patch conv's HWIO ``kernel`` ``(kh, kw, cin, out)`` becomes
-  ``(out, kh, kw, cin)``;
-- LayerNorm ``scale`` and Embed ``embedding`` are named ``weight``.
+- a conv's HWIO ``kernel`` ``(kh, kw, cin, out)`` (the patch embedding's,
+  ``ConvEmbed``'s) becomes ``(out, kh, kw, cin)``;
+- LayerNorm ``scale`` and Embed ``embedding`` (the token and token-type
+  tables) are named ``weight``.
 
-The reverse (:func:`torch_to_jax`) writes the per-layer ``blocks_{i}``
-layout. An I-JEPA task's trees (``params = {"encoder", "predictor"}`` and
+Other leaves keep their names: biases, ``pos_embed``, ``cls_token``,
+``log_logit_scale``. A patch embedding or projection without a bias has
+none on either side. A block under ``nn.remat`` keeps its path (flax names
+the wrapped module as given: ``blocks_{i}``, or ``block`` in the scanned
+body). The reverse (:func:`torch_to_jax`) writes the per-layer
+``blocks_{i}`` layout, or with ``scanned=True`` the scanned stack's. An
+I-JEPA task's trees (``params = {"encoder", "predictor"}`` and
 the teacher in ``extras["ema_encoder"]``) cross with
 :func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. A whole JAX
 train state, with its AdamW moments, schedule position and accumulated
@@ -34,7 +40,7 @@ from torch import nn
 
 from mmlearn_tpu_torch.modules.encoders.text import Embed
 from mmlearn_tpu_torch.modules.layers.dense import Dense
-from mmlearn_tpu_torch.modules.layers.embedding import PatchProj
+from mmlearn_tpu_torch.modules.layers.embedding import Conv, PatchProj
 from mmlearn_tpu_torch.modules.layers.normalization import AffineNorm
 
 _SCANNED = "block_stack/blocks/block/"
@@ -81,8 +87,11 @@ def jax_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def torch_to_jax(module: nn.Module) -> dict[str, np.ndarray]:
-    """A port module's parameters as flat JAX paths (per-layer blocks)."""
+def torch_to_jax(module: nn.Module, scanned: bool = False) -> dict[str, np.ndarray]:
+    """A port module's parameters as flat JAX paths: per-layer blocks
+    (``blocks_{i}/...``), or with ``scanned`` each stack's blocks stacked
+    along a leading depth axis under ``block_stack/blocks/block/...``, the
+    layout of a tower built with ``scan_blocks=True``."""
     flat: dict[str, np.ndarray] = {}
     for name, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
@@ -91,7 +100,7 @@ def torch_to_jax(module: nn.Module) -> dict[str, np.ndarray]:
             if pname == "weight":
                 if isinstance(mod, Dense):
                     leaf, arr = "kernel", arr.T
-                elif isinstance(mod, PatchProj):
+                elif isinstance(mod, (PatchProj, Conv)):
                     leaf, arr = "kernel", arr.transpose(1, 2, 3, 0)
                 elif isinstance(mod, AffineNorm):
                     leaf = "scale"
@@ -101,7 +110,23 @@ def torch_to_jax(module: nn.Module) -> dict[str, np.ndarray]:
             flat["/".join([*filter(None, path.split(".")), leaf])] = (
                 np.ascontiguousarray(arr)
             )
-    return flat
+    return _stack_blocks(flat) if scanned else flat
+
+
+def _stack_blocks(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Per-layer ``<head>blocks_{i}/<rest>`` leaves stacked in block order
+    into ``<head>block_stack/blocks/block/<rest>``."""
+    out: dict[str, np.ndarray] = {}
+    layers: dict[tuple[str, str], dict[int, np.ndarray]] = {}
+    for path, arr in flat.items():
+        m = re.match(r"^(.*?)blocks_(\d+)/(.*)$", path)
+        if m is None:
+            out[path] = arr
+        else:
+            layers.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = arr
+    for (head, rest), by_layer in layers.items():
+        out[f"{head}{_SCANNED}{rest}"] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return out
 
 
 def ijepa_jax_to_torch(

@@ -76,6 +76,13 @@
 // into the three views of a packed (B, N, H, 3, D) buffer, the gradient of
 // the packed projection. f32 keeps full f32 arithmetic: a scalar kernel, one
 // thread a row (or key).
+// Head dims 32 and 64 keep one swizzle span a tile row (Tile). At 80 and 88
+// (vit_huge, vit_giant) a 160- or 176-byte row is three spans of 32 columns,
+// each a sub-tile of its own, a TMA box and a 64-byte swizzle; the last box
+// reaches column 96 past the tensor map's extent D, so TMA lands zeros there
+// (no host-side padded copy). The contractions over D take their k16 slices
+// span by span (5 at D = 80, 6 at 88); the products over D are one N = 32
+// wgmma a span (96 columns, those past D never written).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -137,23 +144,102 @@ struct MapDims {
   int n, h, b;
 };
 
+// A tile: 64 rows of an operand, in column spans of one swizzle each. At D =
+// 32 and 64 one span (rows of 64 or 128 bytes, the swizzle of that width).
+// At D = 80 and 88 three spans of 32 columns (64-byte rows, 64-byte
+// swizzle), each its own TMA box and its own 4 KB sub-tile, the last
+// reaching column 96: TMA fills the columns past D with zeros, so the
+// contraction over D reads zeros there, and the products over D (N = 32 a
+// span) make columns past D that are never written out. Every wgmma
+// operand then lies in one span: a K-major k16 slice of the contraction
+// over D in the span that holds its 16 columns, an MN-major one (rows the
+// contraction, D the product's N) one N = span product a span.
 template <int D>
 struct Tile {
-  static constexpr int kRowBytes = 2 * D;            // one swizzle span
-  static constexpr int kBytes = kTile * kRowBytes;   // a multiple of 1024
+  static constexpr int kSpanCols = D <= 64 ? D : 32;
+  static constexpr int kSpans = (D + kSpanCols - 1) / kSpanCols;
+  static constexpr int kRowBytes = 2 * kSpanCols;       // a span's row: one swizzle span
+  static constexpr int kSpanBytes = kTile * kRowBytes;  // a multiple of 1024
+  static constexpr int kBytes = kSpans * kSpanBytes;
   static constexpr int kSliceRows = 16 * kRowBytes;  // bytes of 16 rows: one k16 slice, MN-major
+  static constexpr int kSlices = (D + 15) / 16;      // k16 slices of the contraction over D
+  static constexpr int kAcc = kSpanCols / 2;         // f32 accumulators a thread, a span
   static __device__ __forceinline__ uint64_t desc(const uint8_t* tile) {
     return tile_desc<kRowBytes>(tile);
   }
+  // bytes from a tile's descriptor to k16 slice kc of the contraction over D
+  __host__ __device__ static constexpr uint32_t slice(int kc) {
+    return (kc / (kSpanCols / 16)) * kSpanBytes + 32 * (kc % (kSpanCols / 16));
+  }
+  // bytes from a tile's descriptor to rows 16 kc .. 16 kc + 15 of span sp,
+  // read MN-major
+  __host__ __device__ static constexpr uint32_t rows(int sp, int kc) {
+    return sp * kSpanBytes + kc * kSliceRows;
+  }
 };
 
-// rows row .. row + 63 of head h of sample b, by TMA
-__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, MapDims md,
+// rows row .. row + 63 of head h of sample b, by TMA: one box a span
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, MapDims md,
                                           uint64_t* bar, int row, int h, int b) {
   const int c1 = md.n == 1 ? row : md.h == 1 ? h : b;
   const int c2 = md.n == 2 ? row : md.h == 2 ? h : b;
   const int c3 = md.n == 3 ? row : md.h == 3 ? h : b;
-  tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+#pragma unroll
+  for (int sp = 0; sp < Tile<D>::kSpans; ++sp)
+    tma_load_4d(dst + sp * Tile<D>::kSpanBytes, map, bar, sp * Tile<D>::kSpanCols, c1, c2, c3);
+}
+
+// one accumulator of a (64, D) product: kSpans spans of N = kSpanCols
+template <int D>
+using Acc = float[Tile<D>::kSpans][Tile<D>::kAcc];
+
+template <int D>
+__device__ __forceinline__ void zero_acc(Acc<D>& r) {
+#pragma unroll
+  for (int sp = 0; sp < Tile<D>::kSpans; ++sp)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::kAcc; ++i) r[sp][i] = 0.f;
+}
+template <int D>
+__device__ __forceinline__ void fence_acc(Acc<D>& r) {
+#pragma unroll
+  for (int sp = 0; sp < Tile<D>::kSpans; ++sp) fence_regs(r[sp]);
+}
+// acc += A B over the 64 rows (keys or queries) of a tile whose rows are
+// the contraction, read MN-major at descriptor b, A the four k16 slices in
+// registers
+template <int D>
+__device__ __forceinline__ void rs_product(Acc<D>& acc, const uint32_t (&a)[kTile / 16][4],
+                                           uint64_t b) {
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc)
+#pragma unroll
+    for (int sp = 0; sp < Tile<D>::kSpans; ++sp)
+      Mma<Tile<D>::kSpanCols>::template rs<1>(acc[sp], a[kc], desc_add(b, Tile<D>::rows(sp, kc)),
+                                              1);
+}
+// acc (f32, rows row_lo and row_hi of this thread) rounded to bf16 into the
+// rows of an (n, D) operand with row stride ld: columns below D only
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* x, long long ld, const Acc<D>& acc, int row_lo,
+                                          int row_hi, int rows, int t, float s_lo = 1.f,
+                                          float s_hi = 1.f, bool divide = false) {
+#pragma unroll
+  for (int sp = 0; sp < Tile<D>::kSpans; ++sp) {
+#pragma unroll
+    for (int c = 0; c < Tile<D>::kSpanCols / 8; ++c) {
+      const int col = sp * Tile<D>::kSpanCols + 8 * c + 2 * t;
+      if (col >= D) continue;
+      const float* a = acc[sp] + 4 * c;
+      if (row_lo < rows)
+        *reinterpret_cast<uint32_t*>(x + row_lo * ld + col) =
+            divide ? pack_bf16(a[0] / s_lo, a[1] / s_lo) : pack_bf16(a[0], a[1]);
+      if (row_hi < rows)
+        *reinterpret_cast<uint32_t*>(x + row_hi * ld + col) =
+            divide ? pack_bf16(a[2] / s_hi, a[3] / s_hi) : pack_bf16(a[2], a[3]);
+    }
+  }
 }
 
 // the dynamic shared memory, 1024-byte aligned (the swizzle's period)
@@ -173,12 +259,6 @@ __device__ __forceinline__ float dot_pair(uint32_t a, uint32_t b) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
   const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
   return fmaf(x.x, y.x, x.y * y.y);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // ------------------------------------------------------- bf16: K3f forward
@@ -290,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch(&map_k);
       tma_prefetch(&map_v);
       mbar_arrive_expect_tx(q_full, T::kBytes);
-      load_tile(q_s, &map_q, dim_q, q_full, q0, h, b);
+      load_tile<D>(q_s, &map_q, dim_q, q_full, q0, h, b);
     }
     const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
     for (int it = 0; it < n_tiles; ++it) {
@@ -305,8 +385,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // each lane arrives after its own stores; lane 0 also sets the bytes
       if (lane == 0) {
         mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
-        load_tile(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
-        load_tile(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
+        load_tile<D>(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
+        load_tile<D>(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
       } else {
         mbar_arrive(full + s);
       }
@@ -320,8 +400,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint64_t q_desc = T::desc(q_s);
   const bool masked = mask != nullptr;
 
-  float o[D / 2];
-  zero(o);
+  Acc<D> o;
+  zero_acc<D>(o);
   OnlineSoftmax sm;
   float a_lo, a_hi;
   // s = q k^T of key tile `it` into sc (issued, not waited for)
@@ -332,8 +412,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t k_desc = T::desc(k_s + s * T::kBytes);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      Mma<kTile>::ss(sc, desc_add(q_desc, 32 * kc), desc_add(k_desc, 32 * kc), kc);
+    for (int kc = 0; kc < T::kSlices; ++kc)
+      Mma<kTile>::ss(sc, desc_add(q_desc, T::slice(kc)), desc_add(k_desc, T::slice(kc)), kc);
     wgmma_commit();
   };
   auto softmax = [&](int it) {
@@ -348,11 +428,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // (the TPU kernel's p.astype(v.dtype))
   uint32_t pa[kTile / 16][4];
   auto values = [&](int it) {
-    const uint64_t v_desc = T::desc(v_s + (it % kStages) * T::kBytes);
     wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc)
-      Mma<D>::template rs<1>(o, pa[kc], desc_add(v_desc, kc * T::kSliceRows), 1);
+    rs_product<D>(o, pa, T::desc(v_s + (it % kStages) * T::kBytes));
     wgmma_commit();
   };
 
@@ -373,22 +450,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     softmax(it + 1);
     wgmma_wait<0>();  // o += p v of tile it
-    fence_regs(o);
+    fence_acc<D>(o);
     fence_regs(pa);
     if (tw == 0) mbar_arrive(empty + it % kStages);
 #pragma unroll
     for (int kc = 0; kc < kTile / 16; ++kc) as_a(pa[kc], sc, kc);
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      o[4 * c + 0] *= a_lo;
-      o[4 * c + 1] *= a_lo;
-      o[4 * c + 2] *= a_hi;
-      o[4 * c + 3] *= a_hi;
+    for (int sp = 0; sp < T::kSpans; ++sp) {
+#pragma unroll
+      for (int c = 0; c < T::kSpanCols / 8; ++c) {
+        o[sp][4 * c + 0] *= a_lo;
+        o[sp][4 * c + 1] *= a_lo;
+        o[sp][4 * c + 2] *= a_hi;
+        o[sp][4 * c + 3] *= a_hi;
+      }
     }
   }
   values(n_tiles - 1);
   wgmma_wait<0>();
-  fence_regs(o);
+  fence_acc<D>(o);
   fence_regs(pa);
 
   float l_lo = sm.l_lo, l_hi = sm.l_hi;
@@ -397,17 +477,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float sl_lo = l_lo == 0.f ? 1.f : l_lo, sl_hi = l_hi == 0.f ? 1.f : l_hi;
-  bf16* oh = out + b * lo.b + h * lo.h;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const int col = 8 * c + 2 * t;
-    if (row_lo < pr.n_q)
-      *reinterpret_cast<uint32_t*>(oh + row_lo * lo.n + col) =
-          pack_bf16(o[4 * c + 0] / sl_lo, o[4 * c + 1] / sl_lo);
-    if (row_hi < pr.n_q)
-      *reinterpret_cast<uint32_t*>(oh + row_hi * lo.n + col) =
-          pack_bf16(o[4 * c + 2] / sl_hi, o[4 * c + 3] / sl_hi);
-  }
+  store_acc<D>(out + b * lo.b + h * lo.h, lo.n, o, row_lo, row_hi, pr.n_q, t, sl_lo, sl_hi,
+               true);
   if (t == 0) {
     float* lh = lse + (static_cast<long long>(b) * pr.heads + h) * pr.n_q;
     if (row_lo < pr.n_q) lh[row_lo] = sm.m_lo + logf(sl_lo);
@@ -465,8 +536,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch(&map_v);
       tma_prefetch(&map_do);
       mbar_arrive_expect_tx(q_full, 2 * T::kBytes);
-      load_tile(q_s, &map_q, dim_q, q_full, q0, h, b);
-      load_tile(do_s, &map_do, dim_do, q_full, q0, h, b);
+      load_tile<D>(q_s, &map_q, dim_q, q_full, q0, h, b);
+      load_tile<D>(do_s, &map_do, dim_do, q_full, q0, h, b);
     }
     const uint8_t* valid = mask ? mask + static_cast<long long>(b) * pr.n_k : nullptr;
     for (int it = 0; it < n_tiles; ++it) {
@@ -480,8 +551,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
-        load_tile(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
-        load_tile(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
+        load_tile<D>(k_s + s * T::kBytes, &map_k, dim_k, full + s, it * kTile, h, b);
+        load_tile<D>(v_s + s * T::kBytes, &map_v, dim_v, full + s, it * kTile, h, b);
       } else {
         mbar_arrive(full + s);
       }
@@ -514,6 +585,13 @@ __global__ void __launch_bounds__(kThreads, 1)
              dot_pair(load_pair(doh, ldo.n, row_hi, c + 8, pr.n_q),
                       load_pair(oh, lout.n, row_hi, c + 8, pr.n_q));
   }
+  if constexpr (D % 16 != 0) {  // the last 8 columns (D = 88)
+    const int c = D - 8 + 2 * t;
+    dl_lo += dot_pair(load_pair(doh, ldo.n, row_lo, c, pr.n_q),
+                      load_pair(oh, lout.n, row_lo, c, pr.n_q));
+    dl_hi += dot_pair(load_pair(doh, ldo.n, row_hi, c, pr.n_q),
+                      load_pair(oh, lout.n, row_hi, c, pr.n_q));
+  }
 #pragma unroll
   for (int m = 1; m < 4; m <<= 1) {
     dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, m);
@@ -525,8 +603,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint64_t q_desc = T::desc(q_s);
   const uint64_t do_desc = T::desc(do_s);
   const bool masked = mask != nullptr;
-  float acc[D / 2];
-  zero(acc);
+  Acc<D> acc;
+  zero_acc<D>(acc);
   // s = q k^T and dp = do v^T of key tile `it` (issued, not waited for)
   float sc[kTile / 2], dp[kTile / 2];
   auto scores = [&](int it) {
@@ -536,11 +614,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t v_desc = T::desc(v_s + s * T::kBytes);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      Mma<kTile>::ss(sc, desc_add(q_desc, 32 * kc), desc_add(k_desc, 32 * kc), kc);
+    for (int kc = 0; kc < T::kSlices; ++kc)
+      Mma<kTile>::ss(sc, desc_add(q_desc, T::slice(kc)), desc_add(k_desc, T::slice(kc)), kc);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      Mma<kTile>::ss(dp, desc_add(do_desc, 32 * kc), desc_add(v_desc, 32 * kc), kc);
+    for (int kc = 0; kc < T::kSlices; ++kc)
+      Mma<kTile>::ss(dp, desc_add(do_desc, T::slice(kc)), desc_add(v_desc, T::slice(kc)), kc);
     wgmma_commit();
   };
   // sc becomes ds = p (dp - delta) scale, p = 2^(s scale log2 e - lse log2 e):
@@ -578,11 +656,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // kernel's ds.astype(k.dtype))
   uint32_t sa[kTile / 16][4];
   auto dq_step = [&](int it) {
-    const uint64_t k_desc = T::desc(k_s + (it % kStages) * T::kBytes);
     wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc)
-      Mma<D>::template rs<1>(acc, sa[kc], desc_add(k_desc, kc * T::kSliceRows), 1);
+    rs_product<D>(acc, sa, T::desc(k_s + (it % kStages) * T::kBytes));
     wgmma_commit();
   };
 
@@ -604,7 +679,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dp);
     grad_scores(it + 1);
     wgmma_wait<0>();  // dq += ds k of tile it
-    fence_regs(acc);
+    fence_acc<D>(acc);
     fence_regs(sa);
     if (tw == 0) mbar_arrive(empty + it % kStages);
 #pragma unroll
@@ -612,20 +687,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   dq_step(n_tiles - 1);
   wgmma_wait<0>();
-  fence_regs(acc);
+  fence_acc<D>(acc);
   fence_regs(sa);
 
-  bf16* dqh = dq + b * ldq.b + h * ldq.h;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const int col = 8 * c + 2 * t;
-    if (row_lo < pr.n_q)
-      *reinterpret_cast<uint32_t*>(dqh + row_lo * ldq.n + col) =
-          pack_bf16(acc[4 * c + 0], acc[4 * c + 1]);
-    if (row_hi < pr.n_q)
-      *reinterpret_cast<uint32_t*>(dqh + row_hi * ldq.n + col) =
-          pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
-  }
+  store_acc<D>(dq + b * ldq.b + h * ldq.h, ldq.n, acc, row_lo, row_hi, pr.n_q, t);
 }
 
 // --------------------------------------------------- bf16: K3b dK/dV kernel
@@ -683,8 +748,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch(&map_v);
       tma_prefetch(&map_do);
       mbar_arrive_expect_tx(kv_full, 2 * T::kBytes);
-      load_tile(k_s, &map_k, dim_k, kv_full, k0, h, b);
-      load_tile(v_s, &map_v, dim_v, kv_full, k0, h, b);
+      load_tile<D>(k_s, &map_k, dim_k, kv_full, k0, h, b);
+      load_tile<D>(v_s, &map_v, dim_v, kv_full, k0, h, b);
     }
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages, r0 = (i_start + i) * kTile;
@@ -699,8 +764,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(full + s, 2 * T::kBytes);
-        load_tile(q_s + s * T::kBytes, &map_q, dim_q, full + s, r0, h, b);
-        load_tile(do_s + s * T::kBytes, &map_do, dim_do, full + s, r0, h, b);
+        load_tile<D>(q_s + s * T::kBytes, &map_q, dim_q, full + s, r0, h, b);
+        load_tile<D>(do_s + s * T::kBytes, &map_do, dim_do, full + s, r0, h, b);
       } else {
         mbar_arrive(full + s);
       }
@@ -718,9 +783,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint64_t k_desc = T::desc(k_s);
   const uint64_t v_desc = T::desc(v_s);
 
-  float dk_acc[D / 2], dv_acc[D / 2];
-  zero(dk_acc);
-  zero(dv_acc);
+  Acc<D> dk_acc, dv_acc;
+  zero_acc<D>(dk_acc);
+  zero_acc<D>(dv_acc);
   // s^T = k q^T and dp^T = v do^T of query tile `i` of the block (issued,
   // not waited for): rows are this block's keys
   float st[kTile / 2], dpt[kTile / 2];
@@ -731,11 +796,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t do_desc = T::desc(do_s + s * T::kBytes);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      Mma<kTile>::ss(st, desc_add(k_desc, 32 * kc), desc_add(q_desc, 32 * kc), kc);
+    for (int kc = 0; kc < T::kSlices; ++kc)
+      Mma<kTile>::ss(st, desc_add(k_desc, T::slice(kc)), desc_add(q_desc, T::slice(kc)), kc);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      Mma<kTile>::ss(dpt, desc_add(v_desc, 32 * kc), desc_add(do_desc, 32 * kc), kc);
+    for (int kc = 0; kc < T::kSlices; ++kc)
+      Mma<kTile>::ss(dpt, desc_add(v_desc, T::slice(kc)), desc_add(do_desc, T::slice(kc)), kc);
     wgmma_commit();
   };
   // st becomes p^T, dpt becomes ds^T: p = 2^(s scale log2 e - lse log2 e), ds
@@ -782,10 +847,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t q_desc = T::desc(q_s + (i % kStages) * T::kBytes);
     const uint64_t do_desc = T::desc(do_s + (i % kStages) * T::kBytes);
     wgmma_fence();
+    if constexpr (T::kSpans == 1) {  // D = 32, 64: the two products interleaved
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      Mma<D>::template rs<1>(dv_acc, pa[kc], desc_add(do_desc, kc * T::kSliceRows), 1);
-      Mma<D>::template rs<1>(dk_acc, sa[kc], desc_add(q_desc, kc * T::kSliceRows), 1);
+      for (int kc = 0; kc < kTile / 16; ++kc) {
+        Mma<D>::template rs<1>(dv_acc[0], pa[kc], desc_add(do_desc, kc * T::kSliceRows), 1);
+        Mma<D>::template rs<1>(dk_acc[0], sa[kc], desc_add(q_desc, kc * T::kSliceRows), 1);
+      }
+    } else {
+      rs_product<D>(dv_acc, pa, do_desc);
+      rs_product<D>(dk_acc, sa, q_desc);
     }
     wgmma_commit();
   };
@@ -814,8 +884,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dpt);
     grad_scores(i + 1);
     wgmma_wait<0>();  // dv and dk of tile i
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
+    fence_acc<D>(dv_acc);
+    fence_acc<D>(dk_acc);
     fence_regs(pa);
     fence_regs(sa);
     if (tw == 0) mbar_arrive(empty + i % kStages);
@@ -823,29 +893,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   dkv_step(n_tiles - 1);
   wgmma_wait<0>();
-  fence_regs(dv_acc);
-  fence_regs(dk_acc);
+  fence_acc<D>(dv_acc);
+  fence_acc<D>(dk_acc);
   fence_regs(pa);
   fence_regs(sa);
 
-  bf16* dkh = dk + b * ldk.b + h * ldk.h;
-  bf16* dvh = dv + b * ldv.b + h * ldv.h;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const int col = 8 * c + 2 * t;
-    if (key_lo < pr.n_k) {
-      *reinterpret_cast<uint32_t*>(dkh + key_lo * ldk.n + col) =
-          pack_bf16(dk_acc[4 * c + 0], dk_acc[4 * c + 1]);
-      *reinterpret_cast<uint32_t*>(dvh + key_lo * ldv.n + col) =
-          pack_bf16(dv_acc[4 * c + 0], dv_acc[4 * c + 1]);
-    }
-    if (key_hi < pr.n_k) {
-      *reinterpret_cast<uint32_t*>(dkh + key_hi * ldk.n + col) =
-          pack_bf16(dk_acc[4 * c + 2], dk_acc[4 * c + 3]);
-      *reinterpret_cast<uint32_t*>(dvh + key_hi * ldv.n + col) =
-          pack_bf16(dv_acc[4 * c + 2], dv_acc[4 * c + 3]);
-    }
-  }
+  store_acc<D>(dk + b * ldk.b + h * ldk.h, ldk.n, dk_acc, key_lo, key_hi, pr.n_k, t);
+  store_acc<D>(dv + b * ldv.b + h * ldv.h, ldv.n, dv_acc, key_lo, key_hi, pr.n_k, t);
 }
 
 // ------------------------------------------------------- f32: scalar kernels
@@ -1081,13 +1135,14 @@ Layout layout(const long long* strides, int i) {
 // What the last failing call of this thread was doing, for its message.
 thread_local const char* g_step = "";
 
-// The tensor map of a (batch, heads, rows, D) bf16 operand at `base`, read
-// through its element strides `l` in boxes of 64 rows by D, swizzled
-// for wgmma (128-byte rows at D = 64, 64-byte at D = 32). The three outer
-// dims go in order of stride, dims of extent 1 last (their stride never
-// read); `dims` says where each went.
+// The tensor map of a (batch, heads, rows, d) bf16 operand at `base`, read
+// through its element strides `l` in boxes of 64 rows by `cols` (a tile's
+// span: D at D = 32 and 64, 32 at D = 80 and 88, where a box past column d
+// lands zeros), swizzled for wgmma (128-byte rows at 64 columns, 64-byte at
+// 32). The three outer dims go in order of stride, dims of extent 1 last
+// (their stride never read); `dims` says where each went.
 cudaError_t make_map(CUtensorMap* map, MapDims* dims, const char* what, const void* base,
-                     Layout l, int batch, int heads, int rows, int d) {
+                     Layout l, int batch, int heads, int rows, int d, int cols) {
   g_step = what;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -1107,7 +1162,7 @@ cudaError_t make_map(CUtensorMap* map, MapDims* dims, const char* what, const vo
   }
   cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), 1, 1, 1};
   cuuint64_t gstride[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1, 1, 1};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   int slot[3];
   cuuint64_t span = 2ull * d;  // bytes spanned by the dims so far
@@ -1121,7 +1176,7 @@ cudaError_t make_map(CUtensorMap* map, MapDims* dims, const char* what, const vo
   *dims = MapDims{slot[0], slot[1], slot[2]};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   // the driver's codes are the runtime's for the errors an encode returns
@@ -1150,11 +1205,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_
     cudaError_t err;
     if ((err = bind_context()) ||
         (err = make_map(&mq, &dq, "q's tensor map", q, layout(st, 0), batch, pr.heads, pr.n_q,
-                        D)) ||
+                        D, Tile<D>::kSpanCols)) ||
         (err = make_map(&mk, &dk, "k's tensor map", k, layout(st, 1), batch, pr.heads, pr.n_k,
-                        D)) ||
+                        D, Tile<D>::kSpanCols)) ||
         (err = make_map(&mv, &dv, "v's tensor map", v, layout(st, 2), batch, pr.heads, pr.n_k,
-                        D)))
+                        D, Tile<D>::kSpanCols)))
       return err;
     constexpr int kSmem = fwd_smem_bytes<D>();
     g_step = "the forward's shared memory";
@@ -1189,13 +1244,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const uint8_
     cudaError_t err;
     if ((err = bind_context()) ||
         (err = make_map(&mq, &nq, "q's tensor map", q, layout(st, 0), batch, pr.heads, pr.n_q,
-                        D)) ||
+                        D, Tile<D>::kSpanCols)) ||
         (err = make_map(&mk, &nk, "k's tensor map", k, layout(st, 1), batch, pr.heads, pr.n_k,
-                        D)) ||
+                        D, Tile<D>::kSpanCols)) ||
         (err = make_map(&mv, &nv, "v's tensor map", v, layout(st, 2), batch, pr.heads, pr.n_k,
-                        D)) ||
+                        D, Tile<D>::kSpanCols)) ||
         (err = make_map(&mdo, &ndo, "dout's tensor map", dout, layout(st, 3), batch, pr.heads,
-                        pr.n_q, D)))
+                        pr.n_q, D, Tile<D>::kSpanCols)))
       return err;
     constexpr int kSmemQ = dq_smem_bytes<D>(), kSmemKV = dkv_smem_bytes<D>();
     g_step = "the backward's shared memory";
@@ -1242,7 +1297,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const uint8_
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32 or 64. mask: (batch, n_k)
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 80 or 88. mask: (batch, n_k)
 // bytes, 1 = attend, or null. strides: batch, head and row strides in
 // elements of q, k, v, out (12 values; every row 16-byte aligned). lse:
 // (batch, heads, n_q) f32. Launches on `stream` without synchronising;
@@ -1258,6 +1313,8 @@ int mmlearn_flash_fwd(const void* q, const void* k, const void* v, const void* m
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 32) return launch_fwd<32>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
   if (head_dim == 64) return launch_fwd<64>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
+  if (head_dim == 80) return launch_fwd<80>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
+  if (head_dim == 88) return launch_fwd<88>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1284,6 +1341,12 @@ int mmlearn_flash_bwd(const void* q, const void* k, const void* v, const void* m
                           s);
   if (head_dim == 64)
     return launch_bwd<64>(q, k, v, m, dout, out, l, d, dq, dk, dv, strides, batch, dtype, pr,
+                          s);
+  if (head_dim == 80)
+    return launch_bwd<80>(q, k, v, m, dout, out, l, d, dq, dk, dv, strides, batch, dtype, pr,
+                          s);
+  if (head_dim == 88)
+    return launch_bwd<88>(q, k, v, m, dout, out, l, d, dq, dk, dv, strides, batch, dtype, pr,
                           s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

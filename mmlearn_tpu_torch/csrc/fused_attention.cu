@@ -86,6 +86,21 @@
 // and sum in a first sweep of its dQ kernel and passes them, with delta, to
 // its dK/dV kernel through an f32 (3, B, H, N) scratch.
 //
+// Head dims 32, 64, 80 (vit_huge) and 88 (vit_giant). The tensor-core
+// routines work on kDp = D rounded up to 16 columns: at D = 88 a head's
+// rows in shared memory hold 96, so Q K^T contracts over 6 k16 steps and P V
+// and the backward's products make 12 n8 tiles, of which the 11 below D are
+// written. The pad columns of Q and K are zeros (zero-filled by cp.async,
+// never the next columns of the head-major packing): a contraction needs
+// them zero in one operand at least; elsewhere the pad only makes the
+// columns past D that are never written. K1b's first kernel needs no
+// padding (its f32 chains run over d < D); its row of delta sums columns L,
+// L + 32, L + 64 below D a lane, as PyTorch's reduction does. supports_fused
+// admits 336 keys at D = 80 (the backward's first kernel then holds K and V
+// in bf16 for 352 keys, 126 KB) and 208 at D = 88 (f32, 224 keys, 213 KB).
+// The f32 scalar kernels hold D / 16 columns a thread, rounded up (the last
+// only below D).
+//
 // The bf16 kernels' per-strip and per-head work (fwd_strip, ds_head,
 // grad_head) lives in k1_arithmetic.cuh, shared with the head-grouped
 // K1f-p/K1b-p (csrc/fused_attention_packed.cu), which compute the same bits.
@@ -102,11 +117,11 @@ namespace {
 
 // ------------------------------------------------- bf16: tensor-core kernels
 
-// Bytes of shared memory for two whole (kv_rows(n), D) bf16 operands and
-// `extra` bytes a row.
+// Bytes of shared memory for two whole (kv_rows(n), D) bf16 operands in rows
+// of kPitch and `extra` bytes a row.
 template <int D>
 size_t operands_bytes(int n, int extra) {
-  return static_cast<size_t>(kv_rows(n)) * (2 * (D + 8) * sizeof(bf16) + extra);
+  return static_cast<size_t>(kv_rows(n)) * (2 * kPitch<D> * sizeof(bf16) + extra);
 }
 
 // K1f: one block of 4 warps per (head, sample), each warp a 16-row strip at
@@ -116,12 +131,15 @@ size_t operands_bytes(int n, int extra) {
 // (launch_fwd_bf16) were chosen by timing on the H100 at the paths' shapes:
 // three blocks an SM where the scores fit 168 registers a thread (14
 // groups: the image tower and the I-JEPA teacher; 64-key chunks past 224
-// keys), else the compiler's choice.
+// keys), else the compiler's choice. At D = 80 and 88 whole rows of 224 keys
+// and the wider accumulators (kDp / 8 tiles) need more than 168 registers,
+// so those instances run two blocks an SM.
 template <int D, int G, bool kOneSweep>
-__global__ void __launch_bounds__(kThreads, (G == 14 || !kOneSweep) ? 3 : 1)
+__global__ void __launch_bounds__(kThreads,
+                                  G == 14 && D > 64 ? 2 : (G == 14 || !kOneSweep) ? 3 : 1)
     fused_mha_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
                          bf16* __restrict__ out, int n, int heads, float scale, int causal) {
-  constexpr int kLd = D + 8;
+  constexpr int kLd = kPitch<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = kv_rows(n);
   bf16* k_s = reinterpret_cast<bf16*>(smem);
@@ -229,7 +247,7 @@ template <int D, int G, bool kOneSweep>
 cudaError_t launch_fwd_bf16_g(const void* qkv, const void* mask, void* out, int batch, int n,
                               int heads, float scale, int causal, cudaStream_t stream) {
   // K, V and the key flags, and each warp's staged query strip
-  const size_t smem = operands_bytes<D>(n, 1) + kWarps * 16 * (D + 8) * sizeof(bf16);
+  const size_t smem = operands_bytes<D>(n, 1) + kWarps * 16 * kPitch<D> * sizeof(bf16);
   cudaError_t err = allow_smem(fused_mha_fwd_kernel<D, G, kOneSweep>, smem);
   if (err != cudaSuccess) return err;
   fused_mha_fwd_kernel<D, G, kOneSweep><<<dim3(heads, batch), kThreads, smem, stream>>>(
@@ -273,12 +291,16 @@ cudaError_t launch_bwd_bf16(const void* qkv, const void* mask, const void* out,
   bf16* ds_s = p_s + static_cast<long long>(batch) * heads * nq * nq;
   // the first kernel's instances: a lane's keys in registers, ITS of them (up
   // to 128, 224 and 768 keys), for 4 rows at a time with K and V in f32,
-  // past 224 keys 2 rows with K and V in bf16
+  // past 224 keys 2 rows with K and V in bf16. At D = 80 past 224 keys, 352
+  // (supports_fused admits 336 there; 768 keys of D + 2 bf16 would not fit
+  // 227 KB); at D = 88 it admits 208.
+  constexpr int kLongIts = D <= 64 ? 24 : 11;
 #define K1B_DS(TM, ITS, T)                                                                  \
   launch_bwd_ds<D, TM, ITS, T>(qkv, mask, out, dout, p_s, ds_s, batch, n, heads, scale, \
                                causal, stream)
+  if (n > 32 * kLongIts) return cudaErrorInvalidValue;
   cudaError_t err = n <= 128 ? K1B_DS(4, 4, float) : n <= 224 ? K1B_DS(4, 7, float)
-                                                              : K1B_DS(2, 24, bf16);
+                                                              : K1B_DS(2, kLongIts, bf16);
 #undef K1B_DS
   if (err != cudaSuccess) return err;
   // then the products, from the planes: q and dout (then k) transposed
@@ -298,6 +320,15 @@ constexpr int kBlockK = 64;          // keys per shared-memory tile
 constexpr int kScalarThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kLdP = kBlockK + 1;
 
+// Output columns a thread of the scalar kernels holds, tx + 16 c: D / 16
+// rounded up; at D = 88 the last one exists for tx < 8 only (col_in).
+template <int D>
+constexpr int kScalarCols = (D + 15) / 16;
+template <int D>
+__device__ __forceinline__ bool col_in(int tx, int c) {
+  return D % 16 == 0 || tx + 16 * c < D;
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   // q and k tiles padded to D + 1 floats a row (no bank conflicts when 16
@@ -311,9 +342,8 @@ __global__ void __launch_bounds__(kScalarThreads)
     fused_mha_fwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ mask,
                              float* __restrict__ out, int n,
                              int num_heads, float scale, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kLd = D + 1;
-  constexpr int kCols = D / 16;  // output columns per thread
+  constexpr int kCols = kScalarCols<D>;  // output columns per thread
   extern __shared__ float smem_f[];
   float* q_s = smem_f;
   float* k_s = q_s + kBlockQ * kLd;
@@ -430,7 +460,7 @@ __global__ void __launch_bounds__(kScalarThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(4 * ty + i) * kLdP + kk];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = v_s[kk * D + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) vv[c] = col_in<D>(tx, c) ? v_s[kk * D + tx + 16 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -445,7 +475,8 @@ __global__ void __launch_bounds__(kScalarThreads)
     float* dst = out + (static_cast<int64_t>(b) * n + qrow) * num_heads * D +
                  static_cast<int64_t>(h) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = acc[i][c] / l_run[i];
+    for (int c = 0; c < kCols; ++c)
+      if (col_in<D>(tx, c)) dst[tx + 16 * c] = acc[i][c] / l_run[i];
   }
 }
 
@@ -520,7 +551,7 @@ __global__ void __launch_bounds__(kScalarThreads)
                                 float* __restrict__ dqkv, float* __restrict__ stats, int n,
                                 int num_heads, float scale, int causal) {
   constexpr int kLd = D + 1;
-  constexpr int kCols = D / 16;
+  constexpr int kCols = kScalarCols<D>;
   extern __shared__ float smem_f[];
   float* q_s = smem_f;
   float* do_s = q_s + kBlockQ * kLd;
@@ -555,8 +586,9 @@ __global__ void __launch_bounds__(kScalarThreads)
     if (qrow < n) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        part += do_s[(4 * ty + i) * kLd + tx + 16 * c] *
-                out[o_off + qrow * o_stride + tx + 16 * c];
+        if (col_in<D>(tx, c))
+          part += do_s[(4 * ty + i) * kLd + tx + 16 * c] *
+                  out[o_off + qrow * o_stride + tx + 16 * c];
     }
     delta[i] = half_warp_sum(part);
   }
@@ -649,7 +681,7 @@ __global__ void __launch_bounds__(kScalarThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(4 * ty + i) * kLdP + kk];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) kv[c] = k_s[kk * kLd + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) kv[c] = col_in<D>(tx, c) ? k_s[kk * kLd + tx + 16 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -664,7 +696,8 @@ __global__ void __launch_bounds__(kScalarThreads)
     float* dst = dqkv + static_cast<int64_t>(b) * n * row_stride + qrow * row_stride +
                  static_cast<int64_t>(h) * 3 * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = dq[i][c];
+    for (int c = 0; c < kCols; ++c)
+      if (col_in<D>(tx, c)) dst[tx + 16 * c] = dq[i][c];
   }
 }
 
@@ -679,7 +712,7 @@ __global__ void __launch_bounds__(kScalarThreads)
                                  const float* __restrict__ stats, int n, int num_heads,
                                  float scale, int causal) {
   constexpr int kLd = D + 1;
-  constexpr int kCols = D / 16;
+  constexpr int kCols = kScalarCols<D>;
   extern __shared__ float smem_f[];
   float* k_s = smem_f;
   float* v_s = k_s + kBlockK * kLd;
@@ -765,8 +798,8 @@ __global__ void __launch_bounds__(kScalarThreads)
       }
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        dov[c] = do_s[qq * kLd + tx + 16 * c];
-        qv[c] = q_s[qq * kLd + tx + 16 * c];
+        dov[c] = col_in<D>(tx, c) ? do_s[qq * kLd + tx + 16 * c] : 0.f;
+        qv[c] = col_in<D>(tx, c) ? q_s[qq * kLd + tx + 16 * c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -786,6 +819,7 @@ __global__ void __launch_bounds__(kScalarThreads)
                  static_cast<int64_t>(h) * 3 * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
+      if (!col_in<D>(tx, c)) continue;
       dst[D + tx + 16 * c] = dk[i][c];
       dst[2 * D + tx + 16 * c] = dv[i][c];
     }
@@ -835,7 +869,7 @@ cudaError_t launch_bwd_f32(const void* qkv, const void* mask, const void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32 or 64. mask: (batch, n)
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 80 or 88. mask: (batch, n)
 // bytes, 1 = attend, or null. bf16 needs qkv 16-byte aligned. Launches on
 // `stream` without synchronising; returns the launch's cudaError_t (0 on
 // success).
@@ -843,14 +877,16 @@ int mmlearn_fused_mha_fwd(const void* qkv, const void* mask, void* out, int batc
                           int num_heads, int head_dim, int dtype, float scale, int causal,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32)
-    return launch_fwd_f32<32>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
-  if (dtype == 0 && head_dim == 64)
-    return launch_fwd_f32<64>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
-  if (dtype == 1 && head_dim == 32)
-    return launch_fwd_bf16<32>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch_fwd_bf16<64>(qkv, mask, out, batch, n, num_heads, scale, causal, s);
+#define K1F_HEAD_DIM(D)                                                                  \
+  if (head_dim == D)                                                                     \
+    return dtype == 0 ? launch_fwd_f32<D>(qkv, mask, out, batch, n, num_heads, scale, causal, s) \
+         : dtype == 1 ? launch_fwd_bf16<D>(qkv, mask, out, batch, n, num_heads, scale, causal, s) \
+                      : cudaErrorInvalidValue;
+  K1F_HEAD_DIM(32)
+  K1F_HEAD_DIM(64)
+  K1F_HEAD_DIM(80)
+  K1F_HEAD_DIM(88)
+#undef K1F_HEAD_DIM
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -866,18 +902,18 @@ int mmlearn_fused_mha_bwd(const void* qkv, const void* mask, const void* out,
                           int num_heads, int head_dim, int dtype, float scale, int causal,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32)
-    return launch_bwd_f32<32>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
-                              causal, s);
-  if (dtype == 0 && head_dim == 64)
-    return launch_bwd_f32<64>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
-                              causal, s);
-  if (dtype == 1 && head_dim == 32)
-    return launch_bwd_bf16<32>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
-                               causal, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch_bwd_bf16<64>(qkv, mask, out, dout, dqkv, scratch, batch, n, num_heads, scale,
-                               causal, s);
+#define K1B_HEAD_DIM(D)                                                                        \
+  if (head_dim == D)                                                                           \
+    return dtype == 0   ? launch_bwd_f32<D>(qkv, mask, out, dout, dqkv, scratch, batch, n,      \
+                                            num_heads, scale, causal, s)                       \
+           : dtype == 1 ? launch_bwd_bf16<D>(qkv, mask, out, dout, dqkv, scratch, batch, n,     \
+                                             num_heads, scale, causal, s)                      \
+                        : cudaErrorInvalidValue;
+  K1B_HEAD_DIM(32)
+  K1B_HEAD_DIM(64)
+  K1B_HEAD_DIM(80)
+  K1B_HEAD_DIM(88)
+#undef K1B_HEAD_DIM
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

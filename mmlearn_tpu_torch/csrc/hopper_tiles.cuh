@@ -14,9 +14,9 @@
 //   the m64n256k32 product of s8 operands into s32 accumulators (SS);
 // - setmaxnreg, to move registers from a producer warpgroup to consumers.
 //
-// Tiles are rows of 64 or 128 bytes (one swizzle span: D bf16, or 128 s8
-// of K) written by TMA with the matching swizzle (64-byte or 128-byte), each
-// tile 1024-byte aligned. One descriptor serves both readings of a bf16
+// Tiles are rows of 64 or 128 bytes (one swizzle span: D bf16 at D = 32 or
+// 64, a 32-column span of a wider row, or 128 s8 of K) written by TMA with
+// the matching swizzle (64-byte or 128-byte), each tile 1024-byte aligned. One descriptor serves both readings of a bf16
 // tile: as a K-major operand (its rows are the product's M or N, D its
 // contraction, stepped by 32 bytes a k16 slice) and, with the instruction's
 // transpose flag, as an MN-major B operand (its rows are the contraction,
@@ -24,7 +24,8 @@
 // K-major (the instruction has no transpose for integers), stepped by 32
 // bytes a k32 slice: the same descriptor as a bf16 tile of 128-byte rows.
 // SBO is 8 rows; LBO is unused (the contraction never leaves one swizzle
-// span, N never exceeds one).
+// span, N never exceeds one: a wider row is split into spans, each its own
+// tile, and a product over it into one product a span).
 //
 // Accumulator layout of m64nN (f32 or s32) for thread 32 w + 4 g + t of a
 // warpgroup: d[4 c + e] is row 16 w + g + 8 (e / 2), column 8 c + 2 t + e % 2.

@@ -38,42 +38,56 @@ constexpr int kThreads = 32 * kWarps;
 // check between the two.
 __host__ __device__ __forceinline__ int kv_rows(int n) { return (n + 31) & ~31; }
 
+// The head dim as the tensor cores take it: D rounded up to 16 (88 -> 96;
+// 32, 64 and 80 stay). A head's operands in shared memory hold kDp<D>
+// columns, those past D zeros, so the contraction over D of Q K^T, and the
+// n16 tiles over D of P V and of the backward's products, read zeros there;
+// nothing past column D is written out.
+template <int D>
+constexpr int kDp = (D + 15) & ~15;
+// The bf16 row pitch in shared memory of such an operand: kDp + 8, so the 8
+// rows an ldmatrix reads (16 bytes each) fall in 8 different groups of 4
+// banks at every D the kernels take (pitches of 80, 144, 176 and 208 bytes).
+template <int D>
+constexpr int kPitch = kDp<D> + 8;
+
 // Start copying rows 0 .. kv_rows(n) - 1 of a (n, D) operand with row
-// stride `ld` into shared memory rows of D + 8; rows past n are zeros.
+// stride `ld` into shared memory rows of kPitch; columns D .. kDp - 1 and
+// rows past n are zeros.
 template <int D>
 __device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, long long ld, int n,
                                            int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kChunks = kDp<D> / 8;  // 16-byte chunks a row
   const int total = kv_rows(n) * kChunks;
   for (int i = tid; i < total; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r < n;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
+    const bool ok = r < n && c < D;
+    cp_async16(dst + r * kPitch<D> + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
   }
 }
 
 // A warp starts copying rows r0 .. r0 + 15 of a (n, D) operand into its own
-// 16 shared-memory rows of D + 8 (zeros past n).
+// 16 shared-memory rows of kPitch (zeros past n and past column D).
 template <int D>
 __device__ __forceinline__ void strip_async(bf16* dst, const bf16* src, long long ld, int r0,
                                             int n, int lane) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = kDp<D> / 8;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + (r0 + r) * ld + c : src, ok ? 16 : 0);
+    const bool ok = r0 + r < n && c < D;
+    cp_async16(dst + r * kPitch<D> + c, ok ? src + (r0 + r) * ld + c : src, ok ? 16 : 0);
   }
 }
 
-// A operands of a warp's 16 staged rows by D, by ldmatrix: a[kc] covers
+// A operands of a warp's 16 staged rows by kDp, by ldmatrix: a[kc] covers
 // columns 16 kc .. 16 kc + 15 (lanes 0-15 address rows 0-15 at column 16 kc,
 // lanes 16-31 the same rows at 16 kc + 8).
 template <int D>
 __device__ __forceinline__ void strip_a(uint32_t (*a)[4], const bf16* stage, int lane) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldsm_x4(a[kc], stage + (lane & 15) * (D + 8) + 16 * kc + ((lane >> 4) << 3));
+  for (int kc = 0; kc < kDp<D> / 16; ++kc)
+    ldsm_x4(a[kc], stage + (lane & 15) * kPitch<D> + 16 * kc + ((lane >> 4) << 3));
 }
 
 // The largest of each row's values in s[0 .. 2 cg), over the four lanes of
@@ -119,7 +133,7 @@ __device__ __forceinline__ void exp_sum(float (&s)[2 * G][4], int cg, float m_lo
 // and the mask rule.
 template <int D>
 struct FwdStrip {
-  uint32_t qa[D / 16][4];
+  uint32_t qa[kDp<D> / 16][4];
   const bf16* k_s;
   const uint8_t* valid_s;
   int n, row_lo;
@@ -142,7 +156,7 @@ __device__ __forceinline__ void score_chunk(float (&s)[2 * G][4], const FwdStrip
   for (int j = 0; j < G; j += 2) {
     if (j < cg) {
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
+      for (int kc = 0; kc < kDp<D> / 16; ++kc) {
 #pragma unroll
         for (int jj = j; jj < j + 2; ++jj) {
           uint32_t bb[4];
@@ -177,9 +191,9 @@ __device__ __forceinline__ void score_chunk(float (&s)[2 * G][4], const FwdStrip
 
 // acc += round(p * inv) V over keys 16 g0 .. 16 (g0 + cg) - 1 (cg even),
 // where s holds p = exp(s - m): p / l is rounded to bf16, as the TPU kernel
-// rounds. V's rows have pitch LD.
+// rounds. V's rows have pitch LD (kDp columns; acc's past D stay 0).
 template <int D, int G, int LD>
-__device__ __forceinline__ void pv_chunk(float (&acc)[D / 8][4], const float (&s)[2 * G][4],
+__device__ __forceinline__ void pv_chunk(float (&acc)[kDp<D> / 8][4], const float (&s)[2 * G][4],
                                          int g0, int cg, float inv_lo, float inv_hi,
                                          const bf16* v_s, int lane) {
 #pragma unroll
@@ -191,7 +205,7 @@ __device__ __forceinline__ void pv_chunk(float (&acc)[D / 8][4], const float (&s
       pa[2] = pack_bf16(s[2 * j + 1][0] * inv_lo, s[2 * j + 1][1] * inv_lo);
       pa[3] = pack_bf16(s[2 * j + 1][2] * inv_hi, s[2 * j + 1][3] * inv_hi);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < kDp<D> / 16; ++dp) {
         uint32_t bb[4];
         load_b_cols(bb, v_s, LD, (g0 + j) * 16, dp * 16, lane);
         mma_bf16(acc[2 * dp], pa, bb);
@@ -244,9 +258,9 @@ __device__ __forceinline__ void fwd_strip(FwdStrip<D>& st, const bf16* v_s, int 
 
   // acc = round(p / l) V: from the scores held, or a second sweep that
   // recomputes them chunk by chunk
-  float acc[D / 8][4];
+  float acc[kDp<D> / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < kDp<D> / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   if constexpr (kOneSweep) {
     pv_chunk<D, G, LD>(acc, s, 0, ng, inv_lo, inv_hi, v_s, lane);
   } else {
@@ -284,8 +298,9 @@ __device__ __forceinline__ void fwd_strip(FwdStrip<D>& st, const bf16* v_s, int 
 //   - m the row's max, e = expf(s - m), l summed as PyTorch's warp softmax
 //     sums a row (lane L of 32 adds keys L, L + 32, ... in order, then an
 //     xor butterfly 16 .. 1), p = e / l;
-//   - delta = rowsum(dout * out) as PyTorch sums 64 (32) products over a
-//     warp: lane L adds columns L and L + 32, then the same butterfly;
+//   - delta = rowsum(dout * out) as PyTorch sums D products over a warp:
+//     lane L adds columns L, L + 32, ... below D in order, then the same
+//     butterfly;
 //   - ds = (p (dp - delta)) scale, zero where masked; p and ds rounded to
 //     nearest even.
 // A warp of the first kernel takes TM rows at a time, lane L the keys L, L +
@@ -427,11 +442,12 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
   return y;
 }
 
-// dst rows r and r + 8 (columns 2 t, 2 t + 1 of 8 dn + ...) of a warp's 16 x D
-// f32 accumulators, into a bf16 (rows, D) operand with row stride ld.
+// dst rows r and r + 8 (columns 2 t, 2 t + 1 of 8 dn + ...) of a warp's 16 x kDp
+// f32 accumulators, into a bf16 (rows, D) operand with row stride ld (the
+// columns past D are not written).
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n,
-                                           const float (&acc)[D / 8][4], int t) {
+                                           const float (&acc)[kDp<D> / 8][4], int t) {
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int c = dn * 8 + 2 * t;
@@ -441,10 +457,13 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n
   }
 }
 
-// Shared memory of grad_head: two transposed (D, t_ld(n)) bf16 operands.
+// Shared memory of grad_head: two transposed (kDp, t_ld(n)) bf16 operands.
+// Their rows D .. kDp - 1 are never written: they are the n dimension of
+// every product here, so they make only the accumulators' columns past D,
+// which store_rows leaves out.
 template <int D>
 size_t grad_smem_bytes(int n) {
-  return 2 * static_cast<size_t>(D) * t_ld(n) * sizeof(bf16);
+  return 2 * static_cast<size_t>(kDp<D>) * t_ld(n) * sizeof(bf16);
 }
 
 // The second kernel's work for head h of sample b, by a block of kThreads:
@@ -464,7 +483,7 @@ __device__ __forceinline__ void grad_head(unsigned char* smem, const bf16* __res
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* xb = xa + D * ldt;
+  bf16* xb = xa + kDp<D> * ldt;
 
   const long long row_stride = 3LL * heads * D;
   const long long o_stride = static_cast<long long>(heads) * D;
@@ -480,9 +499,9 @@ __device__ __forceinline__ void grad_head(unsigned char* smem, const bf16* __res
   load_transposed<D, kThreads>(xb, ldt, doh, o_stride, n, tid);     // dout^T
   __syncthreads();
   for (int k0 = warp * 16; k0 < n; k0 += kWarps * 16) {
-    float dk[D / 8][4], dv[D / 8][4];
+    float dk[kDp<D> / 8][4], dv[kDp<D> / 8][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < kDp<D> / 8; ++i) {
       dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
       dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
     }
@@ -499,7 +518,7 @@ __device__ __forceinline__ void grad_head(unsigned char* smem, const bf16* __res
                               transpose8x8(word_at(dsp + at + 8 * nq)),
                               transpose8x8(word_at(dsp + at + 8 * nq + 8))};
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {  // columns 16 j .. 16 j + 15 of dv and dk
+      for (int j = 0; j < kDp<D> / 16; ++j) {  // columns 16 j .. 16 j + 15 of dv and dk
         uint32_t bd[4], bq[4];
         load_b_rows(bd, xb, ldt, 16 * j, r0, lane);
         load_b_rows(bq, xa, ldt, 16 * j, r0, lane);
@@ -517,9 +536,9 @@ __device__ __forceinline__ void grad_head(unsigned char* smem, const bf16* __res
   load_transposed<D, kThreads>(xa, ldt, head + D, row_stride, n, tid);  // k^T
   __syncthreads();
   for (int r0 = warp * 16; r0 < n; r0 += kWarps * 16) {
-    float acc[D / 8][4];
+    float acc[kDp<D> / 8][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int i = 0; i < kDp<D> / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     const int kend = skip ? r0 + 16 : nq;
 #pragma unroll 4
     for (int key0 = 0; key0 < kend; key0 += 16) {
@@ -527,7 +546,7 @@ __device__ __forceinline__ void grad_head(unsigned char* smem, const bf16* __res
       const uint32_t da[4] = {word_at(dsp + at), word_at(dsp + at + 8 * nq), word_at(dsp + at + 8),
                               word_at(dsp + at + 8 * nq + 8)};
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
+      for (int j = 0; j < kDp<D> / 16; ++j) {
         uint32_t bk[4];
         load_b_rows(bk, xa, ldt, 16 * j, key0, lane);
         mma_bf16(acc[2 * j], da, bk);
@@ -602,14 +621,17 @@ __device__ __forceinline__ void ds_head(const T* k_s, const T* v_s, float* qt, f
   constexpr int kStage = sizeof(T) == sizeof(float) ? 2 * TM * kKeys : 0;
   const int nq = round16(n);
   // a lane's words of a set of TM rows of q and dout (the next set's are
-  // loaded while the current one is computed)
-  constexpr int kWords = TM * D / 64;
+  // loaded while the current one is computed): TM D / 2 words over the warp
+  constexpr int kRowWords = TM * D / 2;
+  constexpr int kWords = (kRowWords + 31) / 32;
+  // columns lane + 32 j of a row, for delta and out
+  constexpr int kLaneCols = (D + 31) / 32;
   uint32_t qw[kWords], dw[kWords];
   auto fetch = [&](int rs) {
 #pragma unroll
     for (int k = 0; k < kWords; ++k) {
       const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
-      const bool ok = rs + r < n;
+      const bool ok = rs + r < n && i < kRowWords;
       qw[k] = ok ? word_at(head + (rs + r) * row_stride + c) : 0u;
       dw[k] = ok ? word_at(doh + (rs + r) * o_stride + c) : 0u;
     }
@@ -629,6 +651,7 @@ __device__ __forceinline__ void ds_head(const T* k_s, const T* v_s, float* qt, f
 #pragma unroll
     for (int k = 0; k < kWords; ++k) {
       const int i = lane + 32 * k, r = i % TM, c = 2 * (i / TM);
+      if (kRowWords % 32 != 0 && i >= kRowWords) continue;
       qt[c * TM + r] = bf16_lo(qw[k]);
       qt[(c + 1) * TM + r] = bf16_hi(qw[k]);
       dot[c * TM + r] = bf16_lo(dw[k]);
@@ -636,25 +659,28 @@ __device__ __forceinline__ void ds_head(const T* k_s, const T* v_s, float* qt, f
     }
     __syncwarp();  // the rows are written
     if (r0 + kDsWarps * TM < nq) fetch(r0 + kDsWarps * TM);
-    // out at columns lane, lane + 32, for delta
-    float ov[TM][D / 32];
+    // out at columns lane, lane + 32, ... below D, for delta
+    float ov[TM][kLaneCols];
 #pragma unroll
     for (int r = 0; r < TM; ++r)
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j)
-        ov[r][j] = r0 + r < n ? __bfloat162float(oh[(r0 + r) * o_stride + lane + 32 * j]) : 0.f;
+      for (int j = 0; j < kLaneCols; ++j)
+        ov[r][j] = r0 + r < n && lane + 32 * j < D
+                       ? __bfloat162float(oh[(r0 + r) * o_stride + lane + 32 * j])
+                       : 0.f;
 
     float s[TM][ITS];
     chain_rows<D, TM, ITS>(s, qt, k_s, lane);
     // delta of each row as PyTorch sums it: lane L adds dout * out at
-    // columns L (and L + 32), then the butterfly
+    // columns L, L + 32, ... below D, then the butterfly
     float delta[TM];
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
       float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j)
-        part = __fadd_rn(part, __fmul_rn(dot[(lane + 32 * j) * TM + r], ov[r][j]));
+      for (int j = 0; j < kLaneCols; ++j)
+        if (D % 32 == 0 || lane + 32 * j < D)
+          part = __fadd_rn(part, __fmul_rn(dot[(lane + 32 * j) * TM + r], ov[r][j]));
       delta[r] = warp_sum(part);
     }
 #pragma unroll

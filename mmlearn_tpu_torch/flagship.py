@@ -33,6 +33,29 @@ dim 32) and an EMA teacher (decay 0.996 to 1.0 over 100,000 steps), weights
 f32 and compute bf16, trained with ``optax.adamw(learning_rate=1e-3)``:
 AdamW at 1e-3 with optax's default weight decay 1e-4 (on weights of ndim >=
 2), no schedule. :func:`ijepa_batch` makes its input.
+
+:func:`vit_h14_training_task` and :func:`vit_g14_task` are the large presets
+at the geometries of two public CLIP models, OpenCLIP's ``ViT-H-14.json``
+and ``ViT-g-14.json``, with random weights drawn from ``seed`` (no
+published weights are read):
+
+- ViT-H/14: the ``vit_huge`` preset (32 blocks of width 1280, 16 heads of
+  dim 80) at 224 px in 14-px patches (256 + CLS = 257 tokens), exact-erf
+  gelu, LayerNorm eps 1e-5, ``norm_pre``, a patch embedding without bias,
+  CLS pooling and a 1024-d projection without bias; its attention takes K1
+  at D=80 (``supports_fused`` admits N <= 336 there);
+- ViT-g/14: the ``vit_giant`` preset (40 blocks of width 1408, 16 heads of
+  dim 88, MLP ratio 48/11) at the same geometry; its 257 tokens are past
+  K1's limit at D=88 (208), so its attention takes the flash kernel K3;
+- the text tower of both: 77 tokens, 24 causal blocks of width 1024, 16
+  heads of dim 64, gelu, eps 1e-5, EOS pooling, 1024-d projection.
+
+The ViT-H/14 pair trains with both towers under activation checkpointing
+(``remat=True``, the ``dots_no_batch`` policy, as every project config and
+the JAX flagship train) in bf16 with the flagship's AdamW and schedule;
+``drop_path_rate`` sets the image tower's stochastic depth (0 by default,
+as OpenCLIP trains it). ``vit_g14_task(patch_size=16)`` is ViT-g/16 (197
+tokens), whose attention takes K1 at D=88.
 """
 
 from __future__ import annotations
@@ -43,7 +66,12 @@ import numpy as np
 import torch
 
 from mmlearn_tpu_torch.datasets.processors.masking import IJEPAMaskGenerator
-from mmlearn_tpu_torch.modules.encoders import TextTransformer, VisionTransformer
+from mmlearn_tpu_torch.modules.encoders import (
+    TextTransformer,
+    VisionTransformer,
+    vit_giant,
+    vit_huge,
+)
 from mmlearn_tpu_torch.modules.layers import interpolate_pos_embed
 from mmlearn_tpu_torch.modules.lr_schedulers import linear_warmup_cosine_annealing_lr
 from mmlearn_tpu_torch.tasks.contrastive_pretraining import ContrastivePretraining
@@ -212,3 +240,62 @@ def ijepa_batch(
         ENCODER_MASK_KEY: torch.from_numpy(masks["encoder_masks"]).to(device),
         PREDICTOR_MASK_KEY: torch.from_numpy(masks["predictor_masks"]).to(device),
     }
+
+
+#: OpenCLIP's embedding width of ViT-H-14 and ViT-g-14 (both ``"embed_dim":
+#: 1024``) and their shared text tower's configuration
+LARGE_EMBED_DIM = 1024
+LARGE_TEXT = dict(vocab_size=VOCAB_SIZE, max_length=TEXT_LENGTH, embed_dim=1024, depth=24,
+                  num_heads=16, causal=True, pooling="eos", act_layer="gelu", norm_eps=1e-5,
+                  proj_dim=LARGE_EMBED_DIM)
+
+
+def _large_towers(preset, seed: int, patch_size: int = 14, remat: bool = False,
+                  drop_path_rate: float = 0.0, image_depth=None, text_depth=None,
+                  image_size: int = IMAGE_SIZE) -> dict[str, torch.nn.Module]:
+    """A large preset's image tower (at 224 px unless ``image_size`` says
+    otherwise) and the text tower of OpenCLIP's ViT-H-14 / ViT-g-14, weights
+    drawn on the CPU from ``seed``; depths cut where given (the image
+    tower's drop-path schedule spread over the blocks it keeps)."""
+    g = torch.Generator().manual_seed(seed)
+    depth = {} if image_depth is None else {"depth": image_depth}
+    vision = preset(
+        img_size=image_size, patch_size=patch_size, use_cls_token=True,
+        learned_pos_embed=True, pre_norm=True, patch_embed_bias=False, act_layer="gelu",
+        norm_eps=1e-5, global_pool="cls", proj_dim=LARGE_EMBED_DIM, remat=remat,
+        drop_path_rate=drop_path_rate, dtype=torch.bfloat16, generator=g, **depth,
+    )
+    text_cfg = {**LARGE_TEXT, **({} if text_depth is None else {"depth": text_depth})}
+    text = TextTransformer(**text_cfg, remat=remat, dtype=torch.bfloat16, generator=g)
+    return {"rgb": vision, "text": text}
+
+
+def vit_h14_training_task(
+    device: torch.device | str = "cuda", seed: int = 0, remat: bool = True,
+    drop_path_rate: float = 0.0, image_depth=None, text_depth=None,
+    image_size: int = IMAGE_SIZE,
+) -> ContrastivePretraining:
+    """OpenCLIP ViT-H-14's pair (``vit_huge`` at 14-px patches and its text
+    tower) as the contrastive task on ``device`` in train mode, both towers
+    under activation checkpointing (``remat``, the ``dots_no_batch``
+    policy), with the flagship's optimizer and schedule. ``image_depth`` and
+    ``text_depth`` cut the towers (a CPU reference at full width);
+    ``image_size=448`` gives 1,025 image tokens, past K1's limit at D=80, so
+    the image attention takes K3."""
+    towers = _large_towers(vit_huge, seed, remat=remat, drop_path_rate=drop_path_rate,
+                           image_depth=image_depth, text_depth=text_depth,
+                           image_size=image_size)
+    return _training(towers).to(device).train()
+
+
+def vit_g14_task(
+    device: torch.device | str = "cuda", seed: int = 0, patch_size: int = 14,
+    image_depth=None, text_depth=None,
+) -> ContrastivePretraining:
+    """OpenCLIP ViT-g-14's pair (``vit_giant`` at 14-px patches, 257 tokens,
+    on K3; ``patch_size=16`` gives ViT-g/16, 197 tokens, on K1) on ``device``
+    in eval mode, for serving; ``image_depth`` and ``text_depth`` cut the
+    towers."""
+    towers = _large_towers(vit_giant, seed, patch_size=patch_size, image_depth=image_depth,
+                           text_depth=text_depth)
+    return ContrastivePretraining(towers).to(device).eval()

@@ -8,7 +8,14 @@ from mmlearn_tpu_torch.modules.encoders.vision import (
     VisionTransformerPredictor,
     apply_masks,
     repeat_interleave_batch,
+    vit_base,
+    vit_giant,
+    vit_huge,
+    vit_large,
+    vit_small,
+    vit_tiny,
 )
 
 __all__ = ["EncoderOutput", "TextTransformer", "VisionTransformer",
-           "VisionTransformerPredictor", "apply_masks", "repeat_interleave_batch"]
+           "VisionTransformerPredictor", "apply_masks", "repeat_interleave_batch",
+           "vit_base", "vit_giant", "vit_huge", "vit_large", "vit_small", "vit_tiny"]

@@ -13,11 +13,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass
 class EncoderOutput:
-    """The towers' output, as the JAX package's ``EncoderOutput`` (per-layer
-    hidden states are not ported yet)."""
+    """The towers' output, as the JAX package's ``EncoderOutput``:
+    ``hidden_states`` holds each block's output, in order, when the tower is
+    asked for them (``return_hidden_states=True``)."""
 
     last_hidden_state: torch.Tensor
     pooler_output: Optional[torch.Tensor] = None
+    hidden_states: Optional[tuple[torch.Tensor, ...]] = None
 
 
 def as_dtype(dtype: torch.dtype | str) -> torch.dtype:

@@ -3,17 +3,28 @@
 
 from mmlearn_tpu_torch.modules.layers.attention import Attention
 from mmlearn_tpu_torch.modules.layers.dense import Dense
+from mmlearn_tpu_torch.modules.layers.dropout import (
+    DropPath,
+    Dropout,
+    MaskSource,
+    drop_path,
+    masks_from,
+)
 from mmlearn_tpu_torch.modules.layers.embedding import (
+    ConvEmbed,
     PatchEmbed,
+    get_1d_sincos_pos_embed,
     get_2d_sincos_pos_embed,
     interpolate_pos_embed,
 )
+from mmlearn_tpu_torch.modules.layers.logit_scaling import LearnableLogitScaling
 from mmlearn_tpu_torch.modules.layers.mlp import MLP
 from mmlearn_tpu_torch.modules.layers.normalization import (
     FusedLayerNorm,
     LayerNorm,
     l2_normalize,
 )
+from mmlearn_tpu_torch.modules.layers.patch_dropout import PatchDropout
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense, quant_mode
 from mmlearn_tpu_torch.modules.layers.transformer_block import Block, BlockStack
 
@@ -22,13 +33,22 @@ __all__ = [
     "Attention",
     "Block",
     "BlockStack",
+    "ConvEmbed",
     "Dense",
+    "DropPath",
+    "Dropout",
     "FusedLayerNorm",
     "Int8Dense",
     "LayerNorm",
+    "LearnableLogitScaling",
+    "MaskSource",
+    "PatchDropout",
     "PatchEmbed",
+    "drop_path",
+    "get_1d_sincos_pos_embed",
     "get_2d_sincos_pos_embed",
     "interpolate_pos_embed",
     "l2_normalize",
+    "masks_from",
     "quant_mode",
 ]

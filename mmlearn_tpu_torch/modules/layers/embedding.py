@@ -1,10 +1,13 @@
-"""Patch embedding, 2-D sin-cos position embeddings and the resize of a
+"""Patch embedding (with or without a bias), the 3x3 convolution stem
+``ConvEmbed``, 1-D and 2-D sin-cos position embeddings and the resize of a
 learned position table.
 
 Counterpart of :mod:`mmlearn_tpu.modules.layers.embedding`. Images are NHWC,
 as in the JAX package. The patch projection is a patch unfold plus one
 matmul in (h, w, c) flatten order -- exactly flax's strided ``Conv`` and
-free of cuDNN's default TF32 convolution on the card.
+free of cuDNN's default TF32 convolution on the card. ``ConvEmbed``'s
+convolutions keep flax's HWIO kernels with the output axis moved first
+(``(out, kh, kw, in)``, as :class:`PatchProj`) and flax's ``SAME`` padding.
 :func:`interpolate_pos_embed` resizes with the bicubic of ``jax.image.resize``
 (Keys' cubic with a = -0.5, weights renormalised at the edges), which
 ``F.interpolate(mode="bicubic")`` (a = -0.75, clamped indices) is not.
@@ -33,6 +36,17 @@ def get_1d_sincos_pos_embed_from_grid(embed_dim: int, pos: np.ndarray) -> np.nda
     return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
 
 
+def get_1d_sincos_pos_embed(
+    embed_dim: int, grid_size: int, cls_token: bool = False
+) -> np.ndarray:
+    """1-D sin-cos position embedding, ``(grid_size [+1], embed_dim)``."""
+    pos = np.arange(grid_size, dtype=np.float32)
+    emb = get_1d_sincos_pos_embed_from_grid(embed_dim, pos)
+    if cls_token:
+        emb = np.concatenate([np.zeros((1, embed_dim), np.float32), emb], axis=0)
+    return emb
+
+
 def get_2d_sincos_pos_embed(
     embed_dim: int, grid_size: int | tuple[int, int], cls_token: bool = False
 ) -> np.ndarray:
@@ -56,7 +70,7 @@ def get_2d_sincos_pos_embed(
 class PatchProj(nn.Module):
     """The strided patch convolution as a matmul. ``weight`` is
     ``(embed_dim, patch, patch, in_chans)``: flax's HWIO kernel with the
-    output axis moved first."""
+    output axis moved first; ``bias`` is absent with ``use_bias=False``."""
 
     def __init__(
         self,
@@ -65,23 +79,27 @@ class PatchProj(nn.Module):
         embed_dim: int,
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
+        use_bias: bool = True,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(embed_dim, patch_size, patch_size, in_chans, dtype=param_dtype)
         )
-        self.bias = nn.Parameter(torch.zeros(embed_dim, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(embed_dim, dtype=param_dtype))
+                     if use_bias else None)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, patches: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         w = self.weight.reshape(self.weight.shape[0], -1).to(dt)
-        return F.linear(patches.to(dt), w, self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(patches.to(dt), w, bias)
 
 
 class PatchEmbed(nn.Module):
@@ -94,10 +112,11 @@ class PatchEmbed(nn.Module):
         embed_dim: int = 768,
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
+        use_bias: bool = True,
     ) -> None:
         super().__init__()
         self.patch_size = patch_size
-        self.proj = PatchProj(patch_size, in_chans, embed_dim, dtype, param_dtype)
+        self.proj = PatchProj(patch_size, in_chans, embed_dim, dtype, param_dtype, use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim != 4:
@@ -113,6 +132,65 @@ class PatchEmbed(nn.Module):
             .reshape(b, gh * gw, p * p * c)
         )
         return self.proj(patches)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over NHWC with ``SAME`` padding (``pad_lo = total //
+    2``, the rest after), a bias, weights ``(out, kh, kw, in)``."""
+
+    def __init__(self, in_chans: int, out_chans: int, kernel: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.dtype, self.kernel, self.stride = dtype, kernel, stride
+        self.weight = nn.Parameter(
+            torch.empty(out_chans, kernel, kernel, in_chans, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(out_chans, dtype=param_dtype))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, k, s = self.dtype, self.kernel, self.stride
+        pads = []
+        for size in (x.shape[2], x.shape[1]):  # F.pad's order: w, then h
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        x = F.pad(x.to(dt).permute(0, 3, 1, 2), pads)
+        w = self.weight.permute(0, 3, 1, 2).to(dt)
+        return F.conv2d(x, w, self.bias.to(dt), stride=s).permute(0, 2, 3, 1)
+
+
+class ConvEmbed(nn.Module):
+    """A stack of 3x3 convolutions (ReLU after each) and a 1x1 projection,
+    ``(B, H, W, C)`` to ``(B, tokens, embed_dim)``: the JAX ``ConvEmbed``,
+    its layers named ``conv{i}`` and ``proj``."""
+
+    def __init__(
+        self,
+        channels: tuple[int, ...] = (64, 128, 256),
+        embed_dim: int = 768,
+        strides: tuple[int, ...] = (2, 2, 2),
+        in_chans: int = 3,
+        dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        prev = in_chans
+        self.num_convs = len(channels)
+        for i, (ch, s) in enumerate(zip(channels, strides)):
+            self.add_module(f"conv{i}", Conv(prev, ch, 3, s, dtype, param_dtype))
+            prev = ch
+        self.proj = Conv(prev, embed_dim, 1, 1, dtype, param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = self.proj(x)
+        b, gh, gw, c = x.shape
+        return x.reshape(b, gh * gw, c)
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

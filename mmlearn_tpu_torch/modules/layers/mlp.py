@@ -3,8 +3,9 @@
 Layers are named ``fc{i}`` as in the JAX package, so
 :mod:`mmlearn_tpu_torch.bridge` maps weights by path, and are ``Int8Dense``
 (``MMLEARN_QUANT``) as in the JAX package. Ported so far: an
-explicit ``hidden_dims`` list; the JAX module's ``hidden_dims_multiplier``,
-inter-layer norm and dropout are not (the flagship sets no dropout).
+explicit ``hidden_dims`` list and dropout after each hidden activation
+(its masks from :mod:`~mmlearn_tpu_torch.modules.layers.dropout`); the JAX
+module's ``hidden_dims_multiplier`` and inter-layer norm are not.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 
 # the towers' activations: exact-erf gelu and CLIP's quick_gelu
@@ -41,21 +43,41 @@ class MLP(nn.Module):
         out_dim: Optional[int] = None,
         hidden_dims: Sequence[int] = (),
         activation: str = "gelu",
+        dropout: float = 0.0,
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         dims = [*hidden_dims, out_dim if out_dim is not None else in_dim]
         self.act = get_activation(activation)
+        self.dropout = float(dropout)
+        self.hidden_dims = tuple(hidden_dims)
         self.num_layers = len(dims)
         prev = in_dim
         for i, dim in enumerate(dims):
             self.add_module(f"fc{i + 1}", Int8Dense(prev, dim, True, dtype, param_dtype))
             prev = dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw_masks(self, x_shape) -> Optional[list[torch.Tensor]]:
+        """The keep-masks of the dropouts after the hidden activations for an
+        input of ``x_shape``, from the current source (``None`` where nothing
+        is dropped), in the order the JAX module draws them."""
+        if not self.dropout:
+            return None
+        keeps = [draw_keep(self.training, self.dropout, (*x_shape[:-1], h))
+                 for h in self.hidden_dims]
+        return None if keeps and keeps[0] is None else keeps
+
+    def forward(self, x: torch.Tensor,
+                keeps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``keeps``: the masks :meth:`draw_masks` gives, drawn now where
+        not passed."""
+        if keeps is None:
+            keeps = self.draw_masks(x.shape)
         for i in range(1, self.num_layers + 1):
             x = getattr(self, f"fc{i}")(x)
             if i < self.num_layers:
                 x = self.act(x)
+                if keeps is not None:
+                    x = apply_keep(x, keeps[i - 1], self.dropout)
         return x

@@ -57,8 +57,13 @@ NEG = -0.7 * float(np.finfo(np.float32).max)
 #: launches of the CUDA kernels: the forward, the backward's dK/dV kernel and
 #: its dQ kernel
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+#: the same launches by head dim: ``{(key of LAUNCHES, D): launches}``
+HEAD_DIM_LAUNCHES: dict[tuple[str, int], int] = {}
 
-_KERNEL_HEAD_DIMS = (32, 64)
+#: the head dims the CUDA kernels take: 32 and 64 in one swizzled span a
+#: tile row, 80 and 88 in three spans of 32 columns (the last zero-filled
+#: by TMA past D)
+_KERNEL_HEAD_DIMS = (32, 64, 80, 88)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # batch and heads are grid dimensions
 
@@ -199,7 +204,7 @@ def _check_cuda(q, k, v, mask) -> Optional[torch.Tensor]:
         raise ValueError(f"k and v must be (B, H, N_k, D) matching q {tuple(q.shape)}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim 32 or 64, got {d}")
+        raise ValueError(f"flash attention kernels take head_dim {_KERNEL_HEAD_DIMS}, got {d}")
     if n_q == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs at least one query and one key")
     if b > _GRID_LIMIT or h > _GRID_LIMIT:
@@ -212,6 +217,11 @@ def _check_cuda(q, k, v, mask) -> Optional[torch.Tensor]:
         raise ValueError(f"mask must be ({b}, {k.shape[2]}) on {q.device}, got "
                          f"{tuple(mask.shape)} on {mask.device}")
     return mask.to(torch.bool).contiguous()
+
+
+def _count(key: str, head_dim: int) -> None:
+    LAUNCHES[key] += 1
+    HEAD_DIM_LAUNCHES[key, head_dim] = HEAD_DIM_LAUNCHES.get((key, head_dim), 0) + 1
 
 
 def _raise_on(error_string, err: int, what: str) -> None:
@@ -239,7 +249,7 @@ def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool):
                   None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
                   _strides(q, k, v, out), *_common(q, k, scale, causal))
     _raise_on(error_string, err, "flash attention forward")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", d)
     return out, lse
 
 
@@ -266,8 +276,8 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale: float, causal: bool, g
                   dv.data_ptr(), _strides(q, k, v, dout, out, dq, dk, dv),
                   *_common(q, k, scale, causal))
     _raise_on(error_string, err, "flash attention backward")
-    LAUNCHES["flash_bwd_dkv"] += 1
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dkv", q.shape[-1])
+    _count("flash_bwd_dq", q.shape[-1])
     return dq, dk, dv
 
 
@@ -327,7 +337,7 @@ def flash_attention(
     A CPU tensor takes :func:`flash_fwd_reference` (and
     :func:`flash_bwd_reference` for the gradient) at any shape. A CUDA
     tensor launches the kernels at every length; they take float32 or
-    bfloat16 and ``D`` in {32, 64} and raise on anything else.
+    bfloat16 and ``D`` in {32, 64, 80, 88} and raise on anything else.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"Expected (B, H, N, D) inputs, got {tuple(q.shape)}")
@@ -416,7 +426,7 @@ def flash_attention_qkv(
         ``(B, N, H * D)`` in qkv's dtype.
 
     A CPU tensor takes the plain versions at any shape; a CUDA tensor
-    launches the kernels (float32 or bfloat16, ``D`` in {32, 64}) or raises.
+    launches the kernels (float32 or bfloat16, ``D`` in {32, 64, 80, 88}) or raises.
     """
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, {num_heads} * 3 * D), got {tuple(qkv.shape)}")

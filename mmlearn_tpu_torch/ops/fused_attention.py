@@ -45,9 +45,13 @@ NEG = -0.7 * float(np.finfo(np.float32).max)
 #: kernels K1f-p and K1b-p
 LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_packed_fwd": 0,
             "fused_mha_packed_bwd": 0}
+#: the same launches by head dim: ``{(key of LAUNCHES, D): launches}``
+HEAD_DIM_LAUNCHES: dict[tuple[str, int], int] = {}
 
 _MAX_SEQ = 2048
-_KERNEL_HEAD_DIMS = (32, 64)
+#: the head dims the CUDA kernels take: the towers' 32 and 64, ``vit_huge``'s
+#: 80 and ``vit_giant``'s 88 (zero-padded to 96 in shared memory)
+_KERNEL_HEAD_DIMS = (32, 64, 80, 88)
 #: the JAX package's routing rule between this kernel and the flash kernel:
 #: its byte model of the TPU backward's scoped memory (``_bwd_unit_bytes``,
 #: ``_BWD_VMEM_LIMIT``), kept here so both packages route the same layers.
@@ -113,9 +117,10 @@ def supports_fused(num_heads: int, head_dim: int, seq: int) -> bool:
     package's ``supports_fused``, outcome for outcome. ``seq <= 2048``, heads
     a multiple of ``head_group = lcm(3D, 128) / 3D`` (2 at D=64, 4 at D=32),
     and one head group's backward within the TPU's 20 MiB byte model: that
-    admits N <= 768 at D=64 and N <= 512 at D=32. Every other layer takes
-    the flash kernel (:mod:`mmlearn_tpu_torch.ops.flash_attention`). The
-    CUDA kernel itself needs ``head_dim`` in {32, 64}; :func:`fused_mha`
+    admits N <= 768 at D=64, N <= 512 at D=32, N <= 336 at D=80 (8 heads a
+    group) and N <= 208 at D=88 (16 a group). Every other layer takes the
+    flash kernel (:mod:`mmlearn_tpu_torch.ops.flash_attention`). The CUDA
+    kernel itself needs ``head_dim`` in {32, 64, 80, 88}; :func:`fused_mha`
     checks that.
     """
     if seq > _MAX_SEQ:
@@ -298,7 +303,7 @@ def _check_cuda(
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_mha kernel takes float32 or bfloat16, got {qkv.dtype}")
     if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"fused_mha kernel takes head_dim 32 or 64, got {d}")
+        raise ValueError(f"fused_mha kernel takes head_dim {_KERNEL_HEAD_DIMS}, got {d}")
     if not supports_fused(num_heads, d, n):
         raise ValueError(
             f"fused_mha kernel does not take heads={num_heads}, head_dim={d}, "
@@ -316,6 +321,11 @@ def _check_cuda(
             f"{tuple(mask.shape)} on {mask.device}"
         )
     return mask.to(torch.bool).contiguous()
+
+
+def _count(key: str, head_dim: int, launches: int) -> None:
+    LAUNCHES[key] += launches
+    HEAD_DIM_LAUNCHES[key, head_dim] = HEAD_DIM_LAUNCHES.get((key, head_dim), 0) + launches
 
 
 def _raise_on(error_string, err: int, what: str) -> None:
@@ -351,7 +361,7 @@ def _fused_mha_cuda(
             float(scale), int(causal), *plan, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(error_string, err, prefix)
-    LAUNCHES[f"{prefix}_fwd"] += 1
+    _count(f"{prefix}_fwd", d, 1)
     return out
 
 
@@ -377,7 +387,7 @@ def _fused_mha_bwd_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(error_string, err, f"{prefix} backward")
-    LAUNCHES[f"{prefix}_bwd"] += 2
+    _count(f"{prefix}_bwd", d, 2)
     return dqkv
 
 
@@ -440,7 +450,7 @@ def fused_mha(
     A CPU tensor takes :func:`mha_reference` (and :func:`mha_bwd_reference`
     for the gradient) at any shape, the function the JAX package computes
     off the TPU. A CUDA tensor launches the kernels, which take float32 or
-    bfloat16, ``D`` in {32, 64} and shapes that :func:`supports_fused`
+    bfloat16, ``D`` in {32, 64, 80, 88} and shapes that :func:`supports_fused`
     admits, and raises on anything else: K1's, or the head-grouped ones
     where :func:`use_packed` says so.
     """

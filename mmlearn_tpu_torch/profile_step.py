@@ -8,11 +8,15 @@ Run from the root of a checkout, on a host with a CUDA card::
     python -m mmlearn_tpu_torch.profile_step --path encode-text --batch 256
     python -m mmlearn_tpu_torch.profile_step --path train --quant int8_sb
     python -m mmlearn_tpu_torch.profile_step --path highres --batch 64
+    python -m mmlearn_tpu_torch.profile_step --path vit-h14 --batch 128 [--no-remat]
 
 ``train`` takes ``Trainer.fit`` steps of the flagship contrastive task on the
 synthetic batch; ``highres`` those of its 448-px variant (785 image tokens,
 attention on the flash kernel K3) on ``highres_batch`` (batch 64 unless
-``--batch`` says otherwise); ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
+``--batch`` says otherwise); ``vit-h14`` those of OpenCLIP ViT-H/14's pair
+(``flagship.vit_h14_training_task``: both towers under activation
+checkpointing unless ``--no-remat``; batch 128 by default) on the synthetic
+batch; ``ijepa`` those of the I-JEPA ViT-B/16 task on its batch
 (with ``MMLEARN_FUSED_ATTN_PACKED=1`` in the environment its attention runs
 the head-grouped kernels); ``encode-*`` embeds a batch of images, or of
 ragged right-padded texts, with one tower. ``--quant`` sets
@@ -66,7 +70,7 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _steps(path: str, batch: int, total: int, on_step):
+def _steps(path: str, batch: int, total: int, on_step, remat: bool = True):
     """Run ``total`` steps of ``path``, calling ``on_step(i)`` before each."""
     from mmlearn_tpu_torch.flagship import (
         flagship_task,
@@ -77,6 +81,7 @@ def _steps(path: str, batch: int, total: int, on_step):
         ijepa_training_task,
         ragged_text_batch,
         synthetic_batch,
+        vit_h14_training_task,
     )
     from mmlearn_tpu_torch.trainer import Trainer
 
@@ -84,7 +89,9 @@ def _steps(path: str, batch: int, total: int, on_step):
     gen = torch.Generator(device=device).manual_seed(0)
     steps = {"train": (synthetic_batch, flagship_training_task),
              "highres": (highres_batch, highres_training_task),
-             "ijepa": (ijepa_batch, ijepa_training_task)}
+             "ijepa": (ijepa_batch, ijepa_training_task),
+             "vit-h14": (synthetic_batch,
+                         lambda dev: vit_h14_training_task(dev, remat=remat))}
     if path in steps:
         make_batch, make_task = steps[path]
         data = make_batch(batch, gen, device)
@@ -113,16 +120,19 @@ def _steps(path: str, batch: int, total: int, on_step):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=["train", "highres", "ijepa", "encode-rgb",
-                                           "encode-text"], default="train")
+    parser.add_argument("--path", choices=["train", "highres", "ijepa", "vit-h14",
+                                           "encode-rgb", "encode-text"], default="train")
     parser.add_argument("--batch", type=int, default=None,
-                        help="batch size (default: 64 for highres, 256 otherwise)")
+                        help="batch size (default: 64 for highres, 128 for vit-h14, 256 "
+                             "otherwise)")
+    parser.add_argument("--no-remat", action="store_true",
+                        help="vit-h14 without activation checkpointing")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--quant", choices=["int8_fwd", "int8", "int8_sb"], default=None,
                         help="run under MMLEARN_QUANT=<mode> (default: the variable as set)")
     args = parser.parse_args(argv)
     if args.batch is None:
-        args.batch = 64 if args.path == "highres" else 256
+        args.batch = {"highres": 64, "vit-h14": 128}.get(args.path, 256)
     if args.quant:
         os.environ["MMLEARN_QUANT"] = args.quant
     if not torch.cuda.is_available():
@@ -146,7 +156,7 @@ def main(argv=None) -> int:
         if i == WARMUP + args.steps:
             prof.stop()
 
-    _steps(args.path, args.batch, WARMUP + args.steps + 1, on_step)
+    _steps(args.path, args.batch, WARMUP + args.steps + 1, on_step, remat=not args.no_remat)
     wall_ms = (marks[WARMUP + args.steps] - marks[WARMUP]) * 1e3 / args.steps
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():

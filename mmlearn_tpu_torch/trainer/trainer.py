@@ -48,9 +48,13 @@ Each step's records (``loss``, ``lr``: the rate of the optimizer update this
 micro-batch goes into, ``logit_scale`` where the task reports one,
 ``grad_norm`` and the task's other metrics) stay on the device and are read
 back every ``log_every_n_steps`` steps and at the end, so no step waits on
-the card. The step draws no random numbers on the device (the towers'
-dropout rates are 0): the weights come seeded from the function that makes
-the task, and ``seed`` seeds only the task's host-side ``prepare_batch``
+the card. Each micro-step's dropout, drop-path and patch-dropout masks come
+from a generator on the trainer's device seeded by ``(seed, micro-step)``
+(:func:`~mmlearn_tpu_torch.modules.layers.dropout.step_source`; the JAX
+trainer folds the step into ``key(seed + 1)``), so a resumed run draws what
+the whole run drew; validation, testing and every call outside ``fit``
+draw none. The weights come seeded from the function that makes the task,
+and ``seed`` also seeds the task's host-side ``prepare_batch``
 (``task.prepare_seed``, as the JAX trainer sets it).
 
 The JAX trainer's XLA-only options (``compilation_cache_dir``,
@@ -72,6 +76,7 @@ import torch
 from mmlearn_tpu_torch.datasets.core.loader import DeviceFeeder
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
+from mmlearn_tpu_torch.modules.layers.dropout import masks_from, step_source
 from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor, compute_dtype
 from mmlearn_tpu_torch.tasks.hooks import EvalRuntime
 from mmlearn_tpu_torch.trainer.flops import FlopCounter, device_peak_tflops
@@ -629,7 +634,8 @@ class Trainer:
         i = state.step
         lr = optimizer.param_groups[0]["lr"]
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = task.loss_fn(batch)
+        with masks_from(step_source(self.seed, i, self.device)):
+            loss, metrics = task.loss_fn(batch)
         loss.backward()
         params = state.params()
         grads = [p.grad for p in params]

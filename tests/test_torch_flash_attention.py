@@ -78,8 +78,9 @@ MASKS = ["none", "random", "right_pad", "left_pad", "empty_sample"]
 @pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(2, 3, 64, 32, None), (2, 2, 197, 16, None),
-                                   (2, 2, 40, 16, 56), (2, 2, 56, 16, 40)],
-                         ids=["aligned", "unaligned", "nq<nk", "nq>nk"])
+                                   (2, 2, 40, 16, 56), (2, 2, 56, 16, 40),
+                                   (2, 2, 65, 80, None), (2, 2, 65, 88, None)],
+                         ids=["aligned", "unaligned", "nq<nk", "nq>nk", "d80", "d88"])
 def test_attention_reference_matches_xla(shape, causal, mask_kind):
     """Masks, causal (diagonal offset by N_k - N_q), unaligned lengths, rows
     that see no key: atol 2e-5, the JAX package's own for its kernel."""
@@ -227,7 +228,7 @@ def test_layout_reads_strided_views_in_place():
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 88])
 def test_cuda_flash_matches_plain(d, causal, mask_kind):
     """K3f and K3b against their plain versions at N = 200 (a ragged tile):
     f32 to 2e-5 (sums in another order); bf16 to 2e-2 + 1e-2 relative (p and

@@ -54,7 +54,7 @@ def _mask(kind, b, n, seed):
 @pytest.mark.parametrize("mask_kind", ["none", "random", "all_masked", "right_pad", "left_pad",
                                        "empty_sample"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 88])
 @pytest.mark.parametrize("n", [77, 197])
 def test_plain_matches_pallas_interpret(n, d, causal, mask_kind):
     b, h = 2, 2
@@ -103,7 +103,7 @@ def test_interleave_matches_jax_and_round_trips(shape):
 
 @pytest.mark.parametrize(
     "heads,head_dim,seq",
-    [(12, 64, 197), (8, 64, 77), (12, 32, 197), (8, 32, 77)],
+    [(12, 64, 197), (8, 64, 77), (12, 32, 197), (8, 32, 77), (16, 80, 257), (16, 88, 197)],
 )
 def test_supports_fused_matches_jax_at_slice_shapes(heads, head_dim, seq):
     assert fa.supports_fused(heads, head_dim, seq)
@@ -121,6 +121,19 @@ def test_supports_fused_rule():
     assert not fa.supports_fused(6, 32, 197)  # heads not a multiple of 4
 
 
+@pytest.mark.parametrize("heads,head_dim,limit", [(8, 80, 336), (16, 80, 336), (16, 88, 208)])
+def test_supports_fused_matches_jax_around_the_large_presets_limits(heads, head_dim, limit):
+    """vit_huge's D=80 (heads in groups of 8) and vit_giant's D=88 (groups of
+    16): the JAX predicate's outcome at each length around its limit, and at
+    heads that are not a whole group."""
+    for n in (limit - 1, limit, limit + 1, 257):
+        assert fa.supports_fused(heads, head_dim, n) == jax_supports_fused(heads, head_dim, n)
+    assert fa.supports_fused(heads, head_dim, limit)
+    assert not fa.supports_fused(heads, head_dim, limit + 1)
+    assert not fa.supports_fused(heads + 4, head_dim, 197)
+    assert not jax_supports_fused(heads + 4, head_dim, 197)
+
+
 def test_wrapper_takes_plain_version_only_on_cpu():
     qkv = torch.from_numpy(_qkv(1, 5, 2, 32, seed=0))
     want = fa.mha_reference(qkv, None, 2, 32 ** -0.5, False)
@@ -134,11 +147,12 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, False), (True, True)])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 88])
 def test_cuda_kernel_matches_plain(d, causal, masked):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is CUDA C++ for sm_90a)")
-    b, n, h = 4, 197, 4
+    # heads in whole groups of supports_fused: 4 at D=32 and 64, 8 at 80, 16 at 88
+    b, n, h = 4, 197, {80: 8, 88: 16}.get(d, 4)
     qkv = torch.from_numpy(_qkv(b, n, h, d, seed=d)).cuda()
     mask = torch.from_numpy(_mask("random", b, n, 1)).cuda() if masked else None
     for dtype, (atol, rtol) in ((torch.float32, (2e-5, 0)), (torch.bfloat16, (2e-2, 1e-2))):

@@ -193,12 +193,6 @@ def test_ln_bwd_takes_plain_version_only_on_cpu(with_dr):
         fn._ln_bwd(meta, gamma, meta, 1e-6, meta if with_dr else None)
 
 
-@pytest.mark.parametrize("kw", [{"drop": 0.1}, {"attn_drop": 0.1}, {"drop_path_rate": 0.1}])
-def test_block_rejects_dropout(kw):
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Block(dim=32, num_heads=2, **kw)
-
-
 def test_cuda_wrappers_reject_other_devices():
     meta = torch.empty(2, 5, 3 * 2 * 32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):

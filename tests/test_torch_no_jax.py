@@ -62,6 +62,24 @@ def test_evaluation_layer_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_large_presets_slice_imports_without_jax():
+    """The layer and encoder options, the presets and the large builders,
+    with JAX and the JAX package blocked."""
+    names = ("from mmlearn_tpu_torch.modules.layers import Dropout, DropPath, MaskSource, "
+             "masks_from, drop_path, PatchDropout, LearnableLogitScaling, ConvEmbed, "
+             "get_1d_sincos_pos_embed\n"
+             "from mmlearn_tpu_torch.modules.layers.dropout import step_source\n"
+             "from mmlearn_tpu_torch.modules.layers.attention import materialized_attention\n"
+             "from mmlearn_tpu_torch.modules.encoders import vit_tiny, vit_small, vit_base, "
+             "vit_large, vit_huge, vit_giant\n"
+             "from mmlearn_tpu_torch.flagship import vit_h14_training_task, vit_g14_task\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_a_cuda_card(tmp_path):
     if not torch.cuda.is_available():
         # no CUDA card: the script must refuse, not fall back
