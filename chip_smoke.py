@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training and evaluation paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, evaluation and data paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -188,10 +188,33 @@ Phases, each fatal on failure:
     (K3 at D=88) and ViT-H/14 at 448 px (1,025 tokens: K3 at D=80) image
     towers, cut to 2 blocks at full width, one forward and backward at
     batch 4 on the card against the CPU (pooled output, loss, every
-    gradient), their launches counted exactly.
+    gradient), their launches counted exactly;
+13. the record-fed path: 4,096 TFRecords in 8 shards written by the port's
+    writer, each the bytes of a committed JPEG fixture
+    (``tests/fixtures/jpeg/``), the token pattern of its class
+    (``Uint8Pairs``' 64), its label and index: each read back through
+    ``TFRecordDataset(verify_crc=True)`` equal to what was written, the
+    native CRC-32C of each equal to the Python table's (a process a
+    shard), ``StreamingDataset`` for ranks 0-3 of world 4 disjoint and
+    covering every record once in each of 2 epochs, in different orders.
+    Where the host has libjpeg: 256 records decoded at 224 px on the eval
+    and the train path under per-record seeds (the batch decode equal to
+    the per-image decode, the train decode repeated, no failure) and the
+    train path's images/s on 1, 4 and every core; then, with every count
+    set to 0 before each, ``Trainer.fit`` at b256 (phase 10's protocol and
+    checks, its 3 batches held to the host's own decode of the same
+    records) on ``TFRecordDataset`` + ``ImageTransform(train=True,
+    device_normalize=True)`` through (a) the thread ``DataLoader`` (8
+    threads) and (b) the process loader (6 spawned workers), and on
+    ``MaterializedDataset`` shards of the same images decoded once by
+    ``materialize``, through both. Where it has none (a line says so):
+    the port's decoders raise naming libjpeg, and the fits run on
+    materialized uint8 records of ``Uint8Pairs`` through (a) and (b).
+    Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
+    the feeder, and the host's core count; removes what it wrote.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the eleventh.
+checks that K5 never launched there; so do the eighth to the thirteenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -2876,7 +2899,7 @@ def input_loader(dataset, workers: int = INPUT_WORKERS):
 
 
 def input_fit(master, device, loader, label: str, integrity: bool = False,
-              ckpt_dir=None) -> tuple[dict, float, object]:
+              ckpt_dir=None, reference=None) -> tuple[dict, float, object]:
     """``Trainer.fit`` of a copy of ``master`` at b256 over ``loader`` (its
     uint8 images normalized on the card), with every count set to 0
     first: 3 warm-up steps, 3 timed windows of 10, one more step. Checks
@@ -2884,8 +2907,10 @@ def input_fit(master, device, loader, label: str, integrity: bool = False,
     and nonzero and the loss finite and falling; with ``integrity``, also
     the images and example indices of the first ``INTEGRITY_STEPS`` steps
     as the step read them (the host's f32 normalization in bf16, bit for
-    bit; the sampler's order) and every step's indices on the host side.
-    Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
+    bit; the sampler's order) and every step's indices on the host side;
+    with ``reference`` (example indices -> uint8 images, the host's own
+    decode), the step's images are held to that instead of the batch the
+    loader gave. Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
     the feeder and peak memory; returns the launch counts, pairs/s and, with
     ``ckpt_dir``, the trained task, whose state a ``ModelCheckpoint`` there
     writes once the fit ends (after the timed windows), else None."""
@@ -2909,13 +2934,17 @@ def input_fit(master, device, loader, label: str, integrity: bool = False,
         torch.cuda.synchronize()
         images, index = seen["device"].pop(step)
         x = seen["host"].pop(step)
+        if reference is not None:
+            x = reference(index.cpu().numpy())
         want = torch.from_numpy(normalize_image(x.astype(np.float32) / np.float32(255.0),
                                                 CLIP_MEAN, CLIP_STD)).to(torch.bfloat16)
         got = images.cpu()
         differ = int((got != want).sum())
-        print(f"input path: step {step}: the b{BATCH} images the step read equal the host's "
-              f"f32 normalization cast to bf16 at {got.numel() - differ:,} of {got.numel():,} "
-              f"elements (max abs diff {float((got.float() - want.float()).abs().max()):.3e})")
+        source = "own decode" if reference else "batch"
+        worst = float((got.float() - want.float()).abs().max())
+        print(f"input path{label}: step {step}: the b{BATCH} images the step read equal the "
+              f"host's {source} normalized in f32, cast to bf16, at {got.numel() - differ:,} of "
+              f"{got.numel():,} elements (max abs diff {worst:.3e})")
         check(differ == 0, f"step {step}'s normalized images differ from the host's at "
               f"{differ} elements")
         check(index.cpu().tolist() == sampler_order(SEED, size, 0)[step],
@@ -4015,6 +4044,326 @@ def large_path(device) -> tuple[dict, dict]:
     return totals, by_dim
 
 
+# ------------------------------------------------------------ the record path
+
+# phase 13: RECORDS TFRecords in RECORD_SHARDS shards (contiguous: record i
+# is the dataset's item i), each the JPEG bytes of a committed fixture, the
+# token pattern of its class (Uint8Pairs' 64) and its label; DECODE_RECORDS
+# of them decoded on both paths; the fits at b256 through the thread loader
+# (INPUT_WORKERS threads) and the process loader (RECORD_PROCESSES workers)
+RECORDS, RECORD_SHARDS, DECODE_RECORDS, RECORD_PROCESSES = 4096, 8, 256, 6
+STREAM_WORLD, STREAM_BUFFER = 4, 256
+FIXTURE_DIR = os.path.join(REPO, "tests", "fixtures", "jpeg")
+
+
+def record_seed(idx: int) -> int:
+    """The crop seed of record ``idx``: what ``decode_transform_jpeg``
+    draws from ``JpegRecords``' generator."""
+    import numpy as np
+
+    return int(np.random.default_rng((SEED, idx)).integers(0, 2**63 - 1))
+
+
+class JpegRecords:
+    """``to_example`` of phase 13's JPEG records: the ``jpeg`` feature
+    through ``decode_transform_jpeg`` and ``transform`` under the record's
+    own generator (``default_rng((SEED, index))``), so that every process
+    and every epoch draws the same crop; its tokens and index."""
+
+    def __init__(self, transform) -> None:
+        self.transform = transform
+
+    def __call__(self, features):
+        import numpy as np
+
+        from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
+        from mmlearn_tpu_torch.datasets.builtin.image_utils import decode_transform_jpeg
+        from mmlearn_tpu_torch.datasets.core import Example
+
+        idx = int(features["index"][0])
+        rgb = decode_transform_jpeg(features["jpeg"][0], self.transform,
+                                    rng=np.random.default_rng((SEED, idx)))
+        return Example({"rgb": rgb, "text": features["tokens"].astype(np.int32),
+                        EXAMPLE_INDEX_KEY: idx})
+
+
+def _record_index(features) -> int:
+    return int(features["index"][0])
+
+
+def _python_crcs(path: str) -> list:
+    """The pure-Python CRC-32C of each record of the shard at ``path`` (a
+    worker of phase 13's process pool: the Python table runs at a few MB/s)."""
+    from mmlearn_tpu_torch.datasets.core.tfrecord import _crc32c_py, read_tfrecord
+
+    return [_crc32c_py(record) for record in read_tfrecord(path, verify_crc=False)]
+
+
+def host_cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def write_jpeg_records(out_dir: str, source) -> tuple[list, list]:
+    """Phase 13's records through the port's writer: record i holds the
+    bytes of fixture ``label % n_fixtures``, ``source``'s token pattern of
+    its label, its label and index. Returns the shards and the JPEG bytes
+    of each record."""
+    import glob
+
+    import numpy as np
+
+    from mmlearn_tpu_torch.datasets.core.tfrecord import encode_tf_example, write_tfrecord
+
+    fixtures = []
+    for path in sorted(glob.glob(os.path.join(FIXTURE_DIR, "*.jpg"))):
+        with open(path, "rb") as f:
+            fixtures.append(f.read())
+    check(len(fixtures) >= 8, f"{len(fixtures)} JPEG fixtures under {FIXTURE_DIR}")
+    jpegs = [fixtures[int(k) % len(fixtures)] for k in source.labels[:RECORDS]]
+    per_shard = RECORDS // RECORD_SHARDS
+    shards = []
+    t0 = time.perf_counter()
+    for s in range(RECORD_SHARDS):
+        shards.append(os.path.join(out_dir, f"jpeg-{s:05d}.tfrecord"))
+        write_tfrecord(shards[-1], (encode_tf_example({
+            "jpeg": jpegs[i], "tokens": source.tokens[source.labels[i]],
+            "label": int(source.labels[i]), "index": i})
+            for i in range(s * per_shard, (s + 1) * per_shard)))
+    total = sum(os.path.getsize(p) for p in shards)
+    print(f"record path: {RECORDS} records of {len(fixtures)} JPEG fixtures (mean "
+          f"{np.mean([len(f) for f in fixtures]):,.0f} B) written in {RECORD_SHARDS} shards, "
+          f"{total:,} B, in {time.perf_counter() - t0:.1f} s")
+    return shards, jpegs
+
+
+def record_checks(shards: list, jpegs: list, source) -> None:
+    """Every record read back through ``TFRecordDataset(verify_crc=True)``
+    equal to what was written; the native CRC-32C of each record equal to
+    the Python table's (computed in one process a shard); and
+    ``StreamingDataset`` over the shards for ranks 0-3 of world 4: disjoint,
+    covering every record once in each of 2 epochs, the epochs in
+    different orders."""
+    import functools
+    import multiprocessing
+
+    import numpy as np
+
+    from mmlearn_tpu_torch import native
+    from mmlearn_tpu_torch.datasets.core import StreamingDataset, TFRecordDataset
+    from mmlearn_tpu_torch.datasets.core.tfrecord import read_tfrecord, tfrecord_open_shard
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            min(RECORD_SHARDS, host_cores()),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        python_crcs = pool.map(_python_crcs, shards)
+        ds = TFRecordDataset(shards, verify_crc=True)
+        check(len(ds) == RECORDS, f"{len(ds)} records read back, want {RECORDS}")
+        bad = []
+        for i in range(RECORDS):
+            ex, label = ds[i], source.labels[i]
+            if not (ex["jpeg"] == [jpegs[i]] and int(ex["label"][0]) == label
+                    and int(ex["index"][0]) == i
+                    and np.array_equal(ex["tokens"], source.tokens[label])):
+                bad.append(i)
+        read_s = time.perf_counter() - t0
+        native_crcs = [native.crc32c(r) for p in shards for r in read_tfrecord(p)]
+        python_crcs = [c for shard in python_crcs for c in shard]
+    agree = sum(a == b for a, b in zip(native_crcs, python_crcs))
+    print(f"record path: {RECORDS - len(bad)} of {RECORDS} records read back through "
+          f"TFRecordDataset(verify_crc=True) equal to what was written ({read_s:.1f} s); "
+          f"native CRC-32C equal to the Python table's on {agree} of {len(python_crcs)} records "
+          f"({time.perf_counter() - t0:.1f} s with {min(RECORD_SHARDS, host_cores())} processes)")
+    check(not bad, f"records {bad[:10]} differ from what was written")
+    check(len(native_crcs) == RECORDS and native_crcs == python_crcs,
+          "the native CRC-32C differs from the Python table's")
+
+    t0 = time.perf_counter()
+    open_shard = functools.partial(tfrecord_open_shard, to_example=_record_index)
+    epochs = []
+    for epoch in range(2):
+        streams = []
+        for rank in range(STREAM_WORLD):
+            stream = StreamingDataset(shards, open_shard, shuffle_buffer=STREAM_BUFFER, seed=SEED,
+                                      rank=rank, world_size=STREAM_WORLD)
+            stream.set_epoch(epoch)
+            streams.append(list(stream))
+        flat = [i for s in streams for i in s]
+        ok = sorted(flat) == list(range(RECORDS))
+        print(f"record path: StreamingDataset epoch {epoch}, ranks 0-{STREAM_WORLD - 1} of "
+              f"{STREAM_WORLD}: {[len(s) for s in streams]} records, every record once: {ok}")
+        check(ok, f"epoch {epoch}'s streams are not a partition of the records")
+        epochs.append(streams)
+    check(all(a != b for a, b in zip(*epochs)), "a rank's 2 epochs come in the same order")
+    print(f"record path: the 2 epochs come in different orders on every rank "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def decode_checks(jpegs: list) -> None:
+    """The first ``DECODE_RECORDS`` records at 224 px on the eval path and
+    the train path under their record seeds: the batch decode equal bit for
+    bit to the per-image decode, the train decode repeated under the same
+    seeds, no image failed (the per-image decode raises on a failure). Then
+    the train path's rate with 1 thread, 4, and every core this process may
+    use."""
+    import numpy as np
+
+    from mmlearn_tpu_torch import native
+    from mmlearn_tpu_torch.flagship import IMAGE_SIZE
+
+    batch = jpegs[:DECODE_RECORDS]
+    seeds = [record_seed(i) for i in range(DECODE_RECORDS)]
+    cores = host_cores()
+    train = native.decode_jpeg_batch_train(batch, IMAGE_SIZE, seeds, n_threads=cores)
+    evals = native.decode_jpeg_batch(batch, IMAGE_SIZE, n_threads=cores)
+    same_train = all(np.array_equal(train[i], native.decode_jpeg_train(d, IMAGE_SIZE, seed=s))
+                     for i, (d, s) in enumerate(zip(batch, seeds)))
+    same_eval = all(np.array_equal(evals[i], native.decode_jpeg(d, IMAGE_SIZE))
+                    for i, d in enumerate(batch))
+    again = np.array_equal(train, native.decode_jpeg_batch_train(batch, IMAGE_SIZE, seeds,
+                                                                  n_threads=4))
+    print(f"record path: decode of {DECODE_RECORDS} records at {IMAGE_SIZE} px: the batch "
+          f"equals the per-image decode bit for bit, train {same_train}, eval {same_eval}; the "
+          f"train decode repeats under the same seeds: {again}; no decode failed")
+    check(same_train and same_eval and again, "the batch decode differs")
+    rates = {}
+    for threads in sorted({1, 4, cores}):
+        native.decode_jpeg_batch_train(batch[:16], IMAGE_SIZE, seeds[:16], n_threads=threads)
+        t0 = time.perf_counter()
+        native.decode_jpeg_batch_train(batch, IMAGE_SIZE, seeds, n_threads=threads)
+        rates[threads] = DECODE_RECORDS / (time.perf_counter() - t0)
+    print(f"record path: train-path decode at {IMAGE_SIZE} px, images/s by threads: " + ", ".join(
+        f"{t} {r:.1f}" for t, r in rates.items()) + f" (host cores {os.cpu_count()}, this "
+          f"process may use {cores}; {BATCH / rates[1] * 1e3:.0f} ms of one core a b{BATCH} batch)")
+
+
+def record_fit(master, device, dataset, reference, label: str, processes: bool):
+    """``input_fit`` (phase 10's protocol and checks) on ``dataset``
+    through the thread loader or, with ``processes``, the process loader;
+    every process it starts is stopped at its end. Returns the launch
+    counts and pairs/s."""
+    from mmlearn_tpu_torch.datasets.core.grain_loader import GrainDataLoader
+
+    if processes:
+        loader = GrainDataLoader(dataset, batch_size=BATCH, shuffle=True, seed=SEED,
+                                 drop_last=True, num_workers=RECORD_PROCESSES)
+    else:
+        loader = input_loader(dataset)
+    counts, rate, _ = input_fit(master, device, loader, label, integrity=True,
+                                reference=reference)
+    if processes:
+        import multiprocessing
+
+        loader.close()
+        gc.collect()
+        alive = multiprocessing.active_children()
+        check(not alive, f"{len(alive)} loader workers still run after the fit")
+    return counts, rate
+
+
+def record_path(device) -> dict:
+    """Phase 13, the record-fed path: the flagship trained on TFRecord
+    shards of JPEGs (see ``write_jpeg_records``, ``record_checks``,
+    ``decode_checks``), decoded and cropped by the port's fastloader in
+    ``TFRecordDataset`` + ``ImageTransform(train=True,
+    device_normalize=True)``, through (a) the thread loader and (b) the
+    process loader, then on ``MaterializedDataset`` shards of the same
+    images decoded once by ``materialize``: each fit 3 warm-up steps and 3
+    timed windows of 10 (phase 10's protocol and checks, its 3 batches held
+    to the host's own decode). On a host without libjpeg the decoders
+    raise (checked), and the fits run on materialized uint8 records of
+    ``Uint8Pairs`` instead, as a line of the output says. Everything
+    written is removed at the end. Returns the fits' launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from mmlearn_tpu_torch import native
+    from mmlearn_tpu_torch.datasets import MaterializedDataset, materialize
+    from mmlearn_tpu_torch.datasets.builtin import ImageTransform
+    from mmlearn_tpu_torch.datasets.core import TFRecordDataset
+    from mmlearn_tpu_torch.flagship import IMAGE_SIZE, flagship_training_task
+
+    root = os.path.join(WORK_DIR, "records")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "jpeg"))
+    source = Uint8Pairs(SEED + 31)  # phase 10's classes and token patterns
+    check(source.size == RECORDS, f"Uint8Pairs holds {source.size} pairs, want {RECORDS}")
+    shards, jpegs = write_jpeg_records(os.path.join(root, "jpeg"), source)
+    record_checks(shards, jpegs, source)
+
+    jpeg = native.has_libjpeg()
+    if jpeg:
+        decode_checks(jpegs)
+        transform = ImageTransform(size=IMAGE_SIZE, train=True, device_normalize=True)
+        fits = [("JPEG records, thread loader",
+                 TFRecordDataset(shards, to_example=JpegRecords(transform)), False),
+                ("JPEG records, process loader",
+                 TFRecordDataset(shards, to_example=JpegRecords(transform)), True)]
+
+        def reference(idx):
+            return native.decode_jpeg_batch_train(
+                [jpegs[i] for i in idx], IMAGE_SIZE, [record_seed(int(i)) for i in idx],
+                scale=transform.random_crop_scale, hflip_prob=transform.hflip_prob,
+                n_threads=host_cores())
+
+        def decoded(shard_idx, start, stop):
+            images = reference(np.arange(start, stop))
+            for i in range(start, stop):
+                yield {"rgb": images[i - start], "text": source.tokens[source.labels[i]],
+                       "example_index": i}
+
+        t0 = time.perf_counter()
+        packed = materialize(output_dir=os.path.join(root, "packed"), prefix="packed",
+                             shard_size=RECORDS // RECORD_SHARDS, num_samples=RECORDS,
+                             samples_for_shard=decoded)
+    else:
+        print("record path: NO LIBJPEG on this host (g++ cannot compile and link against "
+              "jpeglib.h and -ljpeg): the JPEG decode checks and the JPEG fits are not run; "
+              "the fits train on materialized uint8 records of Uint8Pairs instead")
+        for decode in (lambda: native.decode_jpeg(jpegs[0], IMAGE_SIZE),
+                       lambda: native.decode_jpeg_batch_train(jpegs[:2], IMAGE_SIZE, [1, 2])):
+            try:
+                decode()
+                raised = ""
+            except RuntimeError as err:
+                raised = str(err)
+            check("libjpeg" in raised, f"the decoder did not raise naming libjpeg: {raised!r}")
+        print(f"record path: the port's decoders raise RuntimeError naming libjpeg: "
+              f"{raised.splitlines()[0]!r}")
+        fits = []
+
+        def reference(idx):
+            return np.stack([source[int(i)]["rgb"] for i in idx])
+
+        t0 = time.perf_counter()
+        packed = materialize(source, os.path.join(root, "packed"), prefix="packed",
+                             shard_size=RECORDS // RECORD_SHARDS)
+    print(f"record path: materialized {packed.num_samples} decoded images into "
+          f"{len(packed.shards)} shards, {packed.num_bytes:,} B, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fits += [("materialized records, thread loader", MaterializedDataset(packed.shards), False),
+             ("materialized records, process loader", MaterializedDataset(packed.shards), True)]
+
+    t0 = time.perf_counter()
+    master = flagship_training_task("cpu", seed=SEED)
+    print(f"record path: flagship task built on the CPU in {time.perf_counter() - t0:.1f} s")
+    launches, rates = {}, {}
+    for name, dataset, processes in fits:
+        t0 = time.perf_counter()
+        counts, rates[name] = record_fit(master, device, dataset, reference, f" ({name})",
+                                         processes)
+        print(f"record path ({name}): fit done in {time.perf_counter() - t0:.1f} s")
+        for key, count in counts.items():
+            launches[key] = launches.get(key, 0) + count
+    print("record path: pairs/s " + "; ".join(
+        f"{name} {rate:.1f} ({rate / FIT_RATES['']:.4f} x phase 5)"
+        for name, rate in rates.items()) + f"; host cores {host_cores()}")
+    del master
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4116,12 +4465,18 @@ def main() -> int:
     check(large_launches_run.get("int8_qmm", 0) == large_launches_run.get("int8_qmm_bytes", 0)
           == 0, f"K5 launched on the large presets' path without {QUANT_ENV}")
     print(f"large presets' path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record_launches = record_path(device)
+    check(record_launches["int8_qmm"] == record_launches["int8_qmm_bytes"] == 0,
+          f"K5 launched on the record path without {QUANT_ENV}")
+    print(f"record path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
-    # input path's fit, the eval path's validate
+    # input path's fit, the eval path's validate, the large presets' runs,
+    # the record path's fits
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
-                   input_launches, eval_launches, large_launches_run):
+                   input_launches, eval_launches, large_launches_run, record_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -14,7 +14,10 @@ Ported so far: the embedding-serving path (encoders, artifact export, the
 embedding index and the HTTP server), the flagship contrastive training
 step (loss, AdamW with its schedule, a minimal trainer), the I-JEPA step,
 the ``MMLEARN_QUANT`` int8 modes and the long-sequence attention path (the
-towers at 448 px), with the kernels they run.
+towers at 448 px), with the kernels they run; the trainer, evaluation, the
+ViT options and large presets, and the data layer with its readers and
+formats (TFRecord, streams, materialized shards, the process loader, the
+built-in readers and the native JPEG fastloader, host C++ in ``csrc/``).
 """
 
 __version__ = "0.1.0"

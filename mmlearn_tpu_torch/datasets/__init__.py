@@ -1,5 +1,6 @@
 """The port's data layer: core abstractions (examples, collation, samplers,
-the host loader and the device feeder), processors and synthetic datasets."""
+the host loaders and the device feeder, TFRecord and streaming readers),
+processors, the built-in readers and corpus materialization."""
 
 from mmlearn_tpu_torch.datasets.core import (
     CombinedDataset,
@@ -9,6 +10,10 @@ from mmlearn_tpu_torch.datasets.core import (
     Example,
     Modalities,
 )
+from mmlearn_tpu_torch.datasets.materialize import (
+    MaterializedDataset,
+    materialize,
+)
 
 __all__ = [
     "CombinedDataset",
@@ -16,5 +21,7 @@ __all__ = [
     "DefaultDataCollator",
     "DeviceFeeder",
     "Example",
+    "MaterializedDataset",
+    "materialize",
     "Modalities",
 ]

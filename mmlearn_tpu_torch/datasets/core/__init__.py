@@ -1,5 +1,6 @@
 """Core data abstractions of the port: modalities, examples, collation,
-samplers, the host loader and the device feeder."""
+samplers, the host loader and the device feeder, and the TFRecord and
+streaming readers."""
 
 from mmlearn_tpu_torch.datasets.core.combined_dataset import CombinedDataset
 from mmlearn_tpu_torch.datasets.core.data_collator import (
@@ -15,6 +16,8 @@ from mmlearn_tpu_torch.datasets.core.samplers import (
     RandomSampler,
     SequentialSampler,
 )
+from mmlearn_tpu_torch.datasets.core.streaming import StreamingDataset, jsonl_open_shard
+from mmlearn_tpu_torch.datasets.core.tfrecord import TFRecordDataset, tfrecord_open_shard
 
 __all__ = [
     "CombinedDataset",
@@ -28,6 +31,10 @@ __all__ = [
     "Modality",
     "RandomSampler",
     "SequentialSampler",
+    "StreamingDataset",
+    "TFRecordDataset",
+    "jsonl_open_shard",
+    "tfrecord_open_shard",
     "collate_example_list",
     "find_matching_indices",
 ]

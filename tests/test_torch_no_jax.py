@@ -80,6 +80,25 @@ def test_large_presets_slice_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_readers_slice_imports_without_jax():
+    """The readers and formats, the process loader and the native bindings,
+    with JAX and the JAX package blocked."""
+    names = ("from mmlearn_tpu_torch.datasets import MaterializedDataset, materialize\n"
+             "from mmlearn_tpu_torch.datasets.core import StreamingDataset, TFRecordDataset, "
+             "jsonl_open_shard, tfrecord_open_shard\n"
+             "from mmlearn_tpu_torch.datasets.core.grain_loader import GrainDataLoader\n"
+             "from mmlearn_tpu_torch.datasets.builtin import CheXpert, ImageNet, ImageTransform, "
+             "LLVIP, LibriSpeech, NIHCXR, NYUv2, SUNRGBD\n"
+             "from mmlearn_tpu_torch.datasets.builtin.image_utils import decode_transform_jpeg\n"
+             "from mmlearn_tpu_torch import native\n"
+             "assert native.crc32c(b'123456789') == 0xE3069283\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_a_cuda_card(tmp_path):
     if not torch.cuda.is_available():
         # no CUDA card: the script must refuse, not fall back

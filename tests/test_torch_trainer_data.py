@@ -20,8 +20,10 @@ import optax
 import pytest
 import torch
 
+from mmlearn_tpu.datasets.builtin import image_utils as jimage_utils
 from mmlearn_tpu.datasets.core import CombinedDataset as JCombined
 from mmlearn_tpu.datasets.core import DataLoader as JLoader
+from mmlearn_tpu.datasets.core import tfrecord as jtfrecord
 from mmlearn_tpu.datasets.core.example import Example as JExample
 from mmlearn_tpu.modules.encoders import TextTransformer as JText
 from mmlearn_tpu.modules.encoders import VisionTransformer as JVision
@@ -30,16 +32,19 @@ from mmlearn_tpu.tasks import ContrastivePretraining as JTask
 from mmlearn_tpu.trainer import Trainer as JTrainer
 from mmlearn_tpu_torch import bridge
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
+from mmlearn_tpu_torch.datasets.builtin import image_utils
 from mmlearn_tpu_torch.datasets.core import (
     CombinedDataset,
     CombinedDatasetRatioSampler,
     DataLoader,
     Example,
     SequentialSampler,
+    tfrecord,
 )
 from mmlearn_tpu_torch.modules.encoders import VisionTransformer
 from mmlearn_tpu_torch.trainer import ModelCheckpoint, Trainer
 from mmlearn_tpu_torch.trainer.trainer import compute_dtype
+from tests.test_torch_process_loader import JpegPairs, write_jpeg_shards
 from tests.test_torch_trainer_fit import SCHEDULE, TEXT, VISION, Recorder, port_task
 
 MEAN = (0.2, 0.3, 0.4)
@@ -209,18 +214,20 @@ def test_resume_skips_no_example_fetch_and_equals_the_full_run(tmp_path, fast):
 # ------------------------------------------------------------ the whole slice
 
 
-def test_slice_matches_the_jax_trainer_on_uint8_data(tmp_path):
-    """3 steps of the tiny flagship on the same uint8 batches (a shuffled
-    loader, normalized on the device) from the same weights, the JAX
-    ``Trainer`` over the JAX ``DataLoader`` against the port's over the
-    port's: f32 on the CPU in two packages, the limits of
-    ``tests/test_torch_trainer_fit.py``: loss rtol 1e-5 at the first step
-    and 3e-4 over all, the final weights atol 2e-5 (the key projection's
-    bias, trained on rounding noise, to twice the sum of the rates)."""
-    def loader(example_cls, combined, loader_cls):
-        return loader_cls(combined([Pairs(example_cls, size=16)]), batch_size=4,
-                          drop_last=True, shuffle=True, seed=1, num_workers=2)
+def run_slice(tmp_path, jax_loader, port_loader, near_zero_grads=False):
+    """3 steps of the tiny flagship from the same weights, the JAX
+    ``Trainer`` over ``jax_loader`` against the port's over
+    ``port_loader``, both normalizing uint8 images on the device, held to
+    the limits of ``tests/test_torch_trainer_fit.py``: loss rtol 1e-5 at the
+    first step and 3e-4 over all, the final weights atol 2e-5 (the key
+    projection's bias, trained on rounding noise, to twice the sum of the
+    rates).
 
+    With ``near_zero_grads``, a weight whose gradient at some step is nonzero
+    and below 1e-6 (100 x AdamW's epsilon, where its update ``g / (|g| + eps)`` turns
+    the f32 rounding of a near-cancelling sum into a visible step) is held
+    to that same bound, and such weights (the key bias aside) must be fewer
+    than 1 in 1,000."""
     jtask = JTask(encoders={"rgb": JVision(**VISION), "text": JText(**TEXT)},
                   optimizer=functools.partial(optax.adamw, weight_decay=0.01),
                   lr_scheduler=functools.partial(jax_schedule, **SCHEDULE))
@@ -231,14 +238,22 @@ def test_slice_matches_the_jax_trainer_on_uint8_data(tmp_path):
     jtrainer = JTrainer(max_steps=3, log_every_n_steps=1, callbacks=[jrec],
                         mesh_shape={"data": 1}, device_normalize=NORMALIZE,
                         default_root_dir=str(tmp_path / "jax"), seed=0)
-    jstate = jtrainer.fit(jtask, loader(JExample, JCombined, JLoader))
+    jstate = jtrainer.fit(jtask, jax_loader)
 
     task = port_task()
     task.load_state_dict(bridge.jax_to_torch(params), strict=True)
+    least_grad = {}  # name -> the least nonzero |gradient| over the steps, element-wise
+    if near_zero_grads:
+        for name, param in task.named_parameters():
+            def note(grad, name=name):
+                g = grad.detach().abs()
+                g[g == 0] = float("inf")  # an exact zero moves no weight
+                least_grad[name] = torch.minimum(least_grad[name], g) if name in least_grad else g
+            param.register_hook(note)
     rec = Recorder()
     trainer = Trainer(max_steps=3, log_every_n_steps=1, callbacks=[rec],
                       device_normalize=NORMALIZE, device="cpu")
-    state = trainer.fit(task, loader(Example, CombinedDataset, DataLoader))
+    state = trainer.fit(task, port_loader)
 
     assert state.step == int(jstate.step) == 3
     np.testing.assert_allclose(rec.series("loss")[0], jrec.series("loss")[0], rtol=1e-5)
@@ -247,10 +262,51 @@ def test_slice_matches_the_jax_trainer_on_uint8_data(tmp_path):
     key_bias = np.zeros((4, 3, 16), bool)
     key_bias[:, 1] = True
     noise_bound = 2 * sum(trainer._lr_schedule(i) for i in range(3))
+    n_near_zero = n_weights = 0
     for name, value in task.state_dict().items():
-        got, ref = value.numpy(), want[name].numpy()
+        got, ref = value.numpy().ravel(), want[name].numpy().ravel()
+        soft = np.zeros(got.shape, bool)
         if name.endswith("attn.qkv.bias"):
-            mask = key_bias.reshape(-1)
-            np.testing.assert_array_less(np.abs(got - ref)[mask], noise_bound)
-            got, ref = got[~mask], ref[~mask]
-        np.testing.assert_allclose(got, ref, atol=2e-5, err_msg=name)
+            soft |= key_bias.reshape(-1)
+        if name in least_grad:
+            near_zero = (least_grad[name].numpy().ravel() < 1e-6) & ~soft
+            n_near_zero += int(near_zero.sum())
+            soft |= near_zero
+        n_weights += got.size
+        np.testing.assert_array_less(np.abs(got - ref)[soft], noise_bound)
+        np.testing.assert_allclose(got[~soft], ref[~soft], atol=2e-5, err_msg=name)
+    assert n_near_zero * 1000 < n_weights, n_near_zero
+
+
+def test_slice_matches_the_jax_trainer_on_uint8_data(tmp_path):
+    """The same uint8 batches (a shuffled loader), the JAX ``DataLoader``
+    against the port's (see :func:`run_slice`)."""
+    def loader(example_cls, combined, loader_cls):
+        return loader_cls(combined([Pairs(example_cls, size=16)]), batch_size=4,
+                          drop_last=True, shuffle=True, seed=1, num_workers=2)
+
+    run_slice(tmp_path, loader(JExample, JCombined, JLoader),
+              loader(Example, CombinedDataset, DataLoader))
+
+
+def test_slice_matches_the_jax_trainer_on_tfrecord_jpegs(tmp_path):
+    """The slice from TFRecord shards of the JPEG fixtures (16 records in 4
+    shards), each decoded and cropped to 16 px by the native train path
+    under its record's seed, uint8: the JAX ``TFRecordDataset``, decoder
+    and ``DataLoader`` against the port's (see :func:`run_slice`; here one
+    weight of the text tower's first fc2 has a first-step gradient of
+    -2.5e-8, where AdamW's epsilon amplifies rounding)."""
+    tokens = np.tile(np.arange(4)[:, None] + 2, (1, 8)).astype(np.int32)
+    tokens[:, 0], tokens[:, -1] = 1, 31  # end of text: the row maximum
+    shards = write_jpeg_shards(tmp_path, n=16, shards=4, tokens=tokens)
+
+    def loader(tfrecord, image_utils, example_cls, combined, loader_cls):
+        transform = image_utils.ImageTransform(size=16, train=True, device_normalize=True)
+        ds = tfrecord.TFRecordDataset(shards, verify_crc=True, to_example=JpegPairs(
+            transform, image_utils.decode_transform_jpeg, example_cls))
+        return loader_cls(combined([ds]), batch_size=4, drop_last=True, shuffle=True, seed=1,
+                          num_workers=2)
+
+    run_slice(tmp_path, loader(jtfrecord, jimage_utils, JExample, JCombined, JLoader),
+              loader(tfrecord, image_utils, Example, CombinedDataset, DataLoader),
+              near_zero_grads=True)
