@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training, evaluation and data paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, evaluation, data and BIOSCAN-CLIP paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -211,10 +211,41 @@ Phases, each fatal on failure:
     the port's decoders raise naming libjpeg, and the fits run on
     materialized uint8 records of ``Uint8Pairs`` through (a) and (b).
     Prints pairs/s, its ratio to phase 5's, ms a step, the step's wait on
-    the feeder, and the host's core count; removes what it wrote.
+    the feeder, and the host's core count; removes what it wrote;
+14. the BIOSCAN-CLIP path (``bioscan_path``): the trimodal recipe of
+    ``bioscan_1m.yaml`` at its widths (``projects.bioscan_clip.recipe``:
+    ViT-B/16 of timm ``vit_base_patch16_224``'s geometry, the post-LN BERT
+    text tower of ``prajjwal1/bert-small``'s, BarcodeBERT; LoRA r=4 on
+    every tower's qkv, per-slice q/v on text and dna; three loss pairs,
+    AdamW, the one-cycle schedule). First the kernels' new instances: K1 on
+    the dna grid (N=133, H=12) unmasked and under a ragged key mask and on
+    the text grid (N=20, H=8; the repo holds no BIOSCAN text length, so 20
+    with 6-20 valid) under a ragged mask, and K2's add+LayerNorm at C=512
+    and 768 at BERT's epsilon 1e-12, against their plain versions at batch
+    8, then timed at b400 beside the plain version, SDPA or
+    ``F.layer_norm`` and the bound. The task is built from seeded random
+    state dicts under the public checkpoints' key names and shapes (timm
+    ViT-B/16, ``BertModel`` with vocabulary 30,522 and 512 positions,
+    ``BertForMaskedLM`` with 1,027 and 256) through the port's converters.
+    One b8 step on the card against an f32 CPU copy (loss, every trainable
+    gradient), both with the LoRA ``b`` factors drawn from a seed, so that
+    the delta is live. ``Trainer.fit`` at b400 in bf16 under remat for 32 steps,
+    two passes of 16 distinct batches of ``BioscanTriples`` (uint8 images
+    through the feeder, normalized on the card; 133-token barcodes from the
+    port's ``DNAProcessor``; texts with masks and token types), every count
+    set to 0 first: launches a step exactly; the trainable set the JAX
+    mask's by name; at step 1 every LoRA ``b`` gradient nonzero and every
+    ``a`` gradient exactly 0; every frozen weight bit-equal to its start at
+    the end; the loss finite and lower over the second pass than the first;
+    triples/s (3 windows of 6 steps, each inside one pass), ms a step, MFU from the FLOP counter (the LoRA merges'
+    products counted) and peak memory. ``TaxonomicClassification`` on the
+    card over synthetic keys and queries: every accuracy equal to its f64
+    evaluation on the CPU. The trained ViT-B/16 and text towers exported
+    (``hf_export.export_task``, LoRA merged) to timm and HF BERT keys and
+    imported again: their outputs on the card equal bit for bit.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the thirteenth.
+checks that K5 never launched there; so do the eighth to the fourteenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -4364,6 +4395,675 @@ def record_path(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the BIOSCAN-CLIP path
+
+# phase 14: the BIOSCAN-CLIP trimodal recipe at bioscan_1m.yaml's widths
+# (mmlearn_tpu_torch.projects.bioscan_clip.recipe): b400 (the YAML's), 16
+# distinct batches a pass of 64 classes, two passes under remat in bf16. The
+# repo holds no BIOSCAN text length: the text tower takes Lt = 20 tokens,
+# 6-20 of them valid (right padding), with token types; the dna tower 133
+# (CLS and the 132 5-mers of a 660-base barcode, dna_tokenizer.py:61-63 with
+# dataset.py:69's max_length=660), unmasked, as the project's dataset gives
+# them
+BIOSCAN_BATCH, BIOSCAN_PASS, BIOSCAN_CLASSES = 400, 16, 64
+BIOSCAN_TEXT, BIOSCAN_MIN_TEXT, BIOSCAN_BARCODE = 20, 6, 660
+# the fit's 3 timed windows of 6 steps, each inside one pass: steps 5-10 and
+# 11-16 of pass 1 after 4 warm-up steps, 21-26 of pass 2 after 4 past the
+# loader's restart at its first batch (step 17)
+BIOSCAN_WINDOW = 6
+BIOSCAN_MARKS = ((4, 10), (10, 16), (20, 26))
+BIOSCAN_STEPS = 2 * BIOSCAN_PASS  # 32: two passes
+# the b factors of the step parity's copy: N(0, 0.02) from a seed, so the
+# card and the CPU compute the LoRA'd forward and backward at a live delta
+BIOSCAN_PARITY_B_STD = 0.02
+# the kernels' new instances, checked at batch 8 and timed at b400: K1 on
+# the dna tower (N=133, H=12) without and with a ragged key mask and on the
+# text tower (N=20, H=8, ragged), K2's add+LayerNorm at the towers' widths
+BIOSCAN_NORM_GRIDS = (("B=400 N=20 C=512", BIOSCAN_BATCH, BIOSCAN_TEXT, 512),
+                      ("B=400 N=133 C=768", BIOSCAN_BATCH, 133, 768))
+# the taxonomic kNN on the card: keys and two query splits of synthetic
+# 768-d embeddings per modality (queries: noisy copies of keys)
+BIOSCAN_KEYS, BIOSCAN_QUERIES, BIOSCAN_TOPK = 4096, 1024, (1, 5)
+# bert-small's geometry as an HF config mapping, for the export round trip
+BERT_SMALL = dict(vocab_size=30522, max_position_embeddings=512, hidden_size=512,
+                  num_hidden_layers=4, num_attention_heads=8, intermediate_size=2048,
+                  layer_norm_eps=1e-12)
+
+
+def bioscan_state_dicts(seed: int) -> tuple[dict, dict, dict]:
+    """Seeded random state dicts under the public checkpoints' key names and
+    shapes: timm ``vit_base_patch16_224`` (its head cut to the 768-d
+    projection, as the recipe's ``num_classes=projection_dim``), HF
+    ``BertModel`` of ``prajjwal1/bert-small``'s geometry (vocabulary 30,522,
+    512 positions, with its pooler) and ``BertForMaskedLM`` of BarcodeBERT's
+    (vocabulary 1,027, 256 positions, width 768, 12 layers; the MLM decoder
+    over the vocabulary)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    def norm(sd, key, c):
+        sd[f"{key}.weight"] = 1 + w(c)
+        sd[f"{key}.bias"] = w(c)
+
+    def linear(sd, key, n_out, n_in):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = w(n_out, n_in), w(n_out)
+
+    timm = {"cls_token": w(1, 1, 768), "pos_embed": w(1, 197, 768),
+            "patch_embed.proj.weight": w(768, 3, 16, 16), "patch_embed.proj.bias": w(768)}
+    for i in range(12):
+        p = f"blocks.{i}"
+        norm(timm, f"{p}.norm1", 768)
+        norm(timm, f"{p}.norm2", 768)
+        linear(timm, f"{p}.attn.qkv", 3 * 768, 768)
+        linear(timm, f"{p}.attn.proj", 768, 768)
+        linear(timm, f"{p}.mlp.fc1", 3072, 768)
+        linear(timm, f"{p}.mlp.fc2", 768, 3072)
+    norm(timm, "norm", 768)
+    linear(timm, "head", 768, 768)
+
+    def bert(sd, prefix, vocab, positions, c, depth):
+        sd[f"{prefix}embeddings.word_embeddings.weight"] = w(vocab, c)
+        sd[f"{prefix}embeddings.position_embeddings.weight"] = w(positions, c)
+        sd[f"{prefix}embeddings.token_type_embeddings.weight"] = w(2, c)
+        norm(sd, f"{prefix}embeddings.LayerNorm", c)
+        for i in range(depth):
+            p = f"{prefix}encoder.layer.{i}"
+            for name in ("query", "key", "value"):
+                linear(sd, f"{p}.attention.self.{name}", c, c)
+            linear(sd, f"{p}.attention.output.dense", c, c)
+            norm(sd, f"{p}.attention.output.LayerNorm", c)
+            linear(sd, f"{p}.intermediate.dense", 4 * c, c)
+            linear(sd, f"{p}.output.dense", c, 4 * c)
+            norm(sd, f"{p}.output.LayerNorm", c)
+        return sd
+
+    text = bert({}, "", 30522, 512, 512, 4)
+    linear(text, "pooler.dense", 512, 512)
+    mlm = bert({}, "bert.", 1027, 256, 768, 12)
+    linear(mlm, "cls.predictions.transform.dense", 768, 768)
+    norm(mlm, "cls.predictions.transform.LayerNorm", 768)
+    linear(mlm, "cls.predictions.decoder", 1027, 768)
+    return timm, text, mlm
+
+
+def bioscan_master(seed: int):
+    """The recipe's task on the CPU (bf16 compute, f32 weights, remat, the
+    one-cycle schedule over ``BIOSCAN_STEPS``) with the towers' weights from
+    :func:`bioscan_state_dicts` through the port's converters; the LoRA
+    factors from the seed. The text tower has no pooler (mean pooling), so
+    the checkpoint's pooler is not loaded; the dna tower's MLM decoder (over
+    the vocabulary) is replaced by the projection, which keeps its
+    initialisation (the reference's swap)."""
+    from mmlearn_tpu_torch.hf_utils import convert_bert, convert_timm_vit, timm_vit_geometry
+    from mmlearn_tpu_torch.projects.bioscan_clip import recipe
+    from mmlearn_tpu_torch.projects.bioscan_clip.encoders import load_barcode_bert_checkpoint
+
+    timm, text, mlm = bioscan_state_dicts(seed)
+    geo = timm_vit_geometry(timm, num_heads=12)
+    want = {k: recipe.RGB[k] for k in ("img_size", "patch_size", "embed_dim", "depth",
+                                         "num_heads", "mlp_ratio")}
+    check({k: geo[k] for k in want} == want, f"timm geometry {geo}, want {want}")
+    task = recipe.bioscan_task(total_steps=BIOSCAN_STEPS, dtype="bfloat16", remat=True,
+                               device="cpu", seed=seed)
+    enc = task.encoders
+    enc["rgb"].load_state_dict(convert_timm_vit(timm, num_heads=12), strict=True)
+    converted = convert_bert(text, 4, num_heads=8)
+    enc["text"].load_state_dict({k: v for k, v in converted.items()
+                                 if not k.startswith("pooler.")}, strict=True)
+    missing, unexpected = enc["dna"].load_state_dict(
+        load_barcode_bert_checkpoint(mlm, 12, 768, num_heads=12), strict=False)
+    check(not unexpected and sorted(missing) == ["decoder.bias", "decoder.weight"],
+          f"BarcodeBERT checkpoint: missing {missing}, unexpected {unexpected}")
+    return task
+
+
+class BioscanTriples:
+    """Phase 14's map-style source: ``BIOSCAN_BATCH * BIOSCAN_PASS``
+    image-DNA-text triples from ``seed`` in ``BIOSCAN_CLASSES`` classes:
+    class k's uint8 NHWC image pattern rolled along the width by the index,
+    its 660-base barcode with the base at ``index % 660`` changed,
+    tokenized by the port's ``DNAProcessor`` (133 tokens), and its taxonomy
+    text of ``BIOSCAN_TEXT`` token ids with 6-20 valid (right padding) and
+    the second half of the valid ones in segment 1."""
+
+    all_map_style = True
+
+    def __init__(self, seed: int) -> None:
+        import numpy as np
+
+        from mmlearn_tpu_torch.projects.bioscan_clip.dna_tokenizer import DNAProcessor
+
+        rng = np.random.default_rng(seed)
+        self.size = BIOSCAN_BATCH * BIOSCAN_PASS
+        self.labels = rng.integers(0, BIOSCAN_CLASSES, self.size)
+        self.patterns = rng.integers(0, 256, (BIOSCAN_CLASSES, 224, 224, 3), dtype=np.uint8)
+        self.barcodes = ["".join(rng.choice(list("ACGT"), BIOSCAN_BARCODE))
+                         for _ in range(BIOSCAN_CLASSES)]
+        self.dna = DNAProcessor(max_length=BIOSCAN_BARCODE)
+        lens = rng.integers(BIOSCAN_MIN_TEXT, BIOSCAN_TEXT + 1, BIOSCAN_CLASSES)
+        pos = np.arange(BIOSCAN_TEXT)[None]
+        self.mask = (pos < lens[:, None]).astype(np.int32)
+        self.types = ((pos >= lens[:, None] // 2) & (self.mask > 0)).astype(np.int32)
+        tokens = rng.integers(1000, 30522, (BIOSCAN_CLASSES, BIOSCAN_TEXT)).astype(np.int32)
+        tokens[:, 0] = 101  # [CLS]
+        self.tokens = np.where(self.mask > 0, tokens, 0).astype(np.int32)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, idx: int):
+        import numpy as np
+
+        from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
+        from mmlearn_tpu_torch.datasets.core import Example
+
+        k, idx = self.labels[idx], int(idx)
+        code = self.barcodes[k]
+        at = idx % BIOSCAN_BARCODE
+        code = code[:at] + "ACGT"[("ACGT".index(code[at]) + 1) % 4] + code[at + 1:]
+        return Example({"rgb": np.roll(self.patterns[k], idx % 16, axis=1),
+                        "dna": self.dna(code), "text": self.tokens[k],
+                        "text_attention_mask": self.mask[k],
+                        "text_token_type_ids": self.types[k], EXAMPLE_INDEX_KEY: idx})
+
+
+def bioscan_kernel_checks(device, err: dict) -> dict:
+    """The kernels' new instances on the BIOSCAN path: K1 forward and
+    backward against their plain versions at batch 8 (the dna grid N=133,
+    H=12 unmasked and under a ragged key mask of 20-133 keys; the text grid
+    N=20, H=8 under a ragged mask of 6-20 keys) at K1's limits, element-wise
+    and as a whole; K2's add+LayerNorm at C=512 and C=768 at BERT's epsilon
+    1e-12 (forward and backward, dgamma/dbeta against f64) at batch 8; then
+    each K1 instance timed at b400 beside its plain version, SDPA (the
+    library call) and its bound, and K2 at b400 by :func:`norms_at_batch`.
+    The largest errors join ``err``; returns the timed rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import fused_attention as fa
+    from mmlearn_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    rows = {}
+
+    def ragged(b, n, low):
+        lens = torch.randint(low, n + 1, (b, 1), generator=gen, device=device)
+        return torch.arange(n, device=device)[None] < lens
+
+    cases = (("dna", 133, 12, None), ("dna ragged mask", 133, 12, 20),
+             ("text ragged mask", BIOSCAN_TEXT, 8, BIOSCAN_MIN_TEXT))
+    for b in (8, BIOSCAN_BATCH):
+        for label, n, h, low in cases:
+            d, scale = 64, 0.125
+            mask = None if low is None else ragged(b, n, low)
+            qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=device).bfloat16()
+            dout = torch.randn(b, n, h * d, generator=gen, device=device).bfloat16()
+            out = fa._fused_mha_cuda(qkv, mask, h, scale, False)
+            dqkv = fa._fused_mha_bwd_cuda(qkv, mask, out, dout, h, scale, False)
+            torch.cuda.synchronize()
+            if b == 8:
+                k1_check(f"bioscan {label} B={b} N={n} H={h} D={d} bf16", qkv, mask, h, False,
+                         out, dqkv, dout, err)
+                continue
+            pairs = attention_pairs(b, n, mask, False)
+            q, k, v = (t.contiguous().requires_grad_() for t in
+                       qkv.view(b, n, h, 3, d).permute(3, 0, 2, 1, 4).unbind(0))
+            kw = {} if mask is None else {"attn_mask": mask[:, None, None, :]}
+            lib_out = F.scaled_dot_product_attention(q, k, v, **kw)
+            lib_dout = dout.view(b, n, h, d).transpose(1, 2).contiguous()
+            tag = f"bioscan {label} B={b} N={n} H={h}"
+            timed = {
+                f"K1f {tag}": (
+                    cuda_ms(lambda: fa.fused_mha(qkv, mask, num_heads=h)),
+                    cuda_ms(lambda: fa.mha_reference(qkv, mask, h, scale, False)),
+                    cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw)),
+                    *bound(nbytes(qkv, out, mask), 4 * h * d * pairs, "bfloat16")),
+                f"K1b {tag}": (
+                    cuda_ms(lambda: fa._fused_mha_bwd_cuda(qkv, mask, out, dout, h, scale,
+                                                           False)),
+                    cuda_ms(lambda: fa.mha_bwd_reference(qkv, mask, out, dout, h, scale, False),
+                            iters=5),
+                    cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_dout,
+                                                        retain_graph=True)),
+                    *bound(nbytes(qkv, out, dout, qkv, mask), 10 * h * d * pairs, "bfloat16")),
+            }
+            print_times(timed)
+            rows.update(timed)
+            del q, k, v, lib_out, lib_dout
+    ln_fwd, ln_bwd = tol("layernorm_fwd", "bfloat16"), tol("layernorm_bwd", "bfloat16")
+    for n, c in ((BIOSCAN_TEXT, 512), (133, 768)):
+        x, br, dy = (torch.randn(8, n, c, generator=gen, device=device).bfloat16()
+                     for _ in range(3))
+        g = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=device)
+        tag = f"bioscan add+layernorm B=8 N={n} C={c} eps=1e-12 bf16"
+        r, y = fn.fused_add_layernorm(x, br, g, beta, eps=1e-12)
+        got = fn._launch_bwd(r, g, dy, 1e-12, torch.zeros_like(dy))
+        want = fn.ln_bwd_reference(r, g, dy, 1e-12, torch.zeros_like(dy))
+        sums = ln_sums_f64(r, dy, 1e-12)
+        err["layernorm_fwd"] = max(err["layernorm_fwd"],
+                                   compare(f"K2f {tag} r", r, x + br, ln_fwd),
+                                   compare(f"K2f {tag} y", y,
+                                           fn.ln_reference(x + br, g, beta, 1e-12), ln_fwd))
+        err["layernorm_bwd"] = max(err["layernorm_bwd"],
+                                   compare(f"K2b {tag} dx", got[0], want[0], ln_bwd),
+                                   compare(f"K2b {tag} dgamma against f64", got[1], sums[0],
+                                           SUM_F64_TOL),
+                                   compare(f"K2b {tag} dbeta against f64", got[2], sums[1],
+                                           SUM_F64_TOL))
+    rows.update(norms_at_batch(device, err, BIOSCAN_NORM_GRIDS, SEED + 71))
+    return rows
+
+
+def bioscan_batch(dataset, indices, device, dtype):
+    """The examples ``indices`` of ``dataset`` collated, the uint8 images
+    normalized in f32 (CLIP's statistics) and cast to ``dtype``, on
+    ``device``."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.datasets.core import DefaultDataCollator
+    from mmlearn_tpu_torch.datasets.processors import CLIP_MEAN, CLIP_STD
+
+    batch = DefaultDataCollator()([dataset[i] for i in indices])
+    out = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+    x = out["rgb"].float() / 255.0
+    mean = torch.tensor(CLIP_MEAN, device=device)
+    std = torch.tensor(CLIP_STD, device=device)
+    out["rgb"] = ((x - mean) / std).to(dtype)
+    return out
+
+
+def bioscan_trainable(task) -> set:
+    """The names the JAX task's ``_trainable_mask`` (contrastive_pretraining.py
+    :280-303) leaves trainable under the recipe's configs, by its rule: every
+    LoRA factor, each LoRA'd tower's ``modules_to_save`` (the rgb tower's
+    ``proj``, the dna tower's ``decoder``), the head and the logit scale
+    (tests/test_torch_peft.py holds the port's sets to that mask itself)."""
+    keep = ("lora.", "encoders.rgb.proj.", "encoders.dna.decoder.", "heads.")
+    return {n for n, _ in task.named_parameters()
+            if n.startswith(keep) or n == "log_logit_scale"}
+
+
+def bioscan_step_parity(master, device) -> None:
+    """One step's loss and gradients at batch 8 on the card (bf16, the
+    kernels) against an f32 copy on the CPU (the plain versions), on a copy
+    of ``master`` whose ``b`` factors are drawn from N(0,
+    ``BIOSCAN_PARITY_B_STD``) (at init they are 0, the delta with them):
+    the loss within ``LOSS_RTOL`` and every trainable tensor's gradient, each
+    ``a`` factor's included, at cosine ``MIN_GRAD_COSINE``; every ``a``
+    gradient nonzero on both sides."""
+    import torch
+
+    from mmlearn_tpu_torch.projects.bioscan_clip import recipe
+
+    data = BioscanTriples(SEED + 72)
+    losses, grads = {}, {}
+    live = copy.deepcopy(master)
+    gen = torch.Generator().manual_seed(SEED + 76)
+    with torch.no_grad():
+        for name, p in live.lora.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(0.0, BIOSCAN_PARITY_B_STD, generator=gen)
+        qkv = live.encoders["rgb"].blocks[0].attn.qkv
+        delta = float((qkv.merged_weight() - qkv.weight).norm() / qkv.weight.norm())
+    print(f"bioscan path: step parity on live LoRA deltas (b ~ N(0, {BIOSCAN_PARITY_B_STD}); "
+          f"the image tower's first qkv: |delta| / |W0| = {delta:.4f})")
+    cpu = recipe.bioscan_task(total_steps=BIOSCAN_STEPS, dtype="float32", device="cpu")
+    cpu.load_state_dict(live.state_dict(), strict=True)
+    for where, task, dev, dtype in (("card", live.to(device), device, torch.bfloat16),
+                                    ("cpu", cpu, torch.device("cpu"), torch.float32)):
+        t0 = time.perf_counter()
+        task.train()
+        loss, _ = task.loss_fn(bioscan_batch(data, range(PARITY_BATCH), dev, dtype))
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()
+                        if p.requires_grad}
+        print(f"bioscan path: step b={PARITY_BATCH} on the {where}: loss {losses[where]:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del task
+    del live
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(cos, key=cos.get)
+    a_cos = [c for n, c in cos.items() if n.startswith("lora.") and n.endswith(".a")]
+    a_zero = [n for n in cos if n.startswith("lora.") and n.endswith(".a")
+              and not (bool(grads["card"][n].any()) and bool(grads["cpu"][n].any()))]
+    print(f"bioscan path: step parity b={PARITY_BATCH}, card (bf16) vs f32 CPU copy: loss rel "
+          f"diff {rel:.3e} (tol {LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, "
+          f"median {statistics.median(cos.values()):.6f} over {len(cos)} trainable tensors, "
+          f"min {min(a_cos):.6f} over the {len(a_cos)} a factors, {len(a_zero)} of them zero "
+          f"(bound {MIN_GRAD_COSINE})")
+    check(rel <= LOSS_RTOL, f"bioscan loss on the card {losses['card']} vs CPU {losses['cpu']}")
+    check(cos[worst] >= MIN_GRAD_COSINE, f"bioscan gradient of {worst}: cosine {cos[worst]}")
+    check(a_cos and not a_zero, f"bioscan parity: a gradients zero at a live delta: {a_zero[:6]}")
+
+
+def bioscan_launches(task) -> dict:
+    """Launches a step under remat: per block (ViT-B/16 12, the text tower
+    4, the dna tower 12) K1f twice (its forward and its recompute), K1b's
+    two kernels once, K2f four times, K2b twice -- but once in the image
+    tower's first block: its first norm's input (the frozen patch and
+    position embeddings) and weights are all frozen, so autograd asks that
+    norm for no gradient."""
+    enc = task.encoders
+    depth = len(enc["rgb"].blocks) + len(enc["text"].blocks) + len(enc["dna"].bert.blocks)
+    return {"fused_mha_fwd": 2 * depth, "fused_mha_bwd": 2 * depth, "fused_mha_packed_fwd": 0,
+            "fused_mha_packed_bwd": 0, "layernorm_fwd": 4 * depth,
+            "layernorm_bwd": 2 * depth - 1, "int8_qmm": 0, "int8_qmm_bytes": 0, **NO_FLASH}
+
+
+class BioscanProbe(InputProbe):
+    """Phase 14's probe: phase 10's clock and feeder waits at ``marks``, and
+    ``after_first`` after step 1 (its gradients still in place), before the
+    clock is read."""
+
+    def __init__(self, marks, after_first) -> None:
+        super().__init__(marks)
+        self.label = f"bioscan path: fit b{BIOSCAN_BATCH}"
+        self.after_first = after_first
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        if step == 1:
+            self.after_first()
+        super().on_train_batch_end(trainer, metrics, step)
+
+
+def bioscan_fit(task, device) -> dict:
+    """``Trainer.fit`` of the recipe at b400 on ``BioscanTriples`` through
+    the ``DataLoader`` (8 threads) and the trainer's feeder, uint8 images
+    normalized on the card, every count set to 0 first: ``BIOSCAN_STEPS``
+    steps (two passes), timed over the windows ``BIOSCAN_MARKS``. Checks
+    the launches a step exactly, the trainable set by name, at step 1 every
+    ``b`` gradient nonzero and every ``a`` gradient exactly 0, every frozen
+    parameter bit-equal to its start at the end, the loss finite and its
+    mean over the second pass below the first's. Prints triples/s, ms a
+    step, the counted FLOPs (the LoRA merges' products included), MFU and
+    peak memory. Returns the launches."""
+    import math
+
+    import torch
+
+    from mmlearn_tpu_torch.datasets.core import DataLoader
+    from mmlearn_tpu_torch.trainer import Trainer
+    from mmlearn_tpu_torch.trainer.flops import device_peak_tflops
+
+    trainable = {n for n, p in task.named_parameters() if p.requires_grad}
+    want_set = bioscan_trainable(task)
+    print(f"bioscan path: {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in task.parameters() if p.requires_grad):,} of "
+          f"{sum(p.numel() for p in task.parameters()):,} parameters); the JAX mask's set: "
+          f"{'equal' if trainable == want_set else 'DIFFERENT'}")
+    check(trainable == want_set, f"trainable set differs from the JAX mask's: extra "
+          f"{sorted(trainable - want_set)[:6]}, missing {sorted(want_set - trainable)[:6]}")
+    frozen = {n: p.detach().clone() for n, p in task.named_parameters() if not p.requires_grad}
+    first = {}
+
+    def first_grads():
+        a = {n: p.grad for n, p in task.named_parameters()
+             if n.startswith("lora.") and n.endswith(".a")}
+        b = {n: p.grad for n, p in task.named_parameters()
+             if n.startswith("lora.") and n.endswith(".b")}
+        first["a_nonzero"] = [n for n, g in a.items() if g is None or bool(g.any())]
+        first["b_zero"] = [n for n, g in b.items() if g is None or not bool(g.any())]
+        first["counts"] = (len(a), len(b))
+        bad, zero = _bad_grads((n, p) for n, p in task.named_parameters() if p.requires_grad)
+        first["bad"] = bad + [n for n in zero if not n.endswith(".a")]
+
+    loader = DataLoader(BioscanTriples(SEED + 73), batch_size=BIOSCAN_BATCH, shuffle=True,
+                        seed=SEED, drop_last=True, num_workers=INPUT_WORKERS)
+    probe = BioscanProbe({m for w in BIOSCAN_MARKS for m in w}, first_grads)
+    trainer = Trainer(max_steps=BIOSCAN_STEPS, log_every_n_steps=BIOSCAN_STEPS, device=device,
+                      log_mfu=True, device_normalize=input_normalize(), callbacks=[probe])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = trainer.fit(task, loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, dims = launch_counts(), head_dim_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = bioscan_launches(task)
+    print(f"{probe.label}: {state.step} steps ({fit_s:.1f} s) launched " + ", ".join(
+        f"{k} {v} ({v / state.step:g} a step, want {want[k]})" for k, v in counts.items())
+          + f"; by head dim {dims}")
+    check(state.step == BIOSCAN_STEPS, f"bioscan fit took {state.step} steps")
+    check(counts == {k: v * state.step for k, v in want.items()},
+          f"bioscan fit launches {counts}, want {want} a step")
+    check(dims == {("fused_mha_fwd", 64): want["fused_mha_fwd"] * state.step,
+                   ("fused_mha_bwd", 64): want["fused_mha_bwd"] * state.step},
+          f"bioscan fit launches by head dim {dims}")
+    n_a, n_b = first["counts"]
+    print(f"bioscan path: step 1 LoRA gradients: {n_a - len(first['a_nonzero'])} of {n_a} "
+          f"a factors exactly 0, {n_b - len(first['b_zero'])} of {n_b} b factors nonzero; other "
+          f"trainable gradients missing, non-finite or zero: {first['bad'][:6]}")
+    enc = task.encoders
+    n_qkv = len(enc["rgb"].blocks) + 2 * len(enc["text"].blocks) + 2 * len(enc["dna"].bert.blocks)
+    check(n_a == n_b == n_qkv and not first["a_nonzero"] and not first["b_zero"]
+          and not first["bad"], f"bioscan step-1 gradients: a nonzero {first['a_nonzero'][:6]}, "
+          f"b zero {first['b_zero'][:6]}, bad {first['bad'][:6]}")
+    moved = [n for n, p in task.named_parameters() if not p.requires_grad
+             and not torch.equal(p.detach(), frozen[n])]
+    print(f"bioscan path: frozen tensors bit-equal to their start: "
+          f"{len(frozen) - len(moved)} of {len(frozen)}")
+    check(not moved, f"frozen weights moved: {moved[:6]}")
+    losses = [h["loss"] for h in trainer.history]
+    passes = [statistics.mean(losses[:BIOSCAN_PASS]), statistics.mean(losses[BIOSCAN_PASS:])]
+    print(f"bioscan path: loss step 0 {losses[0]:.6f}, step {len(losses) - 1} {losses[-1]:.6f}; "
+          f"mean over pass 1 {passes[0]:.6f}, pass 2 {passes[1]:.6f}; lr "
+          f"{trainer.history[0]['lr']:.4e} -> {trainer.history[-1]['lr']:.4e}; logit scale "
+          f"{trainer.history[-1]['logit_scale']:.4f}")
+    check(all(math.isfinite(x) for x in losses) and passes[1] < passes[0],
+          f"bioscan losses {losses}")
+    window_s = [probe.times[b] - probe.times[a] for a, b in BIOSCAN_MARKS]
+    rates = [BIOSCAN_BATCH * BIOSCAN_WINDOW / w for w in window_s]
+    median = statistics.median(rates)
+    ms = statistics.median(window_s) / BIOSCAN_WINDOW * 1e3
+    flops = trainer._step_flops
+    tflops = flops / (ms / 1e3) / 1e12
+    peak = device_peak_tflops(device)
+    waits = [probe.waits[b] - probe.waits[a] for a, b in BIOSCAN_MARKS]
+    print(f"{probe.label} bf16 remat: {median:.1f} triples/s median of {len(BIOSCAN_MARKS)} "
+          f"windows of {BIOSCAN_WINDOW} steps inside a pass (windows {', '.join(f'{r:.1f}' for r in rates)}; spread "
+          f"{(max(rates) - min(rates)) / median:.2%}), {ms:.2f} ms a step, the step's wait on "
+          f"the feeder {statistics.median(waits) / BIOSCAN_WINDOW * 1e3:.2f} ms a step, peak "
+          f"memory {peak_gb:.2f} GB; {flops:.6e} FLOPs a step counted (the recompute and the "
+          f"LoRA merges included), {tflops:.1f} TFLOP/s, MFU "
+          f"{'not in the table' if peak is None else f'{tflops / peak:.2%} of {peak:g}'}")
+    return counts
+
+
+class _EmbeddingRuntime:
+    """What :class:`TaxonomicClassification` needs of an ``EvalRuntime``: an
+    ``encode`` that gives the batch's own embedding rows, L2-normalized in
+    f32, on the card."""
+
+    def encode(self, batch, modality, normalize=False):
+        from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
+
+        out = batch[modality]
+        return l2_normalize(out.float()) if normalize else out
+
+
+def taxonomic_checks(device) -> None:
+    """``TaxonomicClassification`` on the card over synthetic embeddings:
+    ``BIOSCAN_KEYS`` keys and two query splits of ``BIOSCAN_QUERIES`` (each
+    query a copy of a key plus noise, taking that key's taxonomy or, for a
+    quarter of them, another's) of 768-d rgb, dna and text rows, in batches
+    of 400 with the splits mixed; every reported accuracy (four query/key
+    combinations, top-1 and top-5, micro and macro, four levels) equal to
+    its evaluation in f64 on the CPU from the same rows (ties to the lower
+    key row, as the port's top-k)."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.projects.bioscan_clip.eval_task import (
+        LEVELS,
+        TaxonomicClassification,
+        top_k_macro_accuracy,
+        top_k_micro_accuracy,
+    )
+
+    rng = np.random.default_rng(SEED + 74)
+    taxa = [{lv: f"{lv}{i % n}" for lv, n in zip(LEVELS, (4, 16, 64, 256))}
+            for i in rng.integers(0, 1 << 20, BIOSCAN_KEYS)]
+    keys = {m: rng.standard_normal((BIOSCAN_KEYS, 768)).astype(np.float32)
+            for m in ("rgb", "dna", "text")}
+    rows, labels, splits = {m: [keys[m]] for m in keys}, list(taxa), ["all_keys"] * BIOSCAN_KEYS
+    for split in ("val_seen", "val_unseen"):
+        src = rng.integers(0, BIOSCAN_KEYS, BIOSCAN_QUERIES)
+        for m in keys:
+            rows[m].append(keys[m][src] + 0.8 * rng.standard_normal((BIOSCAN_QUERIES, 768))
+                           .astype(np.float32))
+        other = rng.integers(0, BIOSCAN_KEYS, BIOSCAN_QUERIES)
+        swap = rng.random(BIOSCAN_QUERIES) < 0.25
+        labels += [taxa[o] if s else taxa[i] for i, o, s in zip(src, other, swap)]
+        splits += [split] * BIOSCAN_QUERIES
+    rows = {m: np.concatenate(v) for m, v in rows.items()}
+    order = rng.permutation(len(splits))
+    hook = TaxonomicClassification(
+        top_k=BIOSCAN_TOPK, print_table=False,
+        report_combos=(("rgb", "dna"), ("averaged", "averaged"),
+                       ("concatenated", "concatenated"), ("rgb", "all_key")))
+    runtime = _EmbeddingRuntime()
+    hook.on_evaluation_epoch_start(runtime)
+    t0 = time.perf_counter()
+    for i, start in enumerate(range(0, len(order), BIOSCAN_BATCH)):
+        idx = order[start:start + BIOSCAN_BATCH]
+        batch = {m: torch.from_numpy(rows[m][idx]).to(device) for m in rows}
+        batch["split"] = [splits[j] for j in idx]
+        batch["labels"] = [labels[j] for j in idx]
+        hook.evaluation_step(runtime, batch, i)
+    results = hook.on_evaluation_epoch_end(runtime)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+
+    # the f64 evaluation of the same rows, in the hook's accumulation order
+    def store(split):
+        sel = [j for j in order if splits[j] == split]
+        emb = {m: rows[m][sel].astype(np.float64) for m in rows}
+        emb = {m: v / np.linalg.norm(v, axis=1, keepdims=True) for m, v in emb.items()}
+        emb["averaged"] = (emb["rgb"] + emb["dna"]) / 2
+        emb["concatenated"] = np.concatenate([emb["rgb"], emb["dna"]], axis=1)
+        return emb, [labels[j] for j in sel]
+
+    key_emb, key_labels = store("all_keys")
+    # all_key: each batch's keys as rgb, dna, text in turn (the hook's order)
+    all_key, all_labels = [], []
+    for start in range(0, len(order), BIOSCAN_BATCH):
+        sel = [j for j in order[start:start + BIOSCAN_BATCH] if splits[j] == "all_keys"]
+        if sel:
+            for m in ("rgb", "dna", "text"):
+                v = rows[m][sel].astype(np.float64)
+                all_key.append(v / np.linalg.norm(v, axis=1, keepdims=True))
+            all_labels += [labels[j] for j in sel] * 3
+    key_emb["all_key"] = np.concatenate(all_key)
+    want = {}
+    k_max = max(BIOSCAN_TOPK)
+    for split in ("val_seen", "val_unseen"):
+        q_emb, gt = store(split)
+        for q, k in hook.report_combos:
+            kl = all_labels if k == "all_key" else key_labels
+            t = key_emb[k] / np.linalg.norm(key_emb[k], axis=1, keepdims=True)
+            qq = q_emb[q] / np.linalg.norm(q_emb[q], axis=1, keepdims=True)
+            top = np.argsort(-(qq @ t.T), axis=1, kind="stable")[:, :k_max]
+            preds = [{lv: [kl[i][lv] for i in row] for lv in LEVELS} for row in top]
+            micro = top_k_micro_accuracy(preds, gt, BIOSCAN_TOPK)
+            macro, _ = top_k_macro_accuracy(preds, gt, BIOSCAN_TOPK)
+            for kk in BIOSCAN_TOPK:
+                for lv in LEVELS:
+                    name = f"{split}_{q}_2_{k}_top_{kk}"
+                    want[f"{name}_micro_{lv}"] = micro[kk][lv]
+                    want[f"{name}_macro_{lv}"] = macro[kk][lv]
+    differ = [k for k in want if results.get(k) != want[k]]
+    example = "val_seen_rgb_2_all_key_top_1_micro_species"
+    print(f"bioscan path: TaxonomicClassification on the card over {BIOSCAN_KEYS} keys and 2 x "
+          f"{BIOSCAN_QUERIES} queries ({card_s:.2f} s): {len(want) - len(differ)} of {len(want)} "
+          f"accuracies equal to the f64 CPU evaluation (e.g. {example} {results.get(example)})")
+    check(set(results) == set(want) and not differ,
+          f"taxonomic accuracies differ from f64: {differ[:6]}")
+
+
+def export_round_trip(task, device) -> None:
+    """The trained recipe's ViT-B/16 and text towers through
+    ``hf_export.export_task`` (LoRA merged; timm and HF BERT keys) and back
+    through ``TimmViT`` and ``HFTextEncoder`` (the importers): each imported
+    tower's output on the card equal to the trained tower's bit for bit, at
+    batch 32."""
+    import torch
+
+    from mmlearn_tpu_torch import hf_export
+    from mmlearn_tpu_torch.modules.encoders.hf_wrappers import HFTextEncoder, TimmViT
+
+    t0 = time.perf_counter()
+    out = hf_export.export_task(task, skip_unknown=True)
+    check({"rgb", "text", "heads.text", "logit_scale"} <= set(out) and "dna" not in out,
+          f"export_task gave {sorted(out)}")
+    rgb = TimmViT(state_dict=out["rgb"], projection_dim=768, num_heads=12,
+                  dtype="bfloat16").to(device).eval()
+    text = HFTextEncoder(config=BERT_SMALL, state_dict=out["text"], pooling="mean",
+                         dtype="bfloat16").to(device).eval()
+    data = BioscanTriples(SEED + 75)
+    batch = bioscan_batch(data, range(32), device, torch.bfloat16)
+    task.eval()
+    with torch.no_grad():
+        pairs = {"rgb": (task.encoders["rgb"](batch["rgb"]).pooler_output,
+                         rgb(batch["rgb"]).pooler_output),
+                 "text": (task.encoders["text"](batch["text"], batch["text_attention_mask"],
+                                                batch["text_token_type_ids"]).pooler_output,
+                          text(batch["text"], batch["text_attention_mask"],
+                               batch["text_token_type_ids"]).pooler_output)}
+    task.train()
+    for m, (want, got) in pairs.items():
+        same = torch.equal(want, got)
+        print(f"bioscan path: {m} tower exported ({len(out[m])} tensors) and imported: output "
+              f"b32 bit-equal {'ok' if same else 'FAIL'} (max |diff| "
+              f"{float((want.float() - got.float()).abs().max()):.3e})")
+        check(same, f"the {m} tower's export round trip changes its output")
+    print(f"bioscan path: export round trip {time.perf_counter() - t0:.1f} s")
+
+
+def bioscan_path(device) -> tuple[dict, dict]:
+    """Phase 14, the BIOSCAN-CLIP path. Returns its fit's launches and the
+    kernels' new instances' timed rows."""
+    import torch
+
+    err = {"fused_mha_fwd": 0.0, "fused_mha_bwd": 0.0, "layernorm_fwd": 0.0,
+           "layernorm_bwd": 0.0}
+    t0 = time.perf_counter()
+    rows = bioscan_kernel_checks(device, err)
+    print(f"bioscan path: kernel instances checked and timed in {time.perf_counter() - t0:.1f} s "
+          f"(largest errors {err})")
+    t0 = time.perf_counter()
+    master = bioscan_master(SEED)
+    n = {m: sum(p.numel() for p in e.parameters()) for m, e in master.encoders.items()}
+    print(f"bioscan path: task built on the CPU from converted state dicts in "
+          f"{time.perf_counter() - t0:.1f} s: rgb {n['rgb']:,}, text {n['text']:,}, dna "
+          f"{n['dna']:,} parameters, LoRA {sum(p.numel() for p in master.lora.parameters()):,}")
+    t0 = time.perf_counter()
+    bioscan_step_parity(master, device)
+    print(f"bioscan path: step parity in {time.perf_counter() - t0:.1f} s")
+    task = master.to(device)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"bioscan path: the fit's card: {card}")
+    counts = bioscan_fit(task, device)
+    taxonomic_checks(device)
+    export_round_trip(task, device)
+    del task, master
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    return counts, rows
+
+
 def main() -> int:
     import torch
 
@@ -4470,13 +5170,20 @@ def main() -> int:
     check(record_launches["int8_qmm"] == record_launches["int8_qmm_bytes"] == 0,
           f"K5 launched on the record path without {QUANT_ENV}")
     print(f"record path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bioscan_launches_run, bioscan_rows = bioscan_path(device)
+    check(bioscan_launches_run["int8_qmm"] == bioscan_launches_run["int8_qmm_bytes"] == 0,
+          f"K5 launched on the BIOSCAN-CLIP path without {QUANT_ENV}")
+    times.update(bioscan_rows)
+    print(f"BIOSCAN-CLIP path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate, the large presets' runs,
-    # the record path's fits
+    # the record path's fits, the BIOSCAN-CLIP fit
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
-                   input_launches, eval_launches, large_launches_run, record_launches):
+                   input_launches, eval_launches, large_launches_run, record_launches,
+                   bioscan_launches_run):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -17,7 +17,9 @@ the ``MMLEARN_QUANT`` int8 modes and the long-sequence attention path (the
 towers at 448 px), with the kernels they run; the trainer, evaluation, the
 ViT options and large presets, and the data layer with its readers and
 formats (TFRecord, streams, materialized shards, the process loader, the
-built-in readers and the native JPEG fastloader, host C++ in ``csrc/``).
+built-in readers and the native JPEG fastloader, host C++ in ``csrc/``); the
+encoders and weight I/O (the BERT towers, HF/timm converters, factories and
+exporters, LoRA, the Lightning importer) and the BIOSCAN-CLIP project.
 """
 
 __version__ = "0.1.0"

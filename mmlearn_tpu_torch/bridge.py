@@ -26,13 +26,19 @@ the teacher in ``extras["ema_encoder"]``) cross with
 :func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. A whole JAX
 train state, with its AdamW moments, schedule position and accumulated
 gradient, becomes a port checkpoint with :func:`train_state_from_jax`.
+The towers of the BIOSCAN-CLIP recipe (``BertTextEncoder``, ``BarcodeBERT``
+with its ``bert`` trunk) follow the same rules, and so does a contrastive
+task's LoRA tree: ``lora/<encoder>/<layer path>/{a, b}`` (or
+``.../{q, v}/{a, b}`` per qkv slice) is ``lora.<encoder>.<layer>.a`` in the
+port, the factors untransposed (``a`` ``(in, r)``, ``b`` ``(r, out)`` on
+both sides). :func:`jax_paths` names each port parameter's JAX path.
 Plain numpy and torch: nothing here imports jax.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -87,28 +93,57 @@ def jax_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def torch_to_jax(module: nn.Module, scanned: bool = False) -> dict[str, np.ndarray]:
+def jax_module_path(name: str) -> str:
+    """A port module's dotted name as its JAX path: ``blocks.3.attn.qkv`` to
+    ``blocks_3/attn/qkv``."""
+    return "/".join(filter(None, re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2",
+                                        name).split(".")))
+
+
+def _jax_leaf(mod: nn.Module, pname: str) -> tuple[str, Optional[tuple[int, ...]]]:
+    """A parameter's JAX leaf name, and the axes that take it to the JAX
+    layout (``None``: as it is)."""
+    if pname == "weight":
+        if isinstance(mod, Dense):
+            return "kernel", (1, 0)
+        if isinstance(mod, (PatchProj, Conv)):
+            return "kernel", (1, 2, 3, 0)
+        if isinstance(mod, AffineNorm):
+            return "scale", None
+        if isinstance(mod, Embed):
+            return "embedding", None
+    return pname, None
+
+
+def jax_paths(module: nn.Module) -> dict[str, str]:
+    """``{parameter name: JAX path}`` of every parameter of ``module``:
+    ``blocks.3.attn.qkv.weight`` to ``blocks_3/attn/qkv/kernel``."""
+    out = {}
+    for name, mod in module.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            leaf, _ = _jax_leaf(mod, pname)
+            out[f"{name}.{pname}" if name else pname] = "/".join(
+                filter(None, [jax_module_path(name), leaf]))
+    return out
+
+
+def torch_to_jax(module: nn.Module, scanned: bool = False,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> dict[str, np.ndarray]:
     """A port module's parameters as flat JAX paths: per-layer blocks
     (``blocks_{i}/...``), or with ``scanned`` each stack's blocks stacked
     along a leading depth axis under ``block_stack/blocks/block/...``, the
-    layout of a tower built with ``scan_blocks=True``."""
+    layout of a tower built with ``scan_blocks=True``. ``state_dict``: the
+    values to write, by parameter name, in place of the parameters' own
+    (a LoRA'd tower's merged weights)."""
     flat: dict[str, np.ndarray] = {}
     for name, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
+            if state_dict is not None:
+                p = state_dict[f"{name}.{pname}" if name else pname]
+            leaf, axes = _jax_leaf(mod, pname)
             arr = p.detach().cpu().numpy()
-            leaf = pname
-            if pname == "weight":
-                if isinstance(mod, Dense):
-                    leaf, arr = "kernel", arr.T
-                elif isinstance(mod, (PatchProj, Conv)):
-                    leaf, arr = "kernel", arr.transpose(1, 2, 3, 0)
-                elif isinstance(mod, AffineNorm):
-                    leaf = "scale"
-                elif isinstance(mod, Embed):
-                    leaf = "embedding"
-            path = re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2", name)
-            flat["/".join([*filter(None, path.split(".")), leaf])] = (
-                np.ascontiguousarray(arr)
+            flat["/".join(filter(None, [jax_module_path(name), leaf]))] = (
+                np.ascontiguousarray(arr if axes is None else arr.transpose(axes))
             )
     return _stack_blocks(flat) if scanned else flat
 

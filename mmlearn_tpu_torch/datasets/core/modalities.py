@@ -6,10 +6,17 @@ A modality derives its batch keys from its name (``{name}_attention_mask``,
 copy of that rule, not an import: importing the JAX module runs
 ``mmlearn_tpu/datasets/__init__.py``, which loads the whole data layer and
 the config layer, none of which a serving host needs.
+
+:meth:`ModalityRegistry.register_modality` adds a modality at run time, as
+the JAX registry's (``modalities.py:84``): a project registers its own (the
+BIOSCAN-CLIP project registers ``dna`` when it is imported). The JAX
+registry's extra property templates (``modality_specific_properties``) are
+not ported: nothing passes them.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 _DEFAULT_PROPERTIES = (
@@ -52,6 +59,20 @@ class ModalityRegistry:
 
     def has_modality(self, name: str) -> bool:
         return str(name).lower() in self._modalities
+
+    def register_modality(self, name: str) -> Modality:
+        """Add (or, with a warning, replace) the modality ``name``."""
+        name = name.lower()
+        if name in self._modalities:
+            warnings.warn(f"Modality '{name}' is already registered; overwriting.",
+                          UserWarning, stacklevel=2)
+        modality = Modality(name)
+        self._modalities[name] = modality
+        return modality
+
+    def list_modalities(self) -> list[Modality]:
+        """The registered modalities, in registration order."""
+        return list(self._modalities.values())
 
 
 Modalities = ModalityRegistry()

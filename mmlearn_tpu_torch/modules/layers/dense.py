@@ -5,6 +5,12 @@ Flax casts the input, kernel and bias to ``dtype`` before the matmul; with
 ``dtype=bfloat16`` and ``param_dtype=float32`` (the flagship's mixed
 precision) the weights stay f32 and the layer computes in bf16. The weight
 is stored the torch way, ``(out, in)``, the transpose of flax's kernel.
+
+A layer that :mod:`mmlearn_tpu_torch.peft` gives LoRA factors computes with
+``W0 + delta`` (:meth:`Dense.merged_weight`), the delta recomputed from the
+factors at every call; the factors are held outside the layer (they are not
+among its parameters, so its ``state_dict`` keys stay those of the base
+layer).
 """
 
 from __future__ import annotations
@@ -52,7 +58,13 @@ class Dense(nn.Linear):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def merged_weight(self) -> torch.Tensor:
+        """The weight the layer computes with: its own, plus the LoRA
+        delta where factors are attached, in the parameter dtype."""
+        lora = self.__dict__.get("lora")
+        return self.weight if lora is None else lora.merge(self.weight)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), self.merged_weight().to(dt), bias)

@@ -2,10 +2,12 @@
 
 Layers are named ``fc{i}`` as in the JAX package, so
 :mod:`mmlearn_tpu_torch.bridge` maps weights by path, and are ``Int8Dense``
-(``MMLEARN_QUANT``) as in the JAX package. Ported so far: an
-explicit ``hidden_dims`` list and dropout after each hidden activation
-(its masks from :mod:`~mmlearn_tpu_torch.modules.layers.dropout`); the JAX
-module's ``hidden_dims_multiplier`` and inter-layer norm are not.
+(``MMLEARN_QUANT``) as in the JAX package. Ported: an explicit
+``hidden_dims`` list, a LayerNorm after each hidden layer
+(``norm_layer="layernorm"``, ``norm{i}``: the reference checkpoints'
+Sequential-MLP heads) and dropout after each hidden activation (its masks
+from :mod:`~mmlearn_tpu_torch.modules.layers.dropout`); the JAX module's
+``hidden_dims_multiplier`` and ``bias`` are not.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
+from mmlearn_tpu_torch.modules.layers.normalization import LayerNorm
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 
 # the towers' activations: exact-erf gelu and CLIP's quick_gelu
@@ -46,8 +49,11 @@ class MLP(nn.Module):
         dropout: float = 0.0,
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
+        norm_layer: Optional[str] = None,
     ) -> None:
         super().__init__()
+        if norm_layer not in (None, "layernorm"):
+            raise ValueError(f"norm_layer must be None or 'layernorm', got {norm_layer!r}")
         dims = [*hidden_dims, out_dim if out_dim is not None else in_dim]
         self.act = get_activation(activation)
         self.dropout = float(dropout)
@@ -56,6 +62,9 @@ class MLP(nn.Module):
         prev = in_dim
         for i, dim in enumerate(dims):
             self.add_module(f"fc{i + 1}", Int8Dense(prev, dim, True, dtype, param_dtype))
+            if norm_layer is not None and i < len(dims) - 1:
+                # flax nn.LayerNorm's default epsilon
+                self.add_module(f"norm{i + 1}", LayerNorm(dim, 1e-6, dtype, param_dtype))
             prev = dim
 
     def draw_masks(self, x_shape) -> Optional[list[torch.Tensor]]:
@@ -77,6 +86,9 @@ class MLP(nn.Module):
         for i in range(1, self.num_layers + 1):
             x = getattr(self, f"fc{i}")(x)
             if i < self.num_layers:
+                norm = getattr(self, f"norm{i}", None)
+                if norm is not None:
+                    x = norm(x)
                 x = self.act(x)
                 if keeps is not None:
                     x = apply_keep(x, keeps[i - 1], self.dropout)

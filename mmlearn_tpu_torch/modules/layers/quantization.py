@@ -132,7 +132,7 @@ class Int8Dense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = quant_mode()
         dt = self.dtype
-        x, w = x.to(dt), self.weight.to(dt)
+        x, w = x.to(dt), self.merged_weight().to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
         if mode == "int8_sb":
             from mmlearn_tpu_torch.ops.int8_matmul import switchback_matmul

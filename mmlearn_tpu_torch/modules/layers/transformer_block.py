@@ -129,8 +129,10 @@ class Block(nn.Module):
 
 class BlockStack(nn.ModuleList):
     """``depth`` blocks of one configuration, run in order; block ``i``
-    takes ``drop_path_rates[i]`` (0 for every block by default), and each
-    runs checkpointed with ``remat``."""
+    takes ``drop_path_rates[i]`` (where given), and each runs checkpointed
+    with ``remat``. ``block_cls`` is :class:`Block` by default; any module
+    with its ``draw_masks`` and ``forward(x, attention_mask, masks)`` will do
+    (the post-LN BERT block)."""
 
     def __init__(
         self,
@@ -138,18 +140,23 @@ class BlockStack(nn.ModuleList):
         remat: bool = False,
         remat_policy: Optional[str] = None,
         drop_path_rates: Optional[Sequence[float]] = None,
+        block_cls: type = Block,
         **block_kwargs,
     ) -> None:
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
-        rates = [0.0] * depth if drop_path_rates is None else [float(r) for r in drop_path_rates]
-        if len(rates) != depth:
-            raise ValueError(f"{len(rates)} drop-path rates for {depth} blocks")
-        super().__init__([Block(**block_kwargs, drop_path_rate=r) for r in rates])
+        if drop_path_rates is None:
+            blocks = [block_cls(**block_kwargs) for _ in range(depth)]
+        else:
+            rates = [float(r) for r in drop_path_rates]
+            if len(rates) != depth:
+                raise ValueError(f"{len(rates)} drop-path rates for {depth} blocks")
+            blocks = [block_cls(**block_kwargs, drop_path_rate=r) for r in rates]
+        super().__init__(blocks)
         self.remat = remat
         self.remat_policy = remat_policy
 
-    def _checkpointed(self, block: Block, x, attention_mask, masks):
+    def _checkpointed(self, block: nn.Module, x, attention_mask, masks):
         kwargs = {}
         if self.remat_policy == "dots_no_batch":
             kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,

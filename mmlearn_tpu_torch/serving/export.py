@@ -8,7 +8,9 @@ An artifact directory holds:
   dtype; the leading batch dimension is free);
 - ``encoder.json`` -- the encoder's class and constructor arguments;
 - ``weights.npz`` -- the encoder's weights, flat and keyed by the JAX
-  package's parameter paths (:mod:`mmlearn_tpu_torch.bridge`).
+  package's parameter paths (:mod:`mmlearn_tpu_torch.bridge`); a LoRA'd
+  layer's weight is its merged one (:func:`~mmlearn_tpu_torch.peft.merged_state_dict`),
+  so the artifact computes what the tower computes in the task.
 
 Where the JAX artifact freezes the computation as StableHLO, this one
 rebuilds the module from its class: torch cannot load StableHLO, and
@@ -28,6 +30,7 @@ import torch
 from mmlearn_tpu_torch import bridge
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.encoders import TextTransformer, VisionTransformer
+from mmlearn_tpu_torch.peft import merged_state_dict
 from mmlearn_tpu_torch.tasks.contrastive_pretraining import ContrastivePretraining
 
 _ENCODERS = {cls.__name__: cls for cls in (VisionTransformer, TextTransformer)}
@@ -68,7 +71,8 @@ def save_encoder(
         probe = task.encode({k: np.asarray(example_batch[k])[:1] for k in keys},
                             modality, normalize=normalize)
     os.makedirs(output_dir, exist_ok=True)
-    bridge.save_npz(os.path.join(output_dir, "weights.npz"), bridge.torch_to_jax(encoder))
+    bridge.save_npz(os.path.join(output_dir, "weights.npz"), bridge.torch_to_jax(
+        encoder, state_dict=merged_state_dict(encoder)))
     with open(os.path.join(output_dir, "encoder.json"), "w") as f:
         json.dump({"class": type(encoder).__name__, "kwargs": encoder.config}, f, indent=2)
     meta = {

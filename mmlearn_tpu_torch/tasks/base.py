@@ -108,6 +108,17 @@ class TrainingTask(nn.Module):
         """Hook after the optimizer's update of step ``step`` (an EMA
         teacher, say); nothing by default."""
 
+    def init_extras(self) -> None:
+        """Re-derive the state that follows from the weights (an EMA
+        teacher copied from its student, say): the trainer calls it after it
+        loads ``init_overlay``, as the JAX trainer re-runs ``init_extras``
+        (``trainer.py:465-486``). Nothing by default."""
+
+    def apply_import_metadata(self, meta: dict) -> None:
+        """Take the run state an imported checkpoint carries beside its
+        weights (:func:`~mmlearn_tpu_torch.lightning_import.
+        import_lightning_checkpoint`'s ``meta``). Nothing by default."""
+
     def on_checkpoint_save(self, state_dict: dict[str, Any]) -> dict[str, Any]:
         """Hook on a checkpoint's state before it is written; as it is by
         default."""

@@ -11,8 +11,16 @@ runs over ``modality_loss_pairs`` (every pair of modalities by default).
 ``evaluation_tasks`` maps names to :class:`EvaluationSpec` entries (a hook such as
 :class:`~mmlearn_tpu_torch.tasks.ZeroShotCrossModalRetrieval` and whether it
 runs on validation and on test), which the trainer's evaluation loop
-drives. Auxiliary tasks, PEFT and frozen encoders are not ported yet and
-raise.
+drives. ``peft_configs`` (:class:`~mmlearn_tpu_torch.peft.LoRAConfig` by
+modality or encoder key) give an encoder LoRA factors, held under
+``lora.<encoder key>``, and freeze its base weights except
+``modules_to_save``; ``freeze_encoders`` freezes an encoder by a
+reference-style spec (:func:`~mmlearn_tpu_torch.peft.freeze_layers_mask`).
+The parameters left trainable are those of the JAX task's
+``_trainable_mask`` (:295-303). Auxiliary tasks are not ported yet and
+raise. A batch's ``<modality>_token_type_ids``, where given, reach an
+encoder that takes ``token_type_ids`` (the BERT tower); the JAX task passes
+none.
 
 PyTorch idiom: the modules hold their weights, so ``encode`` and
 ``loss_fn`` take no parameter tree; inputs may be numpy arrays or tensors
@@ -33,6 +41,12 @@ from mmlearn_tpu_torch.constants import MODALITY_PRESENCE_SUFFIX
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.losses import ContrastiveLoss, LossPairSpec
+from mmlearn_tpu_torch.peft import (
+    LoRAConfig,
+    freeze_layers_mask,
+    init_lora,
+    modules_to_save_mask,
+)
 from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
 
 
@@ -76,11 +90,12 @@ class ContrastivePretraining(TrainingTask):
         evaluation_tasks: Optional[Mapping[str, EvaluationSpec | Mapping]] = None,
         peft_configs: Optional[Mapping[str, Any]] = None,
         freeze_encoders: Optional[Mapping[str, Any]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> None:
-        if auxiliary_tasks or peft_configs or freeze_encoders:
-            raise NotImplementedError(
-                "auxiliary tasks, PEFT and frozen encoders are not ported yet"
-            )
+        """``generator`` draws the LoRA factors (the default generator's
+        state where not given)."""
+        if auxiliary_tasks:
+            raise NotImplementedError("auxiliary tasks are not ported yet")
         super().__init__(optimizer, lr_scheduler,
                          loss if loss is not None else ContrastiveLoss(),
                          compute_validation_loss, compute_test_loss)
@@ -150,6 +165,28 @@ class ContrastivePretraining(TrainingTask):
             for name, spec in (evaluation_tasks or {}).items()
         }
 
+        self.peft_configs: dict[str, LoRAConfig] = {
+            self.encoder_keys[str(m).lower()]: cfg if isinstance(cfg, LoRAConfig)
+            else LoRAConfig(**cfg)
+            for m, cfg in (peft_configs or {}).items()
+        }
+        self.freeze_encoders = {self.encoder_keys[str(m).lower()]: spec
+                                for m, spec in (freeze_encoders or {}).items()}
+        self.lora = nn.ModuleDict({
+            key: init_lora(self.encoders[key], cfg, generator)
+            for key, cfg in self.peft_configs.items()
+        })
+        for key, encoder in self.encoders.items():
+            if key in self.peft_configs:
+                # LoRA: the base frozen but for modules_to_save; the factors train
+                mask = modules_to_save_mask(encoder, self.peft_configs[key].modules_to_save)
+            elif key in self.freeze_encoders:
+                mask = freeze_layers_mask(encoder, self.freeze_encoders[key])
+            else:
+                continue
+            for name, p in encoder.named_parameters():
+                p.requires_grad_(mask[name])
+
     def _encoder_inputs(
         self, batch: Mapping[str, Any], modality: str, device: torch.device
     ) -> tuple[tuple, dict]:
@@ -159,6 +196,9 @@ class ContrastivePretraining(TrainingTask):
         # token ids (integer inputs) take the modality's padding mask
         if not x.is_floating_point() and mod.attention_mask in batch:
             kwargs["attention_mask"] = as_tensor(batch[mod.attention_mask], device)
+        token_types = f"{mod.name}_token_type_ids"
+        if token_types in batch:
+            kwargs["token_type_ids"] = as_tensor(batch[token_types], device)
         return (x,), kwargs
 
     def encode(

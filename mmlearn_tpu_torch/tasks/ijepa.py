@@ -175,6 +175,20 @@ class IJEPA(TrainingTask):
         loss = smooth_l1(z_pred.float(), h.float(), self.loss_beta).mean()
         return loss, {"loss": loss.detach()}
 
+    def init_extras(self) -> None:
+        """The teacher copied from the student: after an imported student
+        (the reference persists no teacher and restores it from the student
+        on load)."""
+        with torch.no_grad():
+            for t, s in zip(self.teacher.parameters(), self.encoder.parameters()):
+                t.copy_(s)
+
+    def apply_import_metadata(self, meta: dict) -> None:
+        """A reference run's EMA position: the teacher's decay anneal
+        continues from its ``num_updates``."""
+        if "ema" in meta:
+            self.ema_step_offset = int(meta["ema"].get("num_updates", 0))
+
     def post_update(self, step: int) -> None:
         """The teacher's EMA step towards the student, at the decay of
         ``step + ema_step_offset``."""

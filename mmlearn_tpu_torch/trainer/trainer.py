@@ -25,7 +25,10 @@ off, validated on itself; ``_apply_overfit`` :587), ``val_check_interval``,
 ``num_sanity_val_steps``, ``fast_dev_run``, ``detect_anomaly``, callbacks
 and loggers, ``should_stop`` and a clean stop on SIGTERM or SIGUSR1 (on the
 main thread), the loop position with ``set_epoch`` where the loader has it,
-and resume from a checkpoint (``ckpt_path``), the loader fast-forwarded to
+a task's ``init_overlay`` (a ``state_dict`` of imported weights, checked
+key by key and shape by shape, loaded before the optimizer is built, then
+``task.init_extras()``: JAX :465-486), and resume from a checkpoint
+(``ckpt_path``), the loader fast-forwarded to
 the saved epoch and batch: through ``iter_from_batch`` where the loader has
 it (the skipped batches' indices are drawn, their examples never fetched),
 else by fetching and discarding. Validation and test compute the task's
@@ -475,6 +478,17 @@ class Trainer:
             pass
         task.to(self.device).train()
         task.prepare_seed = self.seed
+        overlay = getattr(task, "init_overlay", None)
+        if overlay is not None:
+            # imported weights (a reference Lightning checkpoint, say) land on
+            # the fresh task before the optimizer is built; then the state that
+            # follows from the weights is re-derived (an I-JEPA teacher is
+            # copied from the imported student)
+            from mmlearn_tpu_torch.lightning_import import overlay_params
+
+            overlay_params(task, overlay)
+            task.init_extras()
+            logger.info("applied init overlay onto the task's weights")
         optimizer, lr_scheduler = task.configure_optimizers(max_steps=max_steps)
         self._lr_schedule = None if lr_scheduler is None else lr_scheduler.lr_lambdas[0]
         self.state = TrainState(0, task, optimizer, lr_scheduler)

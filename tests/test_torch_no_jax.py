@@ -18,7 +18,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmlearn_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmlearn_tpu", "projects"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -92,6 +92,44 @@ def test_readers_slice_imports_without_jax():
              "from mmlearn_tpu_torch.datasets.builtin.image_utils import decode_transform_jpeg\n"
              "from mmlearn_tpu_torch import native\n"
              "assert native.crc32c(b'123456789') == 0xE3069283\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_encoders_and_weight_io_slice_imports_without_jax():
+    """The BERT towers, the converters, LoRA, the importer, the exporters
+    and the BIOSCAN-CLIP project, with JAX, the JAX package and the root
+    ``projects`` package blocked; ``transformers`` and ``timm`` stay
+    unimported until a model is asked for by name."""
+    names = ("from mmlearn_tpu_torch.modules.encoders.bert import BertBlock, BertTextEncoder\n"
+             "from mmlearn_tpu_torch.modules.encoders.hf_wrappers import HFTextEncoder, "
+             "HFViTEncoder, TimmViT, convert_hf_vit\n"
+             "from mmlearn_tpu_torch.modules.encoders.clip import HFCLIPTextEncoder, "
+             "HFCLIPTextEncoderWithProjection, HFCLIPVisionEncoder, "
+             "HFCLIPVisionEncoderWithProjection\n"
+             "from mmlearn_tpu_torch.hf_utils import convert_clip_vision, convert_clip_text, "
+             "clip_modules_from_config, convert_bert, timm_vit_geometry, convert_timm_vit, "
+             "convert_bert_mlm, convert_ijepa_vit, convert_ijepa_predictor\n"
+             "from mmlearn_tpu_torch.hf_export import export_clip, export_bert, "
+             "export_timm_vit, export_module, export_task\n"
+             "from mmlearn_tpu_torch.peft import LoRAConfig, init_lora, freeze_layers_mask, "
+             "modules_to_save_mask\n"
+             "from mmlearn_tpu_torch.lightning_import import import_lightning_checkpoint, "
+             "convert_reference_state_dict, overlay_params\n"
+             "from mmlearn_tpu_torch.modules.lr_schedulers import onecycle_lr\n"
+             "import mmlearn_tpu_torch.projects\n"
+             "from mmlearn_tpu_torch.projects.bioscan_clip.encoders import BarcodeBERT, "
+             "load_barcode_bert_checkpoint\n"
+             "from mmlearn_tpu_torch.projects.bioscan_clip.dna_tokenizer import DNAProcessor\n"
+             "from mmlearn_tpu_torch.projects.bioscan_clip.eval_task import "
+             "TaxonomicClassification, knn_predict\n"
+             "from mmlearn_tpu_torch.projects.bioscan_clip.recipe import bioscan_task\n"
+             "from mmlearn_tpu_torch.datasets.core.modalities import Modalities\n"
+             "assert Modalities.has_modality('dna')\n"
+             "assert not {'transformers', 'timm'} & set(sys.modules), 'eager import'\n"
              "print('ok')\n")
     blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
     proc = _run([sys.executable, "-c", blocked + names], REPO)

@@ -324,10 +324,17 @@ def test_trainer_fit_matches_jax_train_loop():
 
 def test_task_rejects_unported_options():
     towers = {"rgb": VisionTransformer(**TINY_VISION)}
-    for kw in ({"auxiliary_tasks": {"a": object()}}, {"peft_configs": {"rgb": {}}},
-               {"freeze_encoders": {"rgb": True}}):
-        with pytest.raises(NotImplementedError):
-            ContrastivePretraining(towers, **kw)
+    with pytest.raises(NotImplementedError):
+        ContrastivePretraining(towers, auxiliary_tasks={"a": object()})
+    # PEFT and frozen encoders are ported (tests/test_torch_peft.py holds them
+    # to the JAX task): a LoRA'd tower trains only its factors, a frozen one
+    # nothing
+    lora = ContrastivePretraining({"rgb": VisionTransformer(**TINY_VISION)},
+                                  peft_configs={"rgb": {}})
+    assert {n for n, p in lora.named_parameters() if p.requires_grad} == {
+        n for n, _ in lora.named_parameters() if n.startswith("lora.")} | {"log_logit_scale"}
+    frozen = ContrastivePretraining(towers, freeze_encoders={"rgb": True})
+    assert not any(p.requires_grad for p in frozen.encoders.parameters())
     with pytest.raises(ValueError, match="unknown modality"):
         ContrastivePretraining(towers, modality_loss_pairs=[{"modalities": ["rgb", "text"]}])
 
