@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training, evaluation, data and BIOSCAN-CLIP paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, evaluation, data, BIOSCAN-CLIP and multi-task paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -243,9 +243,31 @@ Phases, each fatal on failure:
     evaluation on the CPU. The trained ViT-B/16 and text towers exported
     (``hf_export.export_task``, LoRA merged) to timm and HF BERT keys and
     imported again: their outputs on the card equal bit for bit.
+15. the multi-task experiment through the port's CLI
+    (``mmlearn_tpu_torch.cli.run.main``, the console script's function):
+    1,024 NYUv2-layout pairs of smooth seeded patterns at 320x240 (PNG,
+    depth in 16 bits) written by 8 spawned processes;
+    ``+experiment=contrastive_ijepa`` from the searchpath
+    ``pkg://mmlearn_tpu_torch.projects.multi_task.configs`` at the YAML's
+    widths, batch 128, remat and bf16 (rgb ViT-B/16 and depth ViT-S/16, the
+    I-JEPA auxiliary task on the shared rgb tower with its default
+    predictor of 12 heads of 32), the overrides the data root, the steps,
+    the checkpoint directory and cadence, ``trainer.log_mfu`` and a probe
+    callback. One b8 step of the task as the CLI builds it on the card
+    against the CPU (loss, every trained gradient). Run A: 24 steps, every
+    count set to 0 first: launches a step exactly (K1f 90, K1b 84, K2f 180,
+    K2b 84: both towers, the student on the context tokens and the remat
+    recomputes, the teacher, the predictor); every trained gradient finite
+    and nonzero at step 1, the predictor's among them; the teacher apart
+    from the student after step 1 and equal to ``d * teacher_0 + (1 - d) *
+    student_1`` computed on the CPU from the saved weights;
+    ``aux_ijepa_rgb_loss`` finite at every step; pairs/s (3 windows of 6
+    steps), ms a step, FLOPs, MFU, peak memory, the feeder's wait. Run B,
+    resumed from run A's step-12 checkpoint: every record and weight
+    bit-equal to run A's.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the fourteenth.
+checks that K5 never launched there; so do the eighth to the fifteenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -5064,6 +5086,327 @@ def bioscan_path(device) -> tuple[dict, dict]:
     return counts, rows
 
 
+# phase 15: the multi-task experiment (contrastive_ijepa.yaml: rgb ViT-B/16 and
+# depth ViT-S/16 towers, I-JEPA on the shared rgb tower, batch 128, remat,
+# bf16) composed and trained through the port's CLI on a NYUv2-layout tree
+MT_PAIRS, MT_HW = 1024, (240, 320)  # pairs of MT_HW (h, w) PNGs
+MT_STEPS, MT_RESUME_AT = 24, 12
+MT_MARKS = (6, 12, 18, 24)  # 3 timed windows of 6 steps
+MT_SEARCHPATH = "pkg://mmlearn_tpu_torch.projects.multi_task.configs"
+MT_AUX = "ijepa_rgb"
+MT_SCENES = ("bedroom", "kitchen", "living_room", "bathroom", "dining_room", "office")
+
+
+def nyuv2_pair(idx: int, seed: int, hw=MT_HW):
+    """Pair ``idx``: a smooth rgb pattern (uint8, three sinusoids) and its
+    depth (uint16 millimetres, 0.5-9.5 m), from ``(seed, idx)``."""
+    import numpy as np
+
+    rng = np.random.default_rng((seed, idx))
+    h, w = hw
+    y, x = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                       np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    f, phase = rng.uniform(0.5, 4.0, (3, 2)), rng.uniform(0, 2 * np.pi, 3)
+    rgb = np.stack([np.sin(2 * np.pi * (f[c, 0] * x + f[c, 1] * y) + phase[c])
+                    for c in range(3)], axis=-1)
+    rgb = ((rgb + 1) * 127.5).round().astype(np.uint8)
+    a, b, c = rng.uniform(-1, 1, 3)
+    depth = 5000 + 4500 * np.tanh(a * x + b * y + c * x * y)
+    return rgb, depth.round().astype(np.uint16)
+
+
+def _write_nyuv2_pairs(base: str, start: int, stop: int, seed: int, hw) -> None:
+    """Pairs ``start`` to ``stop`` of :func:`write_nyuv2_tree` under the
+    split directory ``base`` (a worker process's share)."""
+    from PIL import Image
+
+    for i in range(start, stop):
+        rgb, depth = nyuv2_pair(i, seed, hw)
+        Image.fromarray(rgb).save(os.path.join(base, "rgb", f"{i:05d}.png"), compress_level=1)
+        Image.fromarray(depth).save(os.path.join(base, "depth", f"{i:05d}.png"),
+                                    compress_level=1)
+        with open(os.path.join(base, "scene_class", f"{i:05d}.txt"), "w") as f:
+            f.write(MT_SCENES[i % len(MT_SCENES)])
+
+
+def write_nyuv2_tree(root: str, n: int, seed: int = SEED, hw=MT_HW, split: str = "train",
+                     processes: int = 0):
+    """The original NYUv2 layout under ``root`` (``<split>.txt``,
+    ``<split>/rgb/<id>.png``, ``<split>/depth/<id>.png`` in 16 bits,
+    ``<split>/scene_class/<id>.txt``) with ``n`` pairs of
+    :func:`nyuv2_pair`, in this process or in ``processes`` spawned ones
+    (PNG encoding holds the interpreter lock). Returns the ids."""
+    import multiprocessing
+
+    ids = [f"{i:05d}" for i in range(n)]
+    base = os.path.join(root, split)
+    for sub in ("rgb", "depth", "scene_class"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    if processes:
+        bounds = [n * k // processes for k in range(processes + 1)]
+        with concurrent.futures.ProcessPoolExecutor(
+                processes, mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(_write_nyuv2_pairs, [base] * processes, bounds[:-1], bounds[1:],
+                          [seed] * processes, [hw] * processes))
+    else:
+        _write_nyuv2_pairs(base, 0, n, seed, hw)
+    with open(os.path.join(root, f"{split}.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return ids
+
+
+class MultitaskProbe:
+    """A callback that phase 15 adds to the experiment's trainer through the
+    CLI (``+trainer.callbacks.probe``). It keeps the trainer; at the start
+    of a fresh run, a CPU copy of the auxiliary teacher; after step 1, the
+    names of the trained tensors whose gradient is missing, not finite or
+    zero, and CPU copies of the shared tower and the teacher; after each step
+    in ``marks``, the host clock (after a synchronize) and the feeder wait."""
+
+    runs: list = []
+
+    def __init__(self, marks=()) -> None:
+        self.marks = set(marks)
+        self.times, self.waits = {}, {}
+        self.trainer = self.teacher0 = self.after_first = None
+        MultitaskProbe.runs.append(self)
+
+    def on_train_start(self, trainer) -> None:
+        self.trainer = trainer
+        if trainer.state.step == 0:
+            aux = trainer.state.task.auxiliary_tasks[MT_AUX]
+            self.teacher0 = {n: p.detach().float().cpu() for n, p in aux.teacher.named_parameters()}
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        import torch
+
+        if step == 1 and self.teacher0 is not None:
+            task = trainer.state.task
+            trained = [(n, p) for n, p in task.named_parameters() if p.requires_grad]
+            bad, zero = _bad_grads(trained)
+            aux = task.auxiliary_tasks[MT_AUX]
+            self.after_first = {
+                "n_trained": len(trained), "bad": bad + zero,
+                "predictor": sum(n.startswith(f"auxiliary_tasks.{MT_AUX}.predictor.")
+                                 for n, _ in trained),
+                "student": {n: p.detach().float().cpu() for n, p in aux.encoder.named_parameters()},
+                "teacher": {n: p.detach().float().cpu() for n, p in aux.teacher.named_parameters()},
+                "decay": aux.ema.get_annealed_rate(0 + aux.ema_step_offset),
+            }
+        if step in self.marks:
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+            self.waits[step] = trainer.feeder_wait_s
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None: ...
+
+    def on_train_end(self, trainer) -> None: ...
+
+
+def multitask_launches(task) -> dict:
+    """Launches a step of the multi-task experiment: K1f a block of the rgb
+    tower twice (the contrastive pass and the I-JEPA student on the context
+    tokens), of the depth tower once, of the teacher (no gradient) once and
+    of the predictor once; each trained pass's blocks once more under remat
+    (the recompute); K1b's two kernels a block of each trained pass; K2f and
+    K2b twice as often as K1f and K1b's launches a pass."""
+    rgb, depth = task.encoders["rgb"], task.encoders["depth"]
+    aux = task.auxiliary_tasks[MT_AUX]
+    trained = (rgb.blocks, depth.blocks, aux.encoder.blocks, aux.predictor.blocks)
+    fwd = sum(len(b) * (2 if getattr(b, "remat", False) else 1) for b in trained)
+    fwd += len(aux.teacher.blocks)
+    bwd = sum(len(b) for b in trained)
+    return {"fused_mha_fwd": fwd, "fused_mha_bwd": 2 * bwd, "fused_mha_packed_fwd": 0,
+            "fused_mha_packed_bwd": 0, "layernorm_fwd": 2 * fwd, "layernorm_bwd": 2 * bwd,
+            "int8_qmm": 0, "int8_qmm_bytes": 0, **NO_FLASH}
+
+
+def multitask_parity(overrides, device) -> None:
+    """One step of the experiment's task at batch 8 (built by the CLI's
+    ``build_experiment`` and the config's ``instantiate`` from the seed, its
+    first 8 pairs and step-0 masks), the kernels on the card against the
+    plain versions on the CPU from the same weights: the loss and the cosine
+    of every trained gradient, at phase 5's limits. Inputs in bf16, as the
+    trainer casts them under ``precision: bf16``."""
+    import torch
+
+    from mmlearn_tpu_torch.cli._instantiators import instantiate_datasets
+    from mmlearn_tpu_torch.cli.run import build_experiment
+    from mmlearn_tpu_torch.conf import instantiate
+    from mmlearn_tpu_torch.datasets.core import DataLoader
+
+    cfg = build_experiment(overrides)
+    torch.manual_seed(cfg["seed"])
+    master = instantiate(cfg["task"])
+    master.prepare_seed = cfg["seed"]
+    dataset = instantiate_datasets(cfg["datasets"]["train"])
+    host = master.prepare_batch(dict(next(iter(DataLoader(dataset, PARITY_BATCH)))), 0)
+    losses, grads = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        task = copy.deepcopy(master).to(dev) if where == "card" else master
+        batch = {k: (torch.as_tensor(v).to(dev, torch.bfloat16) if k in ("rgb", "depth")
+                     else v) for k, v in host.items()}
+        loss, metrics = task.loss_fn(batch)
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()
+                        if p.requires_grad}
+        print(f"multi-task step b={PARITY_BATCH} on the {where}: loss {losses[where]:.6f} "
+              f"(aux {float(metrics[f'aux_{MT_AUX}_loss']):.6f}; "
+              f"{time.perf_counter() - t0:.1f} s)")
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(cos, key=cos.get)
+    print(f"multi-task step parity b={PARITY_BATCH}, card vs CPU: loss rel diff {rel:.3e} "
+          f"(tol {LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, median "
+          f"{statistics.median(cos.values()):.6f} over {len(cos)} tensors "
+          f"(bound {MIN_GRAD_COSINE})")
+    check(rel <= LOSS_RTOL, f"multi-task loss on the card {losses['card']} vs CPU {losses['cpu']}")
+    check(cos[worst] >= MIN_GRAD_COSINE, f"multi-task gradient of {worst}: cosine {cos[worst]}")
+
+
+def multitask_path(device) -> dict:
+    """Phase 15, the multi-task experiment through the CLI. Returns run A's
+    launch counts."""
+    import math
+    import shutil
+
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import build_experiment
+    from mmlearn_tpu_torch.cli.run import main as cli_main
+
+    # the CLI's instantiate finds the probe in this module, not a second copy
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    root = os.path.join(WORK_DIR, "multitask")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_nyuv2_tree(os.path.join(root, "nyuv2"), MT_PAIRS, processes=min(8, host_cores()))
+    print(f"multi-task path: {MT_PAIRS} NYUv2-layout pairs at {MT_HW[1]}x{MT_HW[0]} written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    data = [f"searchpath=[{MT_SEARCHPATH}]", "+experiment=contrastive_ijepa",
+            f"+datasets.train.root_dir={os.path.join(root, 'nyuv2')}"]
+    t0 = time.perf_counter()
+    multitask_parity(data, device)
+    print(f"multi-task path: step parity in {time.perf_counter() - t0:.1f} s")
+
+    def run(name, max_steps, *extra):
+        out = os.path.join(root, name)
+        argv = [*data, f"trainer.max_steps={max_steps}", f"runtime.output_dir={out}",
+                f"+trainer.callbacks.checkpoint.dirpath={os.path.join(out, 'checkpoints')}",
+                f"+trainer.callbacks.checkpoint.every_n_train_steps={MT_RESUME_AT}",
+                "+trainer.callbacks.checkpoint.every_n_epochs=null", "trainer.log_mfu=true",
+                "+trainer.callbacks.probe._target_=chip_smoke.MultitaskProbe",
+                f"+trainer.callbacks.probe.marks={list(MT_MARKS)}", *extra]
+        t0 = time.perf_counter()
+        state = cli_main(argv)
+        torch.cuda.synchronize()
+        print(f"multi-task path: run {name} ({state.step} steps) through the CLI in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return state, MultitaskProbe.runs[-1]
+
+    # run A: the experiment as its YAML gives it, MT_STEPS steps
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    state_a, probe = run("A", MT_STEPS)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    task, trainer = state_a.task, probe.trainer
+    check(state_a.step == MT_STEPS, f"run A took {state_a.step} steps")
+    check(trainer.device.type == "cuda" and next(task.parameters()).is_cuda,
+          "the CLI's trainer did not run on the card")
+    want = multitask_launches(task)
+    print(f"multi-task path: {state_a.step} steps launched " + ", ".join(
+        f"{k} {counts[k]} ({counts[k] / state_a.step:g} a step, want {v})"
+        for k, v in want.items() if v))
+    check(counts == {k: v * state_a.step for k, v in want.items()},
+          f"multi-task launches {counts}, want {want} a step")
+
+    first = probe.after_first
+    check(first is not None, "the probe saw no first step")
+    print(f"multi-task path: gradients of the first step: "
+          f"{first['n_trained'] - len(first['bad'])} of {first['n_trained']} trained tensors "
+          f"finite and nonzero ({first['predictor']} of the predictor's)")
+    check(not first["bad"] and first["predictor"] > 0,
+          f"missing, non-finite or zero gradients at the first step: {first['bad'][:10]}")
+    d = first["decay"]
+    moved, worst = 0, 0.0
+    for n, t1 in first["teacher"].items():
+        s1 = first["student"][n]
+        moved += not torch.equal(t1, s1)
+        want_t = probe.teacher0[n].clone().mul_(float(d)).add_(s1, alpha=float(1 - d))
+        worst = max(worst, float(((t1 - want_t).abs() / (want_t.abs() + 1e-6)).max()))
+    print(f"multi-task path: teacher after step 1: {moved} of {len(first['teacher'])} tensors "
+          f"apart from the student; against d * teacher_0 + (1 - d) * student_1 on the CPU "
+          f"(d = {d}): max relative diff {worst:.3e} (tol 1e-6)")
+    check(moved == len(first["teacher"]), "the teacher equals the student after step 1")
+    check(worst <= 1e-6, "the teacher is not the EMA of the saved weights")
+
+    hist = trainer.history
+    aux = [h[f"aux_{MT_AUX}_loss"] for h in hist]
+    print(f"multi-task path: loss step 0 {hist[0]['loss']:.6f}, step {len(hist) - 1} "
+          f"{hist[-1]['loss']:.6f}; aux_{MT_AUX}_loss {aux[0]:.6f} -> {aux[-1]:.6f}; "
+          f"logit scale {hist[-1]['logit_scale']:.4f}; lr {hist[0]['lr']:.4e} -> "
+          f"{hist[-1]['lr']:.4e}")
+    check(all(math.isfinite(x) for x in aux) and all(math.isfinite(h["loss"]) for h in hist),
+          "non-finite multi-task losses")
+
+    marks = sorted(probe.times)
+    window_s = [probe.times[b] - probe.times[a] for a, b in zip(marks, marks[1:])]
+    waits = [probe.waits[b] - probe.waits[a] for a, b in zip(marks, marks[1:])]
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    batch = build_experiment(data)["dataloader"]["train"]["batch_size"]
+    rates = [batch * n / w for n, w in zip(steps, window_s)]
+    median = statistics.median(rates)
+    ms = statistics.median([w / n for n, w in zip(steps, window_s)]) * 1e3
+    flops = trainer._step_flops or 0.0
+    mfu = flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"multi-task train b{batch} through the CLI: {median:.1f} pairs/s median of "
+          f"{len(rates)} windows of {steps[0]} steps (windows {', '.join(f'{r:.1f}' for r in rates)}"
+          f"; spread {(max(rates) - min(rates)) / median:.2%}), {ms:.2f} ms a step, "
+          f"{flops / 1e12:.3f} TFLOPs a step counted, MFU {mfu:.2%} of "
+          f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s, peak memory {peak_gb:.2f} GB, the "
+          f"step's wait on the feeder {statistics.median(w / n for n, w in zip(steps, waits)) * 1e3:.2f}"
+          f" ms a step ({sum(waits) / sum(window_s):.2%} of the windows); card {card}")
+
+    # run B: a fresh process state resumed from run A's step-12 checkpoint
+    ckpt_a = os.path.join(root, "A", "checkpoints")
+    ckpt_b = os.path.join(root, "B", "resume")
+    os.makedirs(ckpt_b)
+    shutil.copytree(os.path.join(ckpt_a, str(MT_RESUME_AT)), os.path.join(ckpt_b, str(MT_RESUME_AT)))
+    for name in os.listdir(ckpt_a):
+        if name.startswith(f"loop_position-{MT_RESUME_AT}."):
+            shutil.copy(os.path.join(ckpt_a, name), ckpt_b)
+    weights_a = {k: v.detach().clone() if torch.is_tensor(v) else v
+                 for k, v in task.state_dict().items()}
+    history_a = [dict(h) for h in hist]
+    del state_a, task, trainer, probe
+    gc.collect()
+    state_b, probe_b = run("B", MT_STEPS, f"resume_from_checkpoint={ckpt_b}")
+    check(probe_b.trainer.restored_step == MT_RESUME_AT,
+          f"run B restored step {probe_b.trainer.restored_step}")
+    same_run(f"multi-task run B (resumed at {MT_RESUME_AT})", probe_b.trainer.history,
+             _tensors(state_b.task.state_dict()), history_a[MT_RESUME_AT:],
+             _tensors(weights_a))
+    check(state_b.task.state_dict()[f"auxiliary_tasks.{MT_AUX}._extra_state"]
+          == weights_a[f"auxiliary_tasks.{MT_AUX}._extra_state"], "the EMA offset differs")
+    del state_b, probe_b, weights_a
+    MultitaskProbe.runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    return counts
+
+
+def _tensors(state: dict) -> dict:
+    return {k: v for k, v in state.items() if hasattr(v, "shape")}
+
+
 def main() -> int:
     import torch
 
@@ -5176,14 +5519,19 @@ def main() -> int:
           f"K5 launched on the BIOSCAN-CLIP path without {QUANT_ENV}")
     times.update(bioscan_rows)
     print(f"BIOSCAN-CLIP path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multitask_launches_run = multitask_path(device)
+    check(multitask_launches_run["int8_qmm"] == multitask_launches_run["int8_qmm_bytes"] == 0,
+          f"K5 launched on the multi-task path without {QUANT_ENV}")
+    print(f"multi-task path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate, the large presets' runs,
-    # the record path's fits, the BIOSCAN-CLIP fit
+    # the record path's fits, the BIOSCAN-CLIP fit, the multi-task run A
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
                    input_launches, eval_launches, large_launches_run, record_launches,
-                   bioscan_launches_run):
+                   bioscan_launches_run, multitask_launches_run):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -19,7 +19,10 @@ ViT options and large presets, and the data layer with its readers and
 formats (TFRecord, streams, materialized shards, the process loader, the
 built-in readers and the native JPEG fastloader, host C++ in ``csrc/``); the
 encoders and weight I/O (the BERT towers, HF/timm converters, factories and
-exporters, LoRA, the Lightning importer) and the BIOSCAN-CLIP project.
+exporters, LoRA, the Lightning importer) and the BIOSCAN-CLIP project; the
+auxiliary tasks (I-JEPA on a contrastive task's shared tower), the config
+layer (``conf/``) and the experiment CLI (``cli/``, ``mmlearn_torch_run``)
+with the multi-task and I-JEPA project configs.
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,13 @@ body). The reverse (:func:`torch_to_jax`) writes the per-layer
 ``blocks_{i}`` layout, or with ``scanned=True`` the scanned stack's. An
 I-JEPA task's trees (``params = {"encoder", "predictor"}`` and
 the teacher in ``extras["ema_encoder"]``) cross with
-:func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax`. A whole JAX
+:func:`ijepa_jax_to_torch` and :func:`ijepa_torch_to_jax` (the EMA step
+offset, ``extras["ema_step_offset"]``, as the task's ``_extra_state``). A
+contrastive task with auxiliary tasks (``params["aux"][name]["predictor"]``,
+``extras[name]["ema_encoder"]`` and ``extras[name]["ema_step_offset"]``)
+crosses with :func:`task_jax_to_torch` and :func:`task_torch_to_jax`:
+``auxiliary_tasks.<name>.predictor``, ``.teacher`` and ``._extra_state``
+in the port. A whole JAX
 train state, with its AdamW moments, schedule position and accumulated
 gradient, becomes a port checkpoint with :func:`train_state_from_jax`.
 The towers of the BIOSCAN-CLIP recipe (``BertTextEncoder``, ``BarcodeBERT``
@@ -179,7 +185,10 @@ def ijepa_jax_to_torch(
         teacher = {k.removeprefix("encoder/"): v for k, v in flat.items()
                    if k.startswith("encoder/")}
     flat.update({f"teacher/{k}": v for k, v in teacher.items()})
-    return jax_to_torch(flat)
+    out: dict[str, Any] = jax_to_torch(flat)
+    out["_extra_state"] = {"ema_step_offset": int(np.asarray((extras or {}).get(
+        "ema_step_offset", 0)))}
+    return out
 
 
 def ijepa_torch_to_jax(task: nn.Module) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
@@ -192,6 +201,52 @@ def ijepa_torch_to_jax(task: nn.Module) -> tuple[dict[str, np.ndarray], dict[str
             extras["ema_encoder/" + path.removeprefix("teacher/")] = arr
         else:
             params[path] = arr
+    return params, extras
+
+
+def task_jax_to_torch(
+    params: Mapping[str, Any], extras: Mapping[str, Any] | None = None
+) -> dict[str, Any]:
+    """A JAX ``ContrastivePretraining``'s ``params`` and ``extras``, nested
+    or as flat ``/`` paths, as the port task's ``state_dict``: each
+    auxiliary task's ``params["aux"][name]["predictor"]``,
+    ``extras[name]["ema_encoder"]`` (the teacher) and
+    ``extras[name]["ema_step_offset"]`` under ``auxiliary_tasks.<name>``."""
+    flat, flat_extras = flatten(params), flatten(extras or {})
+    names = {k.split("/")[1] for k in flat if k.startswith("aux/")}
+    names |= {k.split("/")[0] for k in flat_extras}
+    flat = {re.sub(r"^aux/", "auxiliary_tasks/", k): v for k, v in flat.items()}
+    extra_states = {}
+    for name in names:
+        mine = {k.removeprefix(f"{name}/"): v for k, v in flat_extras.items()
+                if k.startswith(f"{name}/")}
+        for k, v in mine.items():
+            if k.startswith("ema_encoder/"):
+                flat[f"auxiliary_tasks/{name}/teacher/{k.removeprefix('ema_encoder/')}"] = v
+        extra_states[f"auxiliary_tasks.{name}._extra_state"] = {
+            "ema_step_offset": int(np.asarray(mine.get("ema_step_offset", 0)))}
+    out: dict[str, Any] = jax_to_torch(flat)
+    out.update(extra_states)
+    return out
+
+
+def task_torch_to_jax(task: nn.Module) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
+    """The port's ``ContrastivePretraining`` as flat JAX paths: ``(params,
+    extras)``, an auxiliary task's predictor under ``aux/<name>/predictor/``
+    in ``params``, its teacher under ``<name>/ema_encoder/`` and its EMA
+    step offset under ``<name>/ema_step_offset`` in ``extras``."""
+    params: dict[str, np.ndarray] = {}
+    extras: dict[str, Any] = {}
+    for path, arr in torch_to_jax(task).items():
+        m = re.match(r"^auxiliary_tasks/([^/]+)/(.*)$", path)
+        if m is None:
+            params[path] = arr
+        elif m.group(2).startswith("teacher/"):
+            extras[f"{m.group(1)}/ema_encoder/{m.group(2).removeprefix('teacher/')}"] = arr
+        else:
+            params[f"aux/{m.group(1)}/{m.group(2)}"] = arr
+    for name, aux in getattr(task, "auxiliary_tasks", {}).items():
+        extras[f"{name}/ema_step_offset"] = np.asarray(aux.ema_step_offset, np.int32)
     return params, extras
 
 
@@ -221,13 +276,21 @@ def _find_state(tree: Any, fields: tuple[str, ...]) -> Any:
     return None
 
 
+def _tree_to_torch(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """:func:`jax_to_torch` of a tree shaped as a task's parameters, its
+    ``aux/`` subtrees under the port's ``auxiliary_tasks``."""
+    return jax_to_torch({re.sub(r"^aux/", "auxiliary_tasks/", k): v
+                         for k, v in flatten(tree).items()})
+
+
 def train_state_from_jax(state: Any) -> dict[str, Any]:
     """A JAX package's ``TrainState`` (``jax.device_get`` of it: numpy
     leaves) as the port's checkpoint state, for
     :meth:`mmlearn_tpu_torch.trainer.TrainState.load_state_dict` or a
     checkpoint directory that ``Trainer.fit(ckpt_path=...)`` resumes.
 
-    - the weights: :func:`jax_to_torch` of ``params``, or
+    - the weights: :func:`task_jax_to_torch` of ``params`` and ``extras``
+      (auxiliary tasks' predictors and teachers included), or
       :func:`ijepa_jax_to_torch` with the teacher where ``extras`` holds
       ``ema_encoder``;
     - optax AdamW's ``count``, ``mu`` and ``nu`` (``ScaleByAdamState``) as
@@ -244,18 +307,18 @@ def train_state_from_jax(state: Any) -> dict[str, Any]:
     if any(k.startswith("ema_encoder/") for k in flatten(extras)):
         weights = ijepa_jax_to_torch(state.params, extras)
     else:
-        weights = jax_to_torch(state.params)
+        weights = task_jax_to_torch(state.params, extras)
     adam = _find_state(state.opt_state, ("count", "mu", "nu"))
     if adam is None:
         raise ValueError("the JAX optimizer state holds no AdamW moments (ScaleByAdamState)")
     count = int(np.asarray(adam.count))
-    mu, nu = jax_to_torch(adam.mu), jax_to_torch(adam.nu)
+    mu, nu = _tree_to_torch(adam.mu), _tree_to_torch(adam.nu)
     moments = {name: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
                       "exp_avg_sq": nu[name]} for name in mu}
     multi = _find_state(state.opt_state, ("mini_step", "acc_grads"))
     accumulated = {}
     if multi is not None and int(np.asarray(multi.mini_step)) > 0:
-        accumulated = jax_to_torch(multi.acc_grads)
+        accumulated = _tree_to_torch(multi.acc_grads)
     return {
         "step": int(np.asarray(state.step)),
         "task": weights,

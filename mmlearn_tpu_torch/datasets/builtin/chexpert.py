@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -30,6 +31,7 @@ from mmlearn_tpu_torch.datasets.builtin.image_utils import (
 from mmlearn_tpu_torch.datasets.core.example import Example
 
 
+@store(group="datasets", name="CheXpert", populate_full_signature=False)
 class CheXpert:
     """CheXpert with 14-label targets."""
 

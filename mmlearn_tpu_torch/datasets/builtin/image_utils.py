@@ -22,6 +22,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -85,6 +87,7 @@ def to_model_dtype(img: np.ndarray) -> np.ndarray:
     return img.astype(np.float32)
 
 
+@store(group="datasets/transforms", name="ImageTransform", populate_full_signature=False)
 @dataclass
 class ImageTransform:
     """Resize(+crop) -> scale to [0,1] -> normalize; train adds a random

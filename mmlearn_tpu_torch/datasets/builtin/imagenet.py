@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -75,6 +76,7 @@ ZERO_SHOT_PROMPT_TEMPLATES = [
 _IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tiff")
 
 
+@store(group="datasets", name="ImageNet", populate_full_signature=False)
 class ImageNet:
     """ImageFolder-style ImageNet loader with zero-shot metadata."""
 

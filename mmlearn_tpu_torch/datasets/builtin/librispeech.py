@@ -19,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.core.example import Example
 from mmlearn_tpu_torch.datasets.processors.transforms import pad_or_trim
@@ -27,6 +28,7 @@ SAMPLE_RATE = 16000
 CLIP_SECONDS = 30
 
 
+@store(group="datasets", name="LibriSpeech", populate_full_signature=False)
 class LibriSpeech:
     """LibriSpeech loader emitting (audio, text) Examples."""
 

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -29,6 +30,7 @@ from mmlearn_tpu_torch.datasets.core.example import Example
 MAX_BBOXES = 32  # fixed slots (static shapes); extra boxes are dropped
 
 
+@store(group="datasets", name="LLVIP", populate_full_signature=False)
 class LLVIP:
     """Paired visible/IR loader with optional bbox parsing."""
 

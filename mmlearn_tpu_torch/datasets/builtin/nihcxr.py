@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -25,6 +26,7 @@ from mmlearn_tpu_torch.datasets.builtin.image_utils import (
 from mmlearn_tpu_torch.datasets.core.example import Example
 
 
+@store(group="datasets", name="NIHCXR", populate_full_signature=False)
 class NIHCXR:
     """NIH chest X-ray loader with multi-label targets."""
 

@@ -38,6 +38,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -82,6 +83,7 @@ def _read_scene_label(path: str, labels: tuple) -> int:
     return labels.index(text) if text in labels else len(labels)
 
 
+@store(group="datasets", name="NYUv2", populate_full_signature=False)
 class NYUv2:
     """NYUv2 RGB+depth loader (reference disk protocol)."""
 

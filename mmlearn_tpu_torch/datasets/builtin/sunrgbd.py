@@ -36,6 +36,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.builtin.image_utils import (
     ImageTransform,
@@ -98,6 +99,7 @@ def _read_focal_length(path: str) -> float:
         return float(f.readline().strip().split()[0])
 
 
+@store(group="datasets", name="SUNRGBD", populate_full_signature=False)
 class SUNRGBD:
     """SUN RGB-D loader (reference disk protocol)."""
 

@@ -7,10 +7,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.core.example import Example
 
 
+@store(group="datasets", name="SyntheticImageText", populate_full_signature=False)
 class SyntheticImageText:
     """Correlated (image, token sequence) pairs: class k shows image pattern
     k (float32, standard normal, plus 0.05 of noise drawn from the index)
@@ -60,6 +62,7 @@ class SyntheticImageText:
         return ex
 
 
+@store(group="datasets", name="SyntheticImages", populate_full_signature=False)
 class SyntheticImages:
     """Unlabeled standard-normal float32 images (I-JEPA), drawn from
     ``seed + index``."""

@@ -25,6 +25,7 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.data_collator import DefaultDataCollator
 from mmlearn_tpu_torch.datasets.core.loader import _BATCH_VALIDITY_KEY, _propagate_set_epoch
 from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
@@ -100,6 +101,7 @@ def _to_numpy(batch: dict[str, Any]) -> dict[str, Any]:
     return {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
 
 
+@store(group="dataloader", name="GrainDataLoader", populate_full_signature=False)
 class GrainDataLoader:
     """Multiprocess loader with the same interface as ``DataLoader``; with
     ``num_workers=0`` it fetches in this process."""

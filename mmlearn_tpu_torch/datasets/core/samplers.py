@@ -17,6 +17,7 @@ from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.combined_dataset import CombinedDataset
 
 
@@ -70,6 +71,7 @@ class RandomSampler:
         return len(self.dataset)
 
 
+@store(group="dataloader/sampler", name="CombinedDatasetRatioSampler")
 class CombinedDatasetRatioSampler:
     """Weighted sampling across the sub-datasets of a :class:`CombinedDataset`.
 
@@ -170,6 +172,7 @@ class CombinedDatasetRatioSampler:
         return self.num_samples
 
 
+@store(group="dataloader/sampler", name="DistributedEvalSampler")
 class DistributedEvalSampler:
     """Unpadded distributed sampler for exact evaluation: ranks may see
     different numbers of examples, so it is for evaluation only."""

@@ -28,10 +28,12 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.example import Example
 from mmlearn_tpu_torch.datasets.core.samplers import _default_rank_and_replicas
 
 
+@store(group="datasets", name="StreamingDataset", populate_full_signature=False)
 class StreamingDataset:
     """Iterate examples from the shard subset owned by this process.
 

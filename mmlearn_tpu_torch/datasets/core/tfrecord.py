@@ -34,6 +34,7 @@ from typing import Any, Callable, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.core.example import Example
 
@@ -392,6 +393,7 @@ def tfrecord_index(path: str, cache: bool = True) -> np.ndarray:
     return index
 
 
+@store(group="datasets", name="TFRecordDataset", populate_full_signature=False)
 class TFRecordDataset:
     """Map-style (random-access) dataset over TFRecord shards.
 

@@ -24,6 +24,8 @@ from typing import Optional
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
+
 _RNG_LOCK = threading.Lock()
 
 
@@ -47,6 +49,7 @@ def _sample_block_size(
     return h, w
 
 
+@store(group="datasets/masking", name="RandomMaskGenerator", populate_full_signature=False)
 @dataclass
 class RandomMaskGenerator:
     """BERT-style 80/10/10 token masking. ``__call__(input_ids,
@@ -89,6 +92,11 @@ class RandomMaskGenerator:
         return masked_ids, labels, mask
 
 
+@store(
+    group="datasets/masking",
+    name="BlockwiseImagePatchMaskGenerator",
+    populate_full_signature=False,
+)
 @dataclass
 class BlockwiseImagePatchMaskGenerator:
     """Blockwise patch masking: ``__call__(rng)`` returns a boolean
@@ -157,6 +165,7 @@ def _block_indices(
     return np.tile(idx, reps)[:fixed_size]
 
 
+@store(group="datasets/masking", name="IJEPAMaskGenerator", populate_full_signature=False)
 @dataclass
 class IJEPAMaskGenerator:
     """``__call__(batch_size, rng)`` returns ``{"encoder_masks": (nenc, B,

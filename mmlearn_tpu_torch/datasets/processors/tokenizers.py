@@ -13,9 +13,11 @@ from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 
 
+@store(group="datasets/tokenizers", name="HFTokenizer", populate_full_signature=False)
 class HFTokenizer:
     """Wrap a HuggingFace tokenizer; emit modality-keyed numpy arrays."""
 
@@ -64,6 +66,7 @@ class HFTokenizer:
         return result
 
 
+@store(group="datasets/tokenizers", name="HFCLIPTokenizer", populate_full_signature=False)
 class HFCLIPTokenizer(HFTokenizer):
     """The CLIP tokenizer preset (77 tokens)."""
 

@@ -15,11 +15,14 @@ from typing import Sequence
 
 import numpy as np
 
+from mmlearn_tpu_torch.conf import store
+
 #: CLIP's per-channel mean and standard deviation of RGB values in [0, 1]
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+@store(group="datasets/transforms", name="TrimText", populate_full_signature=False)
 @dataclass
 class TrimText:
     """Trim text to ``trim_size`` characters."""

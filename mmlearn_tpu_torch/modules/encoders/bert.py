@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.encoders.base import (
     EncoderOutput,
     as_dtype,
@@ -89,6 +90,7 @@ class BertBlock(nn.Module):
         return x
 
 
+@store(group="modules/encoders", name="BertTextEncoder")
 class BertTextEncoder(nn.Module):
     """Post-LN BERT trunk over token ids."""
 

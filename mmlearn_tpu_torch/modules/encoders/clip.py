@@ -21,6 +21,7 @@ from typing import Any, Mapping, Optional
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.hf_utils import (
     clip_text_kwargs,
     clip_vision_kwargs,
@@ -73,6 +74,8 @@ def _text(model, with_projection: bool, use_all_token_embeddings: bool, dtype, r
     return load_converted(TextTransformer(**kwargs), converted)
 
 
+@store(group="modules/encoders", name="HFCLIPVisionEncoder",
+       populate_full_signature=False)
 def HFCLIPVisionEncoder(
     pretrained_model_name_or_path: Any = "openai/clip-vit-base-patch16",
     patch_dropout_rate: float = 0.0,
@@ -87,6 +90,8 @@ def HFCLIPVisionEncoder(
                    use_all_token_embeddings, dtype, remat, config, state_dict)
 
 
+@store(group="modules/encoders", name="HFCLIPVisionEncoderWithProjection",
+       populate_full_signature=False)
 def HFCLIPVisionEncoderWithProjection(
     pretrained_model_name_or_path: Any = "openai/clip-vit-base-patch16",
     patch_dropout_rate: float = 0.0,
@@ -101,6 +106,8 @@ def HFCLIPVisionEncoderWithProjection(
                    use_all_token_embeddings, dtype, remat, config, state_dict)
 
 
+@store(group="modules/encoders", name="HFCLIPTextEncoder",
+       populate_full_signature=False)
 def HFCLIPTextEncoder(
     pretrained_model_name_or_path: Any = "openai/clip-vit-base-patch16",
     use_all_token_embeddings: bool = False,
@@ -114,6 +121,8 @@ def HFCLIPTextEncoder(
                  config, state_dict)
 
 
+@store(group="modules/encoders", name="HFCLIPTextEncoderWithProjection",
+       populate_full_signature=False)
 def HFCLIPTextEncoderWithProjection(
     pretrained_model_name_or_path: Any = "openai/clip-vit-base-patch16",
     use_all_token_embeddings: bool = False,

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from mmlearn_tpu_torch.bridge import jax_to_torch
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.hf_utils import (
     _layernorm,
     _linear,
@@ -70,6 +71,8 @@ def _model_and_config(model: Any, config: Any, state_dict: Any, loader) -> tuple
     return model.config, model.state_dict()
 
 
+@store(group="modules/encoders", name="HFTextEncoder",
+       populate_full_signature=False)
 def HFTextEncoder(
     model_name_or_path: Any = "bert-base-uncased",
     pooling: str = "pooler",
@@ -142,6 +145,8 @@ def convert_hf_vit(state_dict: Mapping[str, Any], depth: int, prefix: str = "vit
     return jax_to_torch(hf_vit_tree(state_dict, depth, prefix, num_heads))
 
 
+@store(group="modules/encoders", name="HFViTEncoder",
+       populate_full_signature=False)
 def HFViTEncoder(
     model_name_or_path: Any = "google/vit-base-patch16-224-in21k",
     global_pool: str = "cls",
@@ -177,6 +182,7 @@ def HFViTEncoder(
     return load_converted(encoder, converted, fresh=("proj.",))
 
 
+@store(group="modules/encoders", name="TimmViT", populate_full_signature=False)
 def TimmViT(
     model_name: Optional[str] = None,
     checkpoint_path: Optional[str] = None,

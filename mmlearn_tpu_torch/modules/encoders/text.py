@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.encoders.base import (
     EncoderOutput,
     as_dtype,
@@ -50,6 +51,7 @@ class Embed(nn.Module):
         return nn.functional.embedding(ids, self.weight).to(self.dtype)
 
 
+@store(group="modules/encoders", name="TextTransformer")
 class TextTransformer(nn.Module):
     """Transformer text encoder over token ids."""
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.encoders.base import (
     EncoderOutput,
     as_dtype,
@@ -319,3 +320,20 @@ vit_base = functools.partial(_vit, "base")
 vit_large = functools.partial(_vit, "large")
 vit_huge = functools.partial(_vit, "huge")
 vit_giant = functools.partial(_vit, "giant")
+
+for _size in _VIT_DIMS:
+    store.store_node("modules/encoders", f"vit_{_size}", {
+        "_target_": "mmlearn_tpu_torch.modules.encoders.vision._vit",
+        "_args_": [_size], "img_size": 224, "patch_size": 16,
+    })
+
+
+def vit_predictor(**kwargs: Any) -> VisionTransformerPredictor:
+    """A ``VisionTransformerPredictor`` (the store's ``vit_predictor``)."""
+    return VisionTransformerPredictor(**kwargs)
+
+
+store(group="modules/encoders", name="vit_predictor", populate_full_signature=False)(
+    vit_predictor
+)
+store(group="modules/encoders", name="VisionTransformer")(VisionTransformer)

@@ -22,6 +22,7 @@ from mmlearn_tpu_torch.modules.layers.mlp import MLP
 from mmlearn_tpu_torch.modules.layers.normalization import (
     FusedLayerNorm,
     LayerNorm,
+    L2Norm,
     l2_normalize,
 )
 from mmlearn_tpu_torch.modules.layers.patch_dropout import PatchDropout
@@ -48,6 +49,7 @@ __all__ = [
     "get_1d_sincos_pos_embed",
     "get_2d_sincos_pos_embed",
     "interpolate_pos_embed",
+    "L2Norm",
     "l2_normalize",
     "masks_from",
     "quant_mode",

@@ -11,7 +11,14 @@ import math
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 
+
+@store(
+    group="modules/layers",
+    name="LearnableLogitScaling",
+    populate_full_signature=False,
+)
 class LearnableLogitScaling(nn.Module):
     """Multiply inputs by a (learnable) clamped ``exp(log_logit_scale)``."""
 

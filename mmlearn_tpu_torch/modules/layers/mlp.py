@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
 from mmlearn_tpu_torch.modules.layers.normalization import LayerNorm
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
@@ -37,6 +38,7 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return _ACTIVATIONS[name]
 
 
+@store(group="modules/layers", name="MLP", populate_full_signature=False)
 class MLP(nn.Module):
     """Multi-layer perceptron with configurable width schedule."""
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.ops.fused_norm import fused_add_layernorm, fused_layernorm
 
 
@@ -70,3 +71,15 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     """``x / max(||x||, eps)`` along ``dim``."""
     norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
     return x / torch.clamp_min(norm, eps)
+
+
+@store(group="modules/layers", name="L2Norm", populate_full_signature=False)
+class L2Norm(nn.Module):
+    """L2-normalize along ``dim`` (:func:`l2_normalize`)."""
+
+    def __init__(self, dim: int = -1) -> None:
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return l2_normalize(x, dim=self.dim)

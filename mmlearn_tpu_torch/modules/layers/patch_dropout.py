@@ -16,9 +16,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.dropout import current_source
 
 
+@store(group="modules/layers", name="PatchDropout", populate_full_signature=False)
 class PatchDropout(nn.Module):
     """Randomly drop patch tokens (keeps ``num_prefix_tokens`` in front)."""
 

@@ -25,6 +25,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 
 NEG = -0.7 * float(np.finfo(np.float32).max)
@@ -88,6 +89,7 @@ def _validity(
     return torch.ones(b, dtype=torch.bool, device=device)
 
 
+@store(group="modules/losses", name="ContrastiveLoss", populate_full_signature=False)
 @dataclass
 class ContrastiveLoss:
     """CLIP InfoNCE generalised to N modality pairs (see module docstring)."""

@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from mmlearn_tpu_torch.conf import store
+
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
     """Elementwise: ``0.5 diff^2 / beta`` below ``beta``, ``|diff| - 0.5
@@ -18,6 +20,7 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Te
     return torch.where(abs_diff < beta, 0.5 * diff**2 / beta, abs_diff - 0.5 * beta)
 
 
+@store(group="modules/losses", name="Data2VecLoss", populate_full_signature=False)
 @dataclass
 class Data2VecLoss:
     """MSE (``beta = 0``) or smooth-L1 (``beta > 0``) over embeddings, in f32,

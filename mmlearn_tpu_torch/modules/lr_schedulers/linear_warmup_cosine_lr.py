@@ -17,7 +17,15 @@ from typing import Callable
 import torch
 from torch.optim.lr_scheduler import LambdaLR
 
+from mmlearn_tpu_torch.conf import store
 
+
+@store(
+    group="modules/lr_schedulers",
+    name="linear_warmup_cosine_annealing_lr",
+    zen_partial=True,
+    populate_full_signature=False,
+)
 def linear_warmup_cosine_annealing_lr(
     base_lr: float,
     warmup_steps: int,

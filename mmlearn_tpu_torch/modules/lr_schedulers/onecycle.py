@@ -15,7 +15,15 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+from mmlearn_tpu_torch.conf import store
 
+
+@store(
+    group="modules/lr_schedulers",
+    name="onecycle_lr",
+    zen_partial=True,
+    populate_full_signature=False,
+)
 def onecycle_lr(
     max_lr: float,
     total_steps: int,

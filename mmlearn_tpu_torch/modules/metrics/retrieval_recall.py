@@ -32,6 +32,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 
 #: target-block length of the streaming exact top-k (the JAX package's)
@@ -179,6 +180,7 @@ def _rows(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
+@store(group="modules/metrics", name="RetrievalRecallAtK", populate_full_signature=False)
 class RetrievalRecallAtK:
     """Recall@K over accumulated (query, target, positive-index) triples.
 

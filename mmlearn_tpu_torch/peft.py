@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from mmlearn_tpu_torch.bridge import jax_module_path, jax_paths
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.dense import Dense
 from mmlearn_tpu_torch.ops.fused_attention import interleave_qkv_heads
 
@@ -48,6 +49,7 @@ EMBEDDING_KEYS = ("patch_embed", "token_embedding", "position_embedding",
                   "token_type_embedding", "pos_embed", "cls_token", "embed_norm")
 
 
+@store(group="modules/peft", name="LoRAConfig", populate_full_signature=False)
 @dataclass(frozen=True)
 class LoRAConfig:
     """LoRA hyperparameters (peft ``LoraConfig``'s core fields).

@@ -21,6 +21,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.conf import external_store
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.metrics.retrieval_recall import _topk_chunk, full_f32_matmul
 from mmlearn_tpu_torch.tasks.base import as_tensor
@@ -88,6 +89,8 @@ def top_k_macro_accuracy(pred_list: Sequence[dict], gt_list: Sequence[dict],
     return macro, per_class
 
 
+@external_store(group="eval_task", name="TaxonomicClassification",
+                populate_full_signature=False)
 class TaxonomicClassification(EvaluationHooks):
     """kNN taxonomic classification over BIOSCAN splits. A batch carries
     ``rgb`` and ``dna`` (``text`` too for the ``all_key`` gallery),

@@ -17,8 +17,19 @@ modality or encoder key) give an encoder LoRA factors, held under
 ``modules_to_save``; ``freeze_encoders`` freezes an encoder by a
 reference-style spec (:func:`~mmlearn_tpu_torch.peft.freeze_layers_mask`).
 The parameters left trainable are those of the JAX task's
-``_trainable_mask`` (:295-303). Auxiliary tasks are not ported yet and
-raise. A batch's ``<modality>_token_type_ids``, where given, reach an
+``_trainable_mask`` (:295-303). ``auxiliary_tasks`` maps names to
+:class:`AuxiliaryTaskSpec` entries (or mappings of their fields): each
+spec's ``task`` is called with ``encoder=`` the encoder of its modality and
+``auxiliary=True`` (an I-JEPA task on the shared rgb tower, say), and its
+loss, times ``loss_weight``, is added to the contrastive loss (JAX
+:241-256, :590-607). The auxiliary task draws its dropout masks from a
+source of its own, derived from the step's by its name. ``post_update``,
+``init_extras``, ``apply_import_metadata`` and ``prepare_batch`` (with the
+run seed) reach each auxiliary task (JAX :612-647). The shared encoder is
+registered once, under ``encoders``, so its weights enter the optimizer
+once; an auxiliary task's own modules lie under
+``auxiliary_tasks.<name>`` (its frozen teacher outside the optimizer). A
+batch's ``<modality>_token_type_ids``, where given, reach an
 encoder that takes ``token_type_ids`` (the BERT tower); the JAX task passes
 none.
 
@@ -31,14 +42,17 @@ from __future__ import annotations
 
 import itertools
 import math
+import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import MODALITY_PRESENCE_SUFFIX
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
+from mmlearn_tpu_torch.modules.layers.dropout import MaskSource, current_source
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.losses import ContrastiveLoss, LossPairSpec
 from mmlearn_tpu_torch.peft import (
@@ -48,6 +62,23 @@ from mmlearn_tpu_torch.peft import (
     modules_to_save_mask,
 )
 from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor
+
+
+@dataclass
+class AuxiliaryTaskSpec:
+    """An auxiliary task attached to one modality's encoder: ``task`` is a
+    callable (a partial of the task's class) that takes the shared encoder
+    as ``encoder=``."""
+
+    modality: str = "rgb"
+    task: Any = None
+    loss_weight: float = 1.0
+
+
+def stable_hash(s: str) -> int:
+    """The JAX task's process-independent name hash (``zlib.crc32`` mod
+    2^31)."""
+    return zlib.crc32(s.encode()) % (2**31)
 
 
 @dataclass
@@ -68,6 +99,7 @@ class ModuleKeySpec:
     postprocessor_key: Optional[str] = None
 
 
+@store(group="task", name="ContrastivePretraining", populate_full_signature=False)
 class ContrastivePretraining(TrainingTask):
     """CLIP-style contrastive pretraining over N modalities."""
 
@@ -84,7 +116,8 @@ class ContrastivePretraining(TrainingTask):
         learnable_logit_scale: bool = True,
         loss: Optional[ContrastiveLoss] = None,
         modality_loss_pairs: Optional[Sequence[Any]] = None,
-        auxiliary_tasks: Optional[Mapping[str, Any]] = None,
+        auxiliary_tasks: Optional[Mapping[str, AuxiliaryTaskSpec | Mapping]] = None,
+        log_auxiliary_tasks_loss: bool = False,
         compute_validation_loss: bool = True,
         compute_test_loss: bool = True,
         evaluation_tasks: Optional[Mapping[str, EvaluationSpec | Mapping]] = None,
@@ -94,8 +127,6 @@ class ContrastivePretraining(TrainingTask):
     ) -> None:
         """``generator`` draws the LoRA factors (the default generator's
         state where not given)."""
-        if auxiliary_tasks:
-            raise NotImplementedError("auxiliary tasks are not ported yet")
         super().__init__(optimizer, lr_scheduler,
                          loss if loss is not None else ContrastiveLoss(),
                          compute_validation_loss, compute_test_loss)
@@ -160,6 +191,23 @@ class ContrastivePretraining(TrainingTask):
                         f"modality '{m}' (have {self.modalities})"
                     )
         self.modality_loss_pairs = pairs
+        self.aux_task_specs: dict[str, AuxiliaryTaskSpec] = {}
+        aux: dict[str, nn.Module] = {}
+        for name, spec in (auxiliary_tasks or {}).items():
+            if isinstance(spec, Mapping):
+                spec = AuxiliaryTaskSpec(**spec)
+            if not isinstance(spec, AuxiliaryTaskSpec):
+                raise TypeError(f"Auxiliary task '{name}': expected an AuxiliaryTaskSpec or a "
+                                f"mapping of its fields, got {type(spec).__name__}")
+            modality = str(spec.modality).lower()
+            if modality not in self.modalities:
+                raise ValueError(f"Auxiliary task '{name}' is attached to unknown modality "
+                                 f"'{modality}'")
+            self.aux_task_specs[name] = spec
+            aux[name] = spec.task(encoder=self.encoders[self.encoder_keys[modality]],
+                                  auxiliary=True)
+        self.auxiliary_tasks = nn.ModuleDict(aux)
+        self.log_auxiliary_tasks_loss = log_auxiliary_tasks_loss
         self.evaluation_tasks: dict[str, EvaluationSpec] = {
             name: spec if isinstance(spec, EvaluationSpec) else EvaluationSpec(**spec)
             for name, spec in (evaluation_tasks or {}).items()
@@ -281,5 +329,46 @@ class ContrastivePretraining(TrainingTask):
         scale = self.logit_scale()
         loss, metrics = self.loss(embeddings, example_ids or None, scale,
                                   self.modality_loss_pairs, presence=presence or None)
-        metrics = dict(metrics, logit_scale=scale, loss=loss)
+        metrics = dict(metrics, logit_scale=scale)
+        source = current_source()
+        for name, task in self.auxiliary_tasks.items():
+            # the JAX task's fold_in(rng, hash(name) + 1)
+            aux_source = None if source is None else MaskSource(
+                (*_seed_words(source.seed), stable_hash(name) + 1), source.device)
+            aux_loss, _ = task.aux_loss(batch, aux_source)
+            loss = loss + self.aux_task_specs[name].loss_weight * aux_loss
+            if self.log_auxiliary_tasks_loss:
+                metrics[f"aux_{name}_loss"] = aux_loss
+        metrics["loss"] = loss
         return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def post_update(self, step: int) -> None:
+        """Each auxiliary task's update after the optimizer's (an EMA
+        teacher's)."""
+        for task in self.auxiliary_tasks.values():
+            task.aux_post_update(step)
+
+    def init_extras(self) -> None:
+        """Each auxiliary task's state re-derived from the weights (an
+        I-JEPA teacher copied from the shared encoder)."""
+        for task in self.auxiliary_tasks.values():
+            task.init_extras()
+
+    def apply_import_metadata(self, meta: dict) -> None:
+        """Each auxiliary task's import state (I-JEPA's EMA position)."""
+        for task in self.auxiliary_tasks.values():
+            task.apply_import_metadata(meta)
+
+    def prepare_batch(
+        self, batch: dict[str, Any], step: int, training: bool = True
+    ) -> dict[str, Any]:
+        """Each auxiliary task's host-side hook, with this task's run seed
+        (the trainer sets it here only)."""
+        for task in self.auxiliary_tasks.values():
+            task.prepare_seed = getattr(self, "prepare_seed", 0)
+            batch = task.prepare_batch(batch, step, training=training)
+        return batch
+
+
+def _seed_words(seed: int | Sequence[int]) -> tuple[int, ...]:
+    return (seed,) if isinstance(seed, int) else tuple(seed)

@@ -28,12 +28,14 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import DATASET_INDEX_KEY, EXAMPLE_INDEX_KEY
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.tasks.base import as_tensor
 from mmlearn_tpu_torch.tasks.hooks import EvalRuntime, EvaluationHooks, row_validity
 
 
+@store(group="eval_task", name="EmbeddingExport", populate_full_signature=False)
 class EmbeddingExport(EvaluationHooks):
     """Write per-modality embedding shards for serving.
 

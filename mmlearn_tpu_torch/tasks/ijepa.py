@@ -17,8 +17,18 @@ PyTorch idiom: the teacher is a deep copy of the student held as the
 submodule ``teacher``: frozen (no gradients, so outside the optimizer's
 groups), always in eval mode, and updated in place. In the JAX package it is
 ``extras["ema_encoder"]``; :func:`mmlearn_tpu_torch.bridge.ijepa_jax_to_torch`
-maps one to the other. The auxiliary-task protocol of the JAX task (used by
-``ContrastivePretraining``'s auxiliary tasks) is not ported yet.
+maps one to the other. The EMA step offset (``extras["ema_step_offset"]``
+in the JAX package) is the module's extra state, so it lies in every
+``state_dict`` and checkpoint as ``_extra_state``.
+
+The auxiliary-task protocol (JAX :305-351): ``ContrastivePretraining``
+builds the task around one of its encoders with ``auxiliary=True``. The
+student is then that shared encoder, held by reference and not registered
+here, so its weights are the contrastive task's and enter the optimizer
+once; the task registers its ``predictor`` and ``teacher`` only, and keeps
+the shared encoder's initialisation and the predictor's own, as the JAX
+``init_aux_params`` does. :meth:`IJEPA.aux_loss` and :meth:`IJEPA.aux_post_update`
+are the JAX ``aux_loss_fn`` and ``aux_post_update``.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.datasets.processors.masking import IJEPAMaskGenerator
 from mmlearn_tpu_torch.modules.ema import ExponentialMovingAverage
@@ -41,6 +52,7 @@ from mmlearn_tpu_torch.modules.encoders.vision import (
     repeat_interleave_batch,
 )
 from mmlearn_tpu_torch.modules.layers.dense import Dense
+from mmlearn_tpu_torch.modules.layers.dropout import MaskSource, masks_from
 from mmlearn_tpu_torch.modules.layers.embedding import PatchProj
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
 from mmlearn_tpu_torch.modules.losses.data2vec import smooth_l1
@@ -76,6 +88,7 @@ def standardize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+@store(group="task", name="IJEPA", populate_full_signature=False)
 class IJEPA(TrainingTask):
     """I-JEPA: predict the features an EMA teacher gives masked regions.
 
@@ -90,6 +103,9 @@ class IJEPA(TrainingTask):
         generator: draws the predictor when it is not given, then the
             reference init of the student's and the predictor's kernels
             (:func:`reinit_trunc_normal`), before the teacher is copied.
+        auxiliary: the task is another task's auxiliary one (see the module
+            docstring): ``encoder`` is shared and kept by reference, and
+            neither it nor the predictor is re-initialised.
     """
 
     def __init__(
@@ -107,6 +123,7 @@ class IJEPA(TrainingTask):
         generator: Optional[torch.Generator] = None,
         compute_validation_loss: bool = True,
         compute_test_loss: bool = True,
+        auxiliary: bool = False,
     ) -> None:
         super().__init__(optimizer, lr_scheduler, None, compute_validation_loss,
                          compute_test_loss)
@@ -119,10 +136,16 @@ class IJEPA(TrainingTask):
                 depth=max(1, cfg["depth"] // 2), num_heads=cfg["num_heads"],
                 dtype=cfg["dtype"], param_dtype=cfg["param_dtype"], generator=generator,
             )
-        self.encoder = encoder
+        self.auxiliary = auxiliary
+        if auxiliary:
+            # a plain attribute, not a submodule: the owner registers it
+            object.__setattr__(self, "encoder", encoder)
+        else:
+            self.encoder = encoder
         self.predictor = predictor
-        reinit_trunc_normal(self.encoder, generator)
-        reinit_trunc_normal(self.predictor, generator)
+        if not auxiliary:
+            reinit_trunc_normal(self.encoder, generator)
+            reinit_trunc_normal(self.predictor, generator)
         self.teacher = copy.deepcopy(encoder).requires_grad_(False).eval()
         self.modality = str(modality).lower()
         self.loss_beta = loss_beta
@@ -134,9 +157,15 @@ class IJEPA(TrainingTask):
             input_size=cfg["img_size"], patch_size=cfg["patch_size"]
         )
         #: where the teacher's decay anneal starts (a run resumed from a
-        #: half-trained checkpoint continues the anneal)
+        #: half-trained checkpoint continues the anneal); in the state dict
         self.ema_step_offset = 0
         self.prepare_seed = 0
+
+    def get_extra_state(self) -> dict[str, int]:
+        return {"ema_step_offset": int(self.ema_step_offset)}
+
+    def set_extra_state(self, state: dict[str, int]) -> None:
+        self.ema_step_offset = int(state["ema_step_offset"])
 
     def train(self, mode: bool = True) -> "IJEPA":
         super().train(mode)
@@ -160,17 +189,22 @@ class IJEPA(TrainingTask):
 
     def loss_fn(self, batch: Mapping[str, Any]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Smooth-L1 between the predictor's output and the teacher's
-        standardised features at the target patches, mean over everything."""
+        standardised features at the target patches, mean over everything.
+        Of an encoder with a cls token (the multi-task experiment's shared
+        tower) both take the patch tokens only; the JAX task has no such
+        case (its predictor and its target gather take every token as a
+        patch, and it raises on such an encoder)."""
         device = self.predictor.mask_token.device
         images = as_tensor(batch[Modalities.get_modality(self.modality).name], device)
         enc_masks = as_tensor(batch[ENCODER_MASK_KEY], device).long()
         pred_masks = as_tensor(batch[PREDICTOR_MASK_KEY], device).long()
         b, n_enc = images.shape[0], enc_masks.shape[0]
+        prefix = getattr(self.encoder, "num_prefix", 0)  # a cls token: patches only
         with torch.no_grad():
-            h = self.teacher(images).last_hidden_state
+            h = self.teacher(images).last_hidden_state[:, prefix:]
             h = standardize(h, eps=1e-5)  # torch F.layer_norm's eps, no affine
             h = repeat_interleave_batch(apply_masks(h, pred_masks), b, n_enc)
-        z = self.encoder(images, patch_masks=enc_masks).last_hidden_state
+        z = self.encoder(images, patch_masks=enc_masks).last_hidden_state[:, prefix:]
         z_pred = self.predictor(z, enc_masks, pred_masks)
         loss = smooth_l1(z_pred.float(), h.float(), self.loss_beta).mean()
         return loss, {"loss": loss.detach()}
@@ -193,6 +227,20 @@ class IJEPA(TrainingTask):
         """The teacher's EMA step towards the student, at the decay of
         ``step + ema_step_offset``."""
         self.ema.step(self.teacher, self.encoder, step + self.ema_step_offset)
+
+    def aux_loss(
+        self, batch: Mapping[str, Any], source: Optional[MaskSource] = None
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The loss of the task as an auxiliary one (JAX ``aux_loss_fn``):
+        :meth:`loss_fn` on the shared student, its dropout masks drawn from
+        ``source`` (none where it is ``None``)."""
+        with masks_from(source):
+            return self.loss_fn(batch)
+
+    def aux_post_update(self, step: int) -> None:
+        """The teacher's EMA step after the owner's update (JAX
+        ``aux_post_update``)."""
+        self.post_update(step)
 
     def encode(
         self, batch: Mapping[str, Any], modality: Optional[str] = None, normalize: bool = False

@@ -23,6 +23,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import DATASET_INDEX_KEY
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.layers.normalization import l2_normalize
@@ -50,6 +51,7 @@ class ClassificationTaskSpec:
     top_k: Sequence[int] = field(default_factory=lambda: [1])
 
 
+@store(group="eval_task", name="ZeroShotClassification", populate_full_signature=False)
 class ZeroShotClassification(EvaluationHooks):
     """Zero-shot classification against prompt-template class embeddings."""
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
+from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.modules.metrics.retrieval_recall import RetrievalRecallAtK
 from mmlearn_tpu_torch.tasks.hooks import EvalRuntime, EvaluationHooks, row_validity
@@ -27,6 +28,7 @@ class RetrievalTaskSpec:
     top_k: Sequence[int] = field(default_factory=lambda: [10])
 
 
+@store(group="eval_task", name="ZeroShotCrossModalRetrieval", populate_full_signature=False)
 class ZeroShotCrossModalRetrieval(EvaluationHooks):
     """Recall@K for each configured cross-modal retrieval direction."""
 

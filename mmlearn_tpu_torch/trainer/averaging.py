@@ -57,7 +57,8 @@ def average_checkpoints(
         trained = {n for g in last["optimizer"]["param_groups"] or [] for n in g["params"]}
         trained |= set(last["optimizer"]["state"])
         for name, value in last["task"].items():
-            if value.is_floating_point() and (average_extras or name in trained):
+            if (torch.is_tensor(value) and value.is_floating_point()
+                    and (average_extras or name in trained)):
                 acc = value.double()
                 sums[name] = acc if name not in sums else sums[name] + acc
     soup = dict(last["task"])

@@ -28,6 +28,8 @@ from typing import Any, Optional
 
 import torch
 
+from mmlearn_tpu_torch.conf import store
+
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.pt"
@@ -95,6 +97,7 @@ def write_state(dirpath: str, step: int, state: dict) -> str:
     return final
 
 
+@store(group="trainer/callbacks", name="ModelCheckpoint", populate_full_signature=False)
 class ModelCheckpoint(Callback):
     """Periodic and last checkpoints, monitored top-k pins, and resume.
 
@@ -419,6 +422,7 @@ class ModelCheckpoint(Callback):
             self.wait_until_finished()
 
 
+@store(group="trainer/callbacks", name="LearningRateMonitor", populate_full_signature=False)
 class LearningRateMonitor(Callback):
     """Stamp the learning rate of the latest optimizer update into the
     logged train metrics: ``schedule(step // k - 1)`` after ``step``
@@ -435,6 +439,7 @@ class LearningRateMonitor(Callback):
             metrics["lr"] = float(sched(max(0, step // k - 1)))
 
 
+@store(group="trainer/callbacks", name="Timer", populate_full_signature=False)
 class Timer(Callback):
     """Stamp ``steps_per_sec`` since the start of training into the train
     metrics (host clock: at a logged step the trainer has read the card's

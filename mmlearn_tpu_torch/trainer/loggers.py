@@ -16,6 +16,8 @@ from typing import Any, Mapping
 
 import torch
 
+from mmlearn_tpu_torch.conf import store
+
 logger = logging.getLogger(__name__)
 
 
@@ -34,6 +36,7 @@ class Logger:
     def finalize(self) -> None: ...
 
 
+@store(group="trainer/logger", name="ConsoleLogger", populate_full_signature=False)
 class ConsoleLogger(Logger):
     """One ``step N | key=value ...`` line through :mod:`logging` every
     ``every_n_steps`` logged steps."""
@@ -56,6 +59,7 @@ class ConsoleLogger(Logger):
         logger.info("hyperparams: %s", params)
 
 
+@store(group="trainer/logger", name="JSONLLogger", populate_full_signature=False)
 class JSONLLogger(Logger):
     """Append one JSON object per logged step to ``<save_dir>/metrics.jsonl``
     (``step``, ``time`` and the metrics), and the hyperparameters to

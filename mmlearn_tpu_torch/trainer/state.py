@@ -85,8 +85,8 @@ class TrainState:
         if strict:
             self.task.load_state_dict(weights, strict=True)
         else:
-            take = {k: v for k, v in weights.items()
-                    if k in own and tuple(v.shape) == tuple(own[k].shape)}
+            take = {k: v for k, v in weights.items() if k in own and (
+                not torch.is_tensor(v) or tuple(v.shape) == tuple(own[k].shape))}
             skipped += sorted(set(own) - set(take))
             self.task.load_state_dict(take, strict=False)
 

@@ -60,9 +60,15 @@ draw none. The weights come seeded from the function that makes the task,
 and ``seed`` also seeds the task's host-side ``prepare_batch``
 (``task.prepare_seed``, as the JAX trainer sets it).
 
-The JAX trainer's XLA-only options (``compilation_cache_dir``,
-``donate_state``, the profiler trace, ``precision``'s attention switch) have
-no counterpart; ``mesh_shape`` waits for parallelism (ROADMAP P10).
+``precision`` is the JAX trainer's: ``"bf16"``, ``"bf16-mixed"`` or
+``"bfloat16"`` (and the fp16 names ``"fp16"``, ``"16-mixed"``, ``"16"``,
+which the JAX trainer maps to ``"bf16-mixed"``) cast floating inputs and
+normalized images to bf16, any other value to f32; ``None`` takes the
+dtype the task's towers compute in. The JAX trainer's XLA-only options
+(``compilation_cache_dir``, ``donate_state``, the profiler trace,
+``"bf16-mixed"``'s attention-score switch) have no counterpart;
+``mesh_shape`` other than one device raises until parallelism is ported
+(ROADMAP P10).
 """
 
 from __future__ import annotations
@@ -181,9 +187,11 @@ class Trainer:
         check_val_every_n_epoch: int = 1,
         val_check_interval: Optional[Union[int, float]] = None,
         log_every_n_steps: int = 50,
+        precision: Optional[str] = None,
         accumulate_grad_batches: int = 1,
         gradient_clip_val: Optional[float] = None,
         gradient_clip_algorithm: str = "norm",
+        mesh_shape: Optional[Mapping[str, int]] = None,
         callbacks: Optional[Sequence[Any]] = None,
         loggers: Optional[Sequence[Any]] = None,
         default_root_dir: str = "outputs",
@@ -206,6 +214,14 @@ class Trainer:
         if gradient_clip_algorithm not in ("norm", "value"):
             raise ValueError(f"gradient_clip_algorithm must be 'norm' or 'value', got "
                              f"{gradient_clip_algorithm!r}")
+        if any(int(v) != 1 for v in (mesh_shape or {}).values()):
+            raise NotImplementedError(
+                f"mesh_shape={dict(mesh_shape)}: the port trains on one device; meshes and "
+                "sharding wait for parallelism (ROADMAP P10)")
+        if precision in ("fp16", "16-mixed", "16"):
+            precision = "bf16-mixed"  # the JAX trainer's mapping
+        #: the JAX trainer's ``precision`` (see the module docstring)
+        self.precision = precision
         if int(accumulate_grad_batches) < 1:
             raise ValueError(f"accumulate_grad_batches must be >= 1, got {accumulate_grad_batches}")
         if isinstance(overfit_batches, int) and overfit_batches < 0:
@@ -391,6 +407,15 @@ class Trainer:
                 out[key] = val
         return out
 
+    def _input_dtype(self, task: TrainingTask) -> torch.dtype:
+        """The dtype floating inputs are cast to: bf16 under a bf16
+        ``precision``, f32 under another, the towers' without one."""
+        if self.precision is None:
+            return compute_dtype(task)
+        if str(self.precision) in ("bf16", "bf16-mixed", "bfloat16"):
+            return torch.bfloat16
+        return torch.float32
+
     def _normalized(self, key: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         stats = self.device_normalize.get(key)
         if stats is None:
@@ -421,7 +446,7 @@ class Trainer:
         the limit and skip accounting, ``task.prepare_batch`` with its own
         step counter and the placement; it stops at ``max_steps``.
         ``seen[0]`` counts the batches the loader yielded."""
-        dtype = compute_dtype(task)
+        dtype = self._input_dtype(task)
 
         def source():
             s = step0
@@ -788,7 +813,7 @@ class Trainer:
         if limit is not None and limit < 0:
             limit = None  # -1: the whole loader (num_sanity_val_steps=-1)
         losses = []
-        dtype = compute_dtype(task)
+        dtype = self._input_dtype(task)
         for batch_idx, batch in enumerate(loader):
             if limit is not None and batch_idx >= limit:
                 break  # 0 turns the phase off

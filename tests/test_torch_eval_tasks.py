@@ -353,6 +353,7 @@ def test_validation_inside_fit_runs_the_hooks():
 def test_contrastive_task_takes_evaluation_tasks_only():
     spec = tasks.EvaluationSpec(task=tasks.EmbeddingExport("unused"))
     assert port_task(evaluation_tasks={"export": spec}).evaluation_tasks == {"export": spec}
-    # PEFT and frozen encoders are ported since; auxiliary tasks are not
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # PEFT, frozen encoders and auxiliary tasks are ported since; an
+    # auxiliary spec of another type is refused
+    with pytest.raises(TypeError, match="AuxiliaryTaskSpec"):
         port_task(auxiliary_tasks={"rgb": object()})

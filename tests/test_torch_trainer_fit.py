@@ -467,13 +467,14 @@ def test_one_pass_iterator_runs_out():
 def test_evaluation_tasks_are_not_ported():
     """What of the JAX task's evaluation options the port still refuses.
     Evaluation tasks themselves are ported (``tests/test_torch_eval_tasks.py``)
-    and kept as ``EvaluationSpec``s; auxiliary tasks still raise. (The name
-    is older than the port of evaluation.)"""
+    and kept as ``EvaluationSpec``s; auxiliary tasks are ported too
+    (``tests/test_torch_multitask.py``): a spec of another type is refused.
+    (The name is older than both ports.)"""
     from mmlearn_tpu_torch.tasks import EvaluationSpec
 
     task = port_task(evaluation_tasks={"retrieval": {"task": object()}})
     assert isinstance(task.evaluation_tasks["retrieval"], EvaluationSpec)
-    with pytest.raises(NotImplementedError, match="auxiliary tasks"):
+    with pytest.raises(TypeError, match="AuxiliaryTaskSpec"):
         port_task(auxiliary_tasks={"retrieval": object()})
 
 

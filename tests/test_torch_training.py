@@ -324,7 +324,9 @@ def test_trainer_fit_matches_jax_train_loop():
 
 def test_task_rejects_unported_options():
     towers = {"rgb": VisionTransformer(**TINY_VISION)}
-    with pytest.raises(NotImplementedError):
+    # auxiliary tasks are ported (tests/test_torch_multitask.py); a spec of
+    # another type is refused
+    with pytest.raises(TypeError, match="AuxiliaryTaskSpec"):
         ContrastivePretraining(towers, auxiliary_tasks={"a": object()})
     # PEFT and frozen encoders are ported (tests/test_torch_peft.py holds them
     # to the JAX task): a LoRA'd tower trains only its factors, a frozen one
