@@ -265,9 +265,28 @@ Phases, each fatal on failure:
     steps), ms a step, FLOPs, MFU, peak memory, the feeder's wait. Run B,
     resumed from run A's step-12 checkpoint: every record and weight
     bit-equal to run A's.
+16. the parallel path (``parallel_phase``), on the one card: K3's ring
+    instances (K3f with its f32 output at the hop grids B=1, n=4,096, H=16
+    D=64 and H=8 D=128; K3f and K3b at D=128 on B=1, N=16,384, H=8, K3b's
+    bits run twice) against their plain versions at K3's limits, timed
+    beside SDPA and the bound; ring attention at B=1, N=16,384 through the
+    list exchange (P ranks' hops on this card) at P=4 and 8, H=16 D=64 and
+    H=8 D=128, causal and not, forward and backward: launches exactly P^2
+    a pass (P (P + 1) / 2 causal) of K3f's f32 instance and of K3b's two
+    kernels, the output and gradients against unsharded K3 and against the
+    plain ring at ``RING_REL_TOL``, the ring's ms beside K3's; then the
+    flagship's towers through ``cli.run`` (``build_experiment`` and
+    ``run_experiment``) at world 1 over NCCL: one process started by
+    ``mp_launch.run_workers`` under ``MMLEARN_MULTIHOST=1``, FSDP2 over a
+    1x1 mesh, b128, 6 steps and a validation with zero-shot retrieval,
+    against the same job on the undistributed trainer in this process: the
+    loss of every step and every weight bit-equal (or within 1e-6 relative,
+    the operation named), K1's and K2's launches phase 9's a step, the
+    recall equal, ms a step beside the undistributed trainer's and phase
+    9's.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the fifteenth.
+checks that K5 never launched there; so do the eighth to the sixteenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -585,7 +604,7 @@ def reset_counts() -> None:
     from mmlearn_tpu_torch.ops import fused_norm as fn
     from mmlearn_tpu_torch.ops import int8_matmul as im
 
-    for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES, fl.LAUNCHES):
+    for table in (fa.LAUNCHES, fn.LAUNCHES, im.LAUNCHES, fl.LAUNCHES, fl.F32_OUT_LAUNCHES):
         for key in table:
             table[key] = 0
     fa.HEAD_DIM_LAUNCHES.clear()
@@ -2789,6 +2808,7 @@ def trainer_path(device) -> dict:
     del master
 
     ms = statistics.median(windows[0::2]) * 1e3
+    TRAINER_MS["ms"] = ms
     global_batch = TRAINER_MICRO_BATCH * TRAINER_ACCUMULATE
     tflops = flops / (ms / 1e3) / 1e12
     peak = device_peak_tflops(device)
@@ -5403,6 +5423,415 @@ def multitask_path(device) -> dict:
     return counts
 
 
+# phase 16: the parallel path on the one card. The ring at full width through
+# the list exchange (P ranks' hops on this card): B=1, N=16,384 at P=4 (4,096
+# a rank) and P=8 (2,048, the JAX package's flash threshold), the image
+# tower's width 1,024 as 16 heads of 64 and 8 of 128; then the normal entry
+# (cli.run) at world 1 over NCCL under MMLEARN_MULTIHOST=1, the flagship's
+# towers at b128.
+RING_N, RING_P, RING_HEADS = 16384, (4, 8), ((16, 64), (8, 128))
+HOP_N = 4096  # the hop grid of K3f's f32 output (P=4)
+K3_D128_N, K3_D128_H = 16384, 8
+# the ring against unsharded K3 on the whole sequence and against the plain
+# ring (its hops the plain block math on the card), ||got - want|| / ||want||:
+# about 2x a sound run's readings (out against K3 up to 2.8e-3, the gradients
+# up to 2.8e-3: the ring's f32 merge against one pass's, p rounded to bf16 a
+# hop; against the plain ring 3.1e-3 and 3.4e-3: the plain version rounds the
+# normalized p, the kernels the unnormalized; first run on one H100)
+RING_REL_TOL = {"out": 6e-3, "grad": 7e-3}
+PAR_STEPS, PAR_BATCH, PAR_VAL = 6, 128, 2
+PAR_MARKS = (1, PAR_STEPS)
+TRAINER_MS: dict = {}  # phase 9's ms a micro-step, for phase 16
+
+
+def hop_count(p: int, causal: bool) -> int:
+    """Hops a ring pass computes over its P ranks."""
+    return p * (p + 1) // 2 if causal else p * p
+
+
+@contextlib.contextmanager
+def plain_hops():
+    """The ring's hops as their plain block math, on the tensors' device
+    (the plain ring on the card), inside the block."""
+    import mmlearn_tpu_torch.ops.ring_attention as ra
+
+    saved = ra._hop_forward, ra._hop_backward
+    ra._hop_forward = ra.block_attention_reference
+    ra._hop_backward = (lambda q, k, v, do, out, delta, lse, *rest:
+                        ra.block_attention_bwd_reference(q, k, v, do.float(), delta, lse, *rest))
+    try:
+        yield
+    finally:
+        ra._hop_forward, ra._hop_backward = saved
+
+
+def rel_err(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm())
+
+
+def k3_parallel_checks(device, gen, err: dict) -> dict:
+    """Phase 16's K3 instances against their plain versions, with K3's
+    element and norm-relative limits: K3f with its f32 output at the hop
+    grids (B=1, n=4,096; H=16 D=64 and H=8 D=128), K3f and K3b at D=128 on
+    B=1, N=16,384, H=8 (the plain versions head by head), K3b run twice on
+    one input (equal bits); each timed beside its plain version, SDPA and
+    its bound. Returns rows as :func:`kernels_at_batch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+
+    rows = {}
+    fwd_tol, bwd_tol = tol("flash_attention_fwd", "bfloat16"), tol("flash_attention_bwd",
+                                                                  "bfloat16")
+    fwd_rel = FLASH_REL_TOL["flash_attention_fwd"]["bfloat16"]
+    bwd_rel = FLASH_REL_TOL["flash_attention_bwd"]["bfloat16"]
+    err.setdefault("flash_attention_fwd_f32", 0.0)
+    for h, d in RING_HEADS:
+        scale = d ** -0.5
+        q, k, v = (torch.randn(1, h, HOP_N, d, generator=gen, device=device).bfloat16()
+                   for _ in range(3))
+        out, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False, out_dtype=torch.float32)
+        check(out.dtype == torch.float32, "K3f's hop output is not f32")
+        want, want_lse = fl.flash_fwd_reference(q, k, v, None, scale, False,
+                                                out_dtype=torch.float32)
+        tag = f"hop B=1 n={HOP_N} H={h} D={d} bf16 in, f32 out"
+        err["flash_attention_fwd_f32"] = max(err["flash_attention_fwd_f32"], compare(
+            f"K3f f32 out {tag}", out, want, fwd_tol, fwd_rel))
+        compare(f"K3f f32 lse {tag}", lse, want_lse, LSE_TOL)
+        rows[f"K3f f32 hop H={h} D={d}"] = (
+            cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False,
+                                               out_dtype=torch.float32)),
+            cuda_ms(lambda: fl.flash_fwd_reference(q, k, v, None, scale, False,
+                                                   out_dtype=torch.float32), iters=2, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            *bound(nbytes(q, k, v, out, lse), 4 * h * d * HOP_N * HOP_N, "bfloat16"))
+        del q, k, v, out, lse, want, want_lse
+        torch.cuda.empty_cache()
+
+    h, d, n = K3_D128_H, 128, K3_D128_N
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(1, h, n, d, generator=gen, device=device).bfloat16()
+                   for _ in range(4))
+    out, lse = fl._flash_fwd_cuda(q, k, v, None, scale, False)
+    grads = fl._flash_bwd_cuda(q, k, v, None, out, lse, do, scale, False)
+    again = fl._flash_bwd_cuda(q, k, v, None, out, lse, do, scale, False)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "K3b at D=128: two runs on one input differ")
+    print(f"K3b flash N={n} H={h} D={d} bf16: dq, dk, dv of two runs equal bit for bit ok")
+    heads = [slice(i, i + 1) for i in range(h)]
+
+    def plain_fwd():
+        return [fl.flash_fwd_reference(q[:, s], k[:, s], v[:, s], None, scale, False)
+                for s in heads]
+
+    def plain_bwd():
+        return [fl.flash_bwd_reference(q[:, s], k[:, s], v[:, s], None, out[:, s], lse[:, s],
+                                       do[:, s], scale, False) for s in heads]
+
+    tag = f"N={n} B=1 H={h} D={d} bf16"
+    want = plain_fwd()
+    err["flash_attention_fwd_d128"] = compare(
+        f"K3f flash out {tag}", out, torch.cat([o for o, _ in want], 1), fwd_tol, fwd_rel)
+    compare(f"K3f flash lse {tag}", lse, torch.cat([l for _, l in want], 1), LSE_TOL)
+    del want
+    want_b = plain_bwd()
+    err["flash_attention_bwd_d128"] = max(
+        compare(f"K3b flash d{name} {tag}", grads[i], torch.cat([w[i] for w in want_b], 1),
+                bwd_tol, bwd_rel) for i, name in enumerate("qkv"))
+    del want_b, grads, again
+    torch.cuda.empty_cache()
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+    pairs = n * n
+    rows[f"K3f N={n} H={h} D={d}"] = (
+        cuda_ms(lambda: fl._flash_fwd_cuda(q, k, v, None, scale, False)),
+        cuda_ms(plain_fwd, iters=2, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        *bound(nbytes(q, k, v, out, lse), 4 * h * d * pairs, "bfloat16"))
+    rows[f"K3b N={n} H={h} D={d}"] = (
+        cuda_ms(lambda: fl._flash_bwd_cuda(q, k, v, None, out, lse, do, scale, False)),
+        cuda_ms(plain_bwd, iters=2, warmup=1),
+        cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)),
+        *bound(nbytes(q, k, v, out, do, lse, q, k, v), 10 * h * d * pairs, "bfloat16"))
+    del q, k, v, do, out, lse, lq, lk, lv, lib_out
+    torch.cuda.empty_cache()
+    for label, (ms, plain, lib, bnd, by) in rows.items():
+        print(f"time {label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {bnd / ms:.1%} of it)")
+    reset_counts()
+    return rows
+
+
+def ring_path(device, gen) -> dict:
+    """Phase 16's ring at full width on the card through the list exchange:
+    B=1, N=16,384 at P=4 and 8, H=16 D=64 and H=8 D=128, causal and not,
+    forward and backward. Each run counted from 0: K3f (its f32 instance)
+    and K3b's two kernels P^2 a pass, P (P + 1) / 2 causal; the output and
+    gradients against unsharded K3 on the whole sequence and against the
+    plain ring, ||got - want|| / ||want||; the ring's ms against K3's.
+    Returns the launches of all the runs."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import flash_attention as fl
+    from mmlearn_tpu_torch.ops.ring_attention import ListExchange, sequence_sharded_attention
+
+    total: dict = {}
+    for h, d in RING_HEADS:
+        q, k, v, do = (torch.randn(1, h, RING_N, d, generator=gen, device=device).bfloat16()
+                       for _ in range(4))
+        for causal in (False, True):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = fl.flash_attention(*leaves, causal=causal)
+            ref_grads = torch.autograd.grad(ref, leaves, do)
+            k3_fwd = cuda_ms(lambda: fl.flash_attention(q, k, v, causal=causal), iters=5)
+            k3_both = cuda_ms(lambda: torch.autograd.grad(
+                fl.flash_attention(*leaves, causal=causal), leaves, do), iters=5)
+            for p in RING_P:
+                tag = f"ring P={p} B=1 N={RING_N} H={h} D={d}{' causal' if causal else ''}"
+                ex = ListExchange(p)
+                reset_counts()
+                out = sequence_sharded_attention(*leaves, ex, causal=causal)
+                grads = torch.autograd.grad(out, leaves, do)
+                torch.cuda.synchronize()
+                counts, hops = launch_counts(), hop_count(p, causal)
+                f32 = fl.F32_OUT_LAUNCHES["flash_fwd_f32"]
+                print(f"{tag}: launched flash_fwd {counts['flash_fwd']} (f32 out {f32}), "
+                      f"flash_bwd_dq {counts['flash_bwd_dq']}, flash_bwd_dkv "
+                      f"{counts['flash_bwd_dkv']} (want {hops} each); hops {ex.hops}")
+                check(counts["flash_fwd"] == f32 == counts["flash_bwd_dq"]
+                      == counts["flash_bwd_dkv"] == hops
+                      and ex.hops == {"forward": hops, "backward": hops,
+                                      "skipped": 2 * (p * p - hops)},
+                      f"{tag}: launches {counts}, f32 {f32}, hops {ex.hops}")
+                for key, count in head_dim_counts().items():
+                    total[key] = total.get(key, 0) + count
+                total["flash_fwd_f32", d] = total.get(("flash_fwd_f32", d), 0) + f32
+                for name, got, want in (("out", out, ref), *zip(
+                        ("dq", "dk", "dv"), grads, ref_grads)):
+                    r = rel_err(got, want)
+                    limit = RING_REL_TOL["out" if name == "out" else "grad"]
+                    print(f"{tag} {name} against unsharded K3: rel_err={r:.3e} (limit {limit:g}) "
+                          f"{'ok' if r <= limit else 'FAIL'}")
+                    check(r <= limit and bool(got.isfinite().all()),
+                          f"{tag} {name} against unsharded K3")
+                with plain_hops():
+                    p_out = sequence_sharded_attention(*leaves, ListExchange(p), causal=causal)
+                    p_grads = torch.autograd.grad(p_out, leaves, do)
+                for name, got, want in (("out", out, p_out), *zip(
+                        ("dq", "dk", "dv"), grads, p_grads)):
+                    r = rel_err(got, want)
+                    limit = RING_REL_TOL["out" if name == "out" else "grad"]
+                    print(f"{tag} {name} against the plain ring: rel_err={r:.3e} (limit "
+                          f"{limit:g}) {'ok' if r <= limit else 'FAIL'}")
+                    check(r <= limit, f"{tag} {name} against the plain ring")
+                del p_out, p_grads, out, grads
+                torch.cuda.empty_cache()
+                with torch.no_grad():
+                    ring_fwd = cuda_ms(lambda: sequence_sharded_attention(
+                        q, k, v, ListExchange(p), causal=causal), iters=3, warmup=1)
+                ring_both = cuda_ms(lambda: torch.autograd.grad(sequence_sharded_attention(
+                    *leaves, ListExchange(p), causal=causal), leaves, do), iters=3, warmup=1)
+                print(f"time {tag}: ring forward {ring_fwd:.3f} ms ({ring_fwd / k3_fwd:.2f} x "
+                      f"unsharded K3's {k3_fwd:.3f} ms), forward + backward {ring_both:.3f} ms "
+                      f"({ring_both / k3_both:.2f} x K3's {k3_both:.3f} ms)")
+            del leaves, ref, ref_grads
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    reset_counts()
+    return total
+
+
+def parallel_argv(out_dir: str) -> list:
+    """The CLI's overrides of phase 16's run: the tiny experiment's
+    synthetic pairs and trainer at the flagship's towers (ViT-B/16 at 224 px,
+    the 77-token text tower, bf16), b128, PAR_STEPS steps and a validation of
+    PAR_VAL batches at the end, on the card."""
+    rgb, text = "task.encoders.rgb", "task.encoders.text"
+    return [
+        "+experiment=tiny_clip_synthetic", f"runtime.output_dir={out_dir}",
+        "trainer.device=cuda", f"trainer.max_steps={PAR_STEPS}", "trainer.log_every_n_steps=1",
+        "trainer.mesh_shape.data=-1", "+trainer.mesh_shape.fsdp=1",
+        "+trainer.callbacks.probe._target_=chip_smoke.ParallelProbe",
+        f"datasets.train.size={PAR_STEPS * PAR_BATCH}", "datasets.train.image_size=224",
+        "datasets.train.seq_len=77", "datasets.train.vocab_size=49408",
+        f"datasets.val.size={PAR_VAL * PAR_BATCH}", "datasets.val.image_size=224",
+        "datasets.val.seq_len=77", "datasets.val.vocab_size=49408",
+        f"dataloader.train.batch_size={PAR_BATCH}", f"dataloader.val.batch_size={PAR_BATCH}",
+        f"{rgb}.img_size=224", f"{rgb}.patch_size=16", f"{rgb}.embed_dim=768", f"{rgb}.depth=12",
+        f"{rgb}.num_heads=12", f"+{rgb}.learned_pos_embed=true", f"+{rgb}.pre_norm=true",
+        f"+{rgb}.act_layer=quick_gelu", f"{rgb}.proj_dim=512", f"+{rgb}.dtype=bfloat16",
+        f"{text}.vocab_size=49408", f"{text}.max_length=77", f"{text}.embed_dim=512",
+        f"{text}.depth=12", f"{text}.num_heads=8", f"+{text}.causal=true",
+        f"{text}.proj_dim=512", f"+{text}.dtype=bfloat16",
+    ]
+
+
+class ParallelProbe:
+    """Phase 16's callback: the host clock after a synchronize at
+    PAR_MARKS, the trainer, its history and the validation results."""
+
+    runs: list = []
+
+    def __init__(self) -> None:
+        self.times: dict = {}
+        self.trainer = None
+        self.val: dict = {}
+        ParallelProbe.runs.append(self)
+
+    def on_train_start(self, trainer) -> None:
+        self.trainer = trainer
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        import torch
+
+        if step in PAR_MARKS:
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None:
+        self.val = dict(metrics)
+
+    def on_train_end(self, trainer) -> None: ...
+
+
+def parallel_run(out_dir: str) -> dict:
+    """Phase 16's job through the CLI (``build_experiment`` and
+    ``run_experiment``, ``main``'s two halves) with zero-shot retrieval as
+    the task's evaluation: launches counted from 0, the history, the
+    weights on the CPU, ms a step over steps 2-6, the validation results."""
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import build_experiment, run_experiment
+    from mmlearn_tpu_torch.trainer.state import full_state
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    cfg = build_experiment(parallel_argv(out_dir))
+    cfg["task"]["evaluation_tasks"] = {"retrieval": {"task": {
+        "_target_": "mmlearn_tpu_torch.tasks.zero_shot_retrieval.ZeroShotCrossModalRetrieval",
+        "task_specs": [{"query_modality": "rgb", "target_modality": "text", "top_k": [1, 5]}]}}}
+    reset_counts()
+    state = run_experiment(cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    probe = ParallelProbe.runs[-1]
+    weights = {k: v.detach().cpu() for k, v in full_state(state.task.state_dict()).items()
+               if torch.is_tensor(v)}
+    ms = (probe.times[PAR_STEPS] - probe.times[1]) / (PAR_STEPS - 1) * 1e3
+    return {"counts": counts, "history": probe.trainer.history, "weights": weights, "ms": ms,
+            "val": probe.val, "step": state.step,
+            "sharded": type(state.task).__name__.startswith("FSDP"),
+            "depth": sum(len(enc.blocks) for enc in state.task.encoders.values())}
+
+
+def parallel_worker(out_dir: str) -> None:
+    """The one process of phase 16's world-1 job, started by ``run_workers``
+    under ``MMLEARN_MULTIHOST=1``: the CLI joins the NCCL group from the
+    environment; the results go to ``<out_dir>/result.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = parallel_run(out_dir)
+    result["backend"] = dist.get_backend()
+    result["world"] = dist.get_world_size()
+    torch.save(result, os.path.join(out_dir, "result.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_path(device) -> None:
+    """Phase 16's entry: the job at world 1 over NCCL (one process by
+    ``mp_launch``, ``MMLEARN_MULTIHOST=1``) against the same job on the
+    undistributed trainer in this process: the loss of every step and every
+    weight bit-equal, or, where the optimizer's arithmetic differs, within
+    1e-6 relative (AdamW takes its per-tensor loop over DTensor parameters
+    and its multi-tensor kernels over plain ones); K1's and K2's launches a
+    step phase 9's; the recall's results equal; ms a step beside phase 9's."""
+    import shutil
+
+    import torch
+
+    from mmlearn_tpu_torch.parallel.mp_launch import run_workers
+
+    root = os.path.join(WORK_DIR, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "nccl"))
+    env = dict(os.environ, MMLEARN_MULTIHOST="1")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    code = ("import sys, chip_smoke; "
+            f"chip_smoke.parallel_worker({os.path.join(root, 'nccl')!r})")
+    t0 = time.perf_counter()
+    out = run_workers([[sys.executable, "-c", code]], env=env, cwd=REPO, timeout=420)
+    print(f"parallel path: the world-1 NCCL job through the CLI in {time.perf_counter() - t0:.1f} "
+          f"s; its last lines:\n" + "\n".join(out[0].splitlines()[-4:]))
+    got = torch.load(os.path.join(root, "nccl", "result.pt"), weights_only=False)
+    t0 = time.perf_counter()
+    want = parallel_run(os.path.join(root, "plain"))
+    print(f"parallel path: the same job on the undistributed trainer in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(got["backend"] == "nccl" and got["world"] == 1 and got["sharded"]
+          and not want["sharded"], f"parallel path: backend {got['backend']}, world "
+          f"{got['world']}, FSDP2 {got['sharded']} / {want['sharded']}")
+    check(got["step"] == want["step"] == PAR_STEPS, "parallel path steps")
+    per_step = {"fused_mha_fwd": got["depth"], "fused_mha_bwd": 2 * got["depth"],
+                "layernorm_fwd": 2 * got["depth"], "layernorm_bwd": 2 * got["depth"]}
+    # the validation: the loss's forward and the retrieval hook's encode, a batch
+    n_val = 2 * PAR_VAL
+    val_fwd = {"fused_mha_fwd": got["depth"] * n_val, "layernorm_fwd": 2 * got["depth"] * n_val}
+    for run, counts in (("NCCL", got["counts"]), ("undistributed", want["counts"])):
+        wanted = {k: v * PAR_STEPS + val_fwd.get(k, 0) for k, v in per_step.items()}
+        print(f"parallel path ({run}): launched " + ", ".join(
+            f"{k} {counts[k]} (want {wanted[k]}: phase 9's {per_step[k]} a step and "
+            f"{n_val} validation forwards)" for k in per_step))
+        check(all(counts[k] == wanted[k] for k in per_step), f"parallel path ({run}) launches")
+    losses_got = [h["loss"] for h in got["history"]]
+    losses_want = [h["loss"] for h in want["history"]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_got, losses_want))
+    diffs = {n: rel_err(got["weights"][n], want["weights"][n]) if not torch.equal(
+        got["weights"][n], want["weights"][n]) else 0.0 for n in want["weights"]}
+    unequal = {n: r for n, r in diffs.items() if r}
+    print(f"parallel path: losses {['%.6f' % x for x in losses_got]}; bit-equal to the "
+          f"undistributed run: {losses_got == losses_want} (largest relative diff "
+          f"{loss_rel:.3e}); weights bit-equal {len(diffs) - len(unequal)} of {len(diffs)}"
+          f"{'' if not unequal else f', the rest within {max(unequal.values()):.3e} relative'}")
+    check(loss_rel <= 1e-6 and all(r <= 1e-6 for r in unequal.values()),
+          "parallel path: the world-1 job departs from the undistributed one past 1e-6")
+    if unequal or losses_got != losses_want:
+        print("parallel path: the bits differ where AdamW takes its per-tensor loop over "
+              "FSDP2's DTensor parameters and its multi-tensor kernels over plain ones "
+              "(held at 1e-6 relative)")
+    keys = sorted(k for k in want["val"] if k.startswith("retrieval/"))
+    print(f"parallel path: validation {got['val']}")
+    check(keys and all(got["val"][k] == want["val"][k] for k in keys),
+          f"parallel path: recall {got['val']} against {want['val']}")
+    print(f"parallel path train b{PAR_BATCH}: FSDP2 wrapper at world 1 over NCCL "
+          f"{got['ms']:.2f} ms a step, the undistributed trainer {want['ms']:.2f} ms "
+          f"({got['ms'] / want['ms']:.3f} x); phase 9's {TRAINER_MS.get('ms', float('nan')):.2f} "
+          f"ms a micro-step")
+
+
+def parallel_phase(device) -> tuple[dict, dict, dict]:
+    """Phase 16: K3's new instances, the ring, the world-1 NCCL job. Returns
+    the kernel rows, the ring's launches and the kernels' largest errors."""
+    import torch
+
+    t0 = time.perf_counter()
+    errors: dict = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 160)
+    rows = k3_parallel_checks(device, gen, errors)
+    print(f"parallel path: K3 instances checked and timed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = ring_path(device, torch.Generator(device=device).manual_seed(SEED + 161))
+    print(f"parallel path: the ring in {time.perf_counter() - t0:.1f} s")
+    parallel_path(device)
+    return rows, launches, errors
+
+
 def _tensors(state: dict) -> dict:
     return {k: v for k, v in state.items() if hasattr(v, "shape")}
 
@@ -5524,6 +5953,11 @@ def main() -> int:
     check(multitask_launches_run["int8_qmm"] == multitask_launches_run["int8_qmm_bytes"] == 0,
           f"K5 launched on the multi-task path without {QUANT_ENV}")
     print(f"multi-task path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel_rows, ring_launches, parallel_errors = parallel_phase(device)
+    times.update(parallel_rows)
+    errors.update(parallel_errors)
+    print(f"parallel path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
@@ -5589,6 +6023,24 @@ def main() -> int:
             "mmlearn_tpu/ops/flash_attention.py:267", f"K3b {k3_row}",
             (("flash_bwd_dkv", d), ("flash_bwd_dq", d)))
     launches.update(large_by_dim)
+    # phase 16's K3 instances: their launches on the ring's runs (its main path)
+    for name, row, counts in (
+            ("flash_attention_fwd_f32", "K3f f32 hop H=16 D=64", (("flash_fwd_f32", 64),)),
+            ("flash_attention_fwd_f32_d128", "K3f f32 hop H=8 D=128",
+             (("flash_fwd_f32", 128),)),
+            ("flash_attention_fwd_d128", f"K3f N={K3_D128_N} H={K3_D128_H} D=128",
+             (("flash_fwd", 128),)),
+            ("flash_attention_bwd_d128", f"K3b N={K3_D128_N} H={K3_D128_H} D=128",
+             (("flash_bwd_dkv", 128), ("flash_bwd_dq", 128)))):
+        rows[name] = ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
+                      "mmlearn_tpu/ops/flash_attention.py:267" if "bwd" in name else
+                      "mmlearn_tpu/ops/flash_attention.py:76", row, counts)
+        check(sum(ring_launches.get(c, 0) for c in counts) > 0,
+              f"{name} was never launched on phase 16's ring")
+    errors["flash_attention_fwd_f32_d128"] = errors["flash_attention_fwd_f32"]
+    for key in (("flash_fwd_f32", 64), ("flash_fwd_f32", 128), ("flash_fwd", 128),
+                ("flash_bwd_dkv", 128), ("flash_bwd_dq", 128)):
+        launches[key] = ring_launches.get(key, 0)
     for name in rows:
         if name.endswith(("_d80", "_d88")):
             check(sum(launches.get(c, 0) for c in rows[name][4]) > 0,

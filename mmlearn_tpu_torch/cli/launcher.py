@@ -5,9 +5,11 @@
 - ``local``: jobs run as subprocesses with a bounded worker pool (each job
   gets a fresh process);
 - ``slurm``: per-job submission scripts are written under the job dir and
-  submitted with ``sbatch`` (submitit-style), one process a job. A job
-  spread over several processes (``launcher.multihost=1``) raises until
-  parallelism is ported (ROADMAP P10).
+  submitted with ``sbatch`` (submitit-style). With ``launcher.multihost=1``
+  a job spreads over the tasks ``srun`` starts: the script exports
+  ``MMLEARN_MULTIHOST=1``, and each task joins the process group from its
+  environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``, which the job's own setup exports from SLURM's).
 
 Launcher selection from the ``-m`` command line::
 
@@ -99,10 +101,6 @@ def write_sbatch_script(
     **directives: Any,
 ) -> str:
     """Write a submitit-style sbatch script for one sweep job."""
-    if multihost:
-        raise NotImplementedError(
-            "launcher.multihost: a job over several processes waits for parallelism "
-            "(ROADMAP P10)")
     os.makedirs(out_dir, exist_ok=True)
     lines = [
         f"#SBATCH --{key.replace('_', '-')}={value}"

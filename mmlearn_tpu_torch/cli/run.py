@@ -18,10 +18,14 @@ modality's serving artifact (:func:`mmlearn_tpu_torch.serving.save_encoder`);
 composed config, ``-m``/``--multirun`` sweeps comma-separated values.
 
 The trainer runs on the card (``trainer.device``: ``cuda``) unless the
-config says ``cpu``. Rank and world size come from ``RANK`` and
-``WORLD_SIZE`` (0 and 1 when unset); ``MMLEARN_MULTIHOST=1``, the JAX
-package's multi-host launch, raises until parallelism is ported (ROADMAP
-P10).
+config says ``cpu``. ``MMLEARN_MULTIHOST=1``, the JAX package's multi-host
+launch, joins the process group the environment describes (``env://``:
+``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
+:func:`mmlearn_tpu_torch.parallel.mp_launch.run_workers` starts N local
+processes so) before anything is built: NCCL on the card, gloo on the CPU.
+The samplers then take this process's place among the batch's shards
+(``data x fsdp`` of ``trainer.mesh_shape``), and only rank 0 logs its
+hyperparameters, writes exports and checkpoints.
 """
 
 from __future__ import annotations
@@ -80,10 +84,6 @@ def run_experiment(cfg: dict) -> Any:
     )
     from mmlearn_tpu_torch.conf import ConfigError, check_missing, instantiate
 
-    if os.environ.get("MMLEARN_MULTIHOST") == "1":
-        raise NotImplementedError(
-            "MMLEARN_MULTIHOST=1: multi-process training waits for parallelism "
-            "(ROADMAP P10)")
     if cfg.get("task") in (None, "???"):
         raise ConfigError("No task configured (set task=... or use an experiment)")
     # abort on any '???' left in the composed config
@@ -95,9 +95,15 @@ def run_experiment(cfg: dict) -> Any:
     np.random.seed(seed)
     torch.manual_seed(seed)
 
+    if os.environ.get("MMLEARN_MULTIHOST") == "1":
+        from mmlearn_tpu_torch.parallel.mesh import init_from_env
+
+        init_from_env(cfg["trainer"].get("device"))
     output_dir = cfg.get("runtime", {}).get("output_dir", "outputs")
     os.makedirs(output_dir, exist_ok=True)
-    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else int(os.environ.get("RANK", 0))
 
     callbacks = instantiate_callbacks(cfg["trainer"].get("callbacks"))
     loggers = instantiate_loggers(cfg["trainer"].get("loggers"))
@@ -111,6 +117,12 @@ def run_experiment(cfg: dict) -> Any:
         trainer_cfg.pop(key, None)
     trainer = instantiate(trainer_cfg, callbacks=callbacks, loggers=loggers,
                           default_root_dir=output_dir, seed=seed)
+    # the samplers split the data over the batch's shards (the ranks of a
+    # seq group read the same rows)
+    if trainer.mesh is not None:
+        shard, shards = trainer.mesh.dp_rank, trainer.mesh.dp_size
+    else:
+        shard, shards = rank, int(os.environ.get("WORLD_SIZE", 1))
 
     loaders: dict[str, Any] = {}
     for split in ("train", "val", "test"):
@@ -120,7 +132,7 @@ def run_experiment(cfg: dict) -> Any:
             continue
         dl_cfg = dict(cfg["dataloader"].get(split) or {})
         sampler_cfg = dl_cfg.pop("sampler", None)
-        sampler = instantiate_sampler(sampler_cfg, dataset, rank=rank, num_replicas=world)
+        sampler = instantiate_sampler(sampler_cfg, dataset, rank=shard, num_replicas=shards)
         loaders[split] = instantiate_dataloader(dl_cfg, dataset, sampler=sampler)
         logger.info("%s dataset: %d examples, %d batches", split, len(dataset),
                     len(loaders[split]))

@@ -82,7 +82,21 @@
 // reaches column 96 past the tensor map's extent D, so TMA lands zeros there
 // (no host-side padded copy). The contractions over D take their k16 slices
 // span by span (5 at D = 80, 6 at 88); the products over D are one N = 32
-// wgmma a span (96 columns, those past D never written).
+// wgmma a span (96 columns, those past D never written). D = 128 (the ring's
+// head dim beside 64) is four such spans: a tile is 16 KB, twice D = 64's, and
+// the 64-row tiles and four stages still fit one block an SM (145 KB forward,
+// 161 KB dQ, 163 KB dK/dV of the 227 KB), as at D = 80 and 88 (121-124 KB):
+// fewer stages would free room for a second block but starve the one
+// consumer warpgroup's two tiles in flight, and 64 rows is the m64 of wgmma.
+// The f32 scalar kernels take key (query) tiles of 8 at D = 128, so their
+// static shared memory stays under 48 KB.
+//
+// The ring's forward hop (mmlearn_tpu/ops/ring_attention.py `_block_attn_flash`
+// :125, `_flash_forward_pallas` with out_dtype=float32) is K3f with an f32
+// output: for bf16 q, k, v the kernel writes its f32 accumulator divided by
+// the row's normaliser straight to an f32 buffer (flash_fwd_kernel<D, float>),
+// with no bf16 rounding of the output, so the ring's log-sum-exp merge runs in
+// f32 as the JAX package's does.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -107,7 +121,13 @@ constexpr int kTile = 64;        // rows (keys) of a tile: one warpgroup's m64
 constexpr int kStages = 4;       // stages of the ring
 constexpr int kThreads = 160;    // the consumer warpgroup and the producer warp
 constexpr int kScalarRows = 64;  // f32 kernels: one thread a row (or key)
-constexpr int kScalarTile = 32;  // f32 kernels: keys (or queries) a tile
+// f32 kernels: keys (or queries) a tile; 8 at D = 128, where 32 rows of k and
+// v beside a row a thread of do (or v) would pass the 48 KB of static shared
+// memory
+template <int D>
+__host__ __device__ constexpr int scalar_tile() {
+  return D > 88 ? 8 : 32;
+}
 
 struct Layout {  // element strides of one (B, H, N, D) operand
   long long b, h, n;
@@ -221,10 +241,12 @@ __device__ __forceinline__ void rs_product(Acc<D>& acc, const uint32_t (&a)[kTil
 }
 // acc (f32, rows row_lo and row_hi of this thread) rounded to bf16 into the
 // rows of an (n, D) operand with row stride ld: columns below D only
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* x, long long ld, const Acc<D>& acc, int row_lo,
+// (OutT float: the f32 values as they are, two a store)
+template <int D, typename OutT = bf16>
+__device__ __forceinline__ void store_acc(OutT* x, long long ld, const Acc<D>& acc, int row_lo,
                                           int row_hi, int rows, int t, float s_lo = 1.f,
                                           float s_hi = 1.f, bool divide = false) {
+  constexpr bool kF32 = sizeof(OutT) == 4;
 #pragma unroll
   for (int sp = 0; sp < Tile<D>::kSpans; ++sp) {
 #pragma unroll
@@ -232,12 +254,15 @@ __device__ __forceinline__ void store_acc(bf16* x, long long ld, const Acc<D>& a
       const int col = sp * Tile<D>::kSpanCols + 8 * c + 2 * t;
       if (col >= D) continue;
       const float* a = acc[sp] + 4 * c;
-      if (row_lo < rows)
-        *reinterpret_cast<uint32_t*>(x + row_lo * ld + col) =
-            divide ? pack_bf16(a[0] / s_lo, a[1] / s_lo) : pack_bf16(a[0], a[1]);
-      if (row_hi < rows)
-        *reinterpret_cast<uint32_t*>(x + row_hi * ld + col) =
-            divide ? pack_bf16(a[2] / s_hi, a[3] / s_hi) : pack_bf16(a[2], a[3]);
+      const float x0 = divide ? a[0] / s_lo : a[0], x1 = divide ? a[1] / s_lo : a[1];
+      const float x2 = divide ? a[2] / s_hi : a[2], x3 = divide ? a[3] / s_hi : a[3];
+      if constexpr (kF32) {
+        if (row_lo < rows) *reinterpret_cast<float2*>(x + row_lo * ld + col) = make_float2(x0, x1);
+        if (row_hi < rows) *reinterpret_cast<float2*>(x + row_hi * ld + col) = make_float2(x2, x3);
+      } else {
+        if (row_lo < rows) *reinterpret_cast<uint32_t*>(x + row_lo * ld + col) = pack_bf16(x0, x1);
+        if (row_hi < rows) *reinterpret_cast<uint32_t*>(x + row_hi * ld + col) = pack_bf16(x2, x3);
+      }
     }
   }
 }
@@ -332,12 +357,14 @@ struct OnlineSoftmax {
   }
 };
 
-template <int D>
+// OutT: bf16, or float for the ring's hop (the f32 accumulator divided by
+// the normaliser, with no bf16 rounding)
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, MapDims dim_q, MapDims dim_k,
-                     MapDims dim_v, const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                     MapDims dim_v, const uint8_t* __restrict__ mask, OutT* __restrict__ out,
                      float* __restrict__ lse, Layout lo, Problem pr) {
   using T = Tile<D>;
   uint8_t* q_s = aligned_smem();
@@ -477,8 +504,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float sl_lo = l_lo == 0.f ? 1.f : l_lo, sl_hi = l_hi == 0.f ? 1.f : l_hi;
-  store_acc<D>(out + b * lo.b + h * lo.h, lo.n, o, row_lo, row_hi, pr.n_q, t, sl_lo, sl_hi,
-               true);
+  store_acc<D, OutT>(out + b * lo.b + h * lo.h, lo.n, o, row_lo, row_hi, pr.n_q, t, sl_lo,
+                     sl_hi, true);
   if (t == 0) {
     float* lh = lse + (static_cast<long long>(b) * pr.heads + h) * pr.n_q;
     if (row_lo < pr.n_q) lh[row_lo] = sm.m_lo + logf(sl_lo);
@@ -914,8 +941,9 @@ __global__ void __launch_bounds__(kScalarRows)
                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
                          float* __restrict__ out, float* __restrict__ lse, Layout lq, Layout lk,
                          Layout lv, Layout lo, Problem pr) {
-  __shared__ float k_s[kScalarTile][D], v_s[kScalarTile][D];
-  __shared__ uint8_t valid_s[kScalarTile];
+  constexpr int kST = scalar_tile<D>();
+  __shared__ float k_s[kST][D], v_s[kST][D];
+  __shared__ uint8_t valid_s[kST];
   const int tid = threadIdx.x;
   const int row = blockIdx.x * kScalarRows + tid;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -933,18 +961,18 @@ __global__ void __launch_bounds__(kScalarRows)
   float m = -INFINITY, l = 0.f;
   const int kv_end = pr.skip ? min(pr.n_k, blockIdx.x * kScalarRows + kScalarRows + pr.off)
                              : pr.n_k;
-  for (int k0 = 0; k0 < kv_end; k0 += kScalarTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kST) {
     __syncthreads();
-    for (int i = tid; i < kScalarTile * D; i += kScalarRows) {
+    for (int i = tid; i < kST * D; i += kScalarRows) {
       const int r = i / D, c = i % D;
       const bool ok = k0 + r < pr.n_k;
       k_s[r][c] = ok ? kh[(k0 + r) * lk.n + c] : 0.f;
       v_s[r][c] = ok ? vh[(k0 + r) * lv.n + c] : 0.f;
     }
-    if (tid < kScalarTile)
+    if (tid < kST)
       valid_s[tid] = (!valid || (k0 + tid < pr.n_k && valid[k0 + tid])) ? 1 : 0;
     __syncthreads();
-    const int j_end = min(kScalarTile, pr.n_k - k0);
+    const int j_end = min(kST, pr.n_k - k0);
     for (int j = 0; j < j_end; ++j) {
       float dot = 0.f;
 #pragma unroll
@@ -979,9 +1007,10 @@ __global__ void __launch_bounds__(kScalarRows)
                             const float* __restrict__ lse, float* __restrict__ delta,
                             float* __restrict__ dq, Layout lq, Layout lk, Layout lv,
                             Layout ldo, Layout lout, Layout ldq, Problem pr) {
-  __shared__ float k_s[kScalarTile][D], v_s[kScalarTile][D];
+  constexpr int kST = scalar_tile<D>();
+  __shared__ float k_s[kST][D], v_s[kST][D];
   __shared__ float do_s[kScalarRows][D + 1];  // one row a thread, padded
-  __shared__ uint8_t valid_s[kScalarTile];
+  __shared__ uint8_t valid_s[kST];
   const int tid = threadIdx.x;
   const int row = blockIdx.x * kScalarRows + tid;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -1007,18 +1036,18 @@ __global__ void __launch_bounds__(kScalarRows)
   if (live) delta[bh * pr.n_q + row] = d_row;
   const int kv_end = pr.skip ? min(pr.n_k, blockIdx.x * kScalarRows + kScalarRows + pr.off)
                              : pr.n_k;
-  for (int k0 = 0; k0 < kv_end; k0 += kScalarTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kST) {
     __syncthreads();
-    for (int i = tid; i < kScalarTile * D; i += kScalarRows) {
+    for (int i = tid; i < kST * D; i += kScalarRows) {
       const int r = i / D, c = i % D;
       const bool ok = k0 + r < pr.n_k;
       k_s[r][c] = ok ? kh[(k0 + r) * lk.n + c] : 0.f;
       v_s[r][c] = ok ? vh[(k0 + r) * lv.n + c] : 0.f;
     }
-    if (tid < kScalarTile)
+    if (tid < kST)
       valid_s[tid] = (!valid || (k0 + tid < pr.n_k && valid[k0 + tid])) ? 1 : 0;
     __syncthreads();
-    const int j_end = min(kScalarTile, pr.n_k - k0);
+    const int j_end = min(kST, pr.n_k - k0);
     for (int j = 0; j < j_end; ++j) {
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
@@ -1046,9 +1075,10 @@ __global__ void __launch_bounds__(kScalarRows)
                              const float* __restrict__ delta, float* __restrict__ dk,
                              float* __restrict__ dv, Layout lq, Layout lk, Layout lv, Layout ldo,
                              Layout ldk, Layout ldv, Problem pr) {
-  __shared__ float q_s[kScalarTile][D], do_s[kScalarTile][D];
+  constexpr int kST = scalar_tile<D>();
+  __shared__ float q_s[kST][D], do_s[kST][D];
   __shared__ float v_s[kScalarRows][D + 1];  // one key's v a thread, padded
-  __shared__ float lse_s[kScalarTile], delta_s[kScalarTile], pm_s[kScalarTile];
+  __shared__ float lse_s[kST], delta_s[kST], pm_s[kST];
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kScalarRows;
   const int key = k0 + tid;
@@ -1068,16 +1098,16 @@ __global__ void __launch_bounds__(kScalarRows)
     v_s[tid][c] = live ? vrow[c] : 0.f;
     dk_acc[c] = dv_acc[c] = 0.f;
   }
-  const int i_start = (pr.skip && k0 > pr.off) ? (k0 - pr.off) / kScalarTile * kScalarTile : 0;
-  for (int i0 = i_start; i0 < pr.n_q; i0 += kScalarTile) {
+  const int i_start = (pr.skip && k0 > pr.off) ? (k0 - pr.off) / kST * kST : 0;
+  for (int i0 = i_start; i0 < pr.n_q; i0 += kST) {
     __syncthreads();
-    for (int i = tid; i < kScalarTile * D; i += kScalarRows) {
+    for (int i = tid; i < kST * D; i += kScalarRows) {
       const int r = i / D, c = i % D;
       const bool in = i0 + r < pr.n_q;
       q_s[r][c] = in ? qh[(i0 + r) * lq.n + c] : 0.f;
       do_s[r][c] = in ? doh[(i0 + r) * ldo.n + c] : 0.f;
     }
-    if (tid < kScalarTile) {
+    if (tid < kST) {
       const int r = i0 + tid;
       const float l = r < pr.n_q ? lse[bh * pr.n_q + r] : INFINITY;
       lse_s[tid] = l;
@@ -1085,7 +1115,7 @@ __global__ void __launch_bounds__(kScalarRows)
       pm_s[tid] = expf((kNeg - l) - pr.log_nk);
     }
     __syncthreads();
-    const int i_cnt = min(kScalarTile, pr.n_q - i0);
+    const int i_cnt = min(kST, pr.n_q - i0);
     for (int i = 0; i < i_cnt; ++i) {
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
@@ -1195,10 +1225,28 @@ cudaError_t bind_context() {
   return err == cudaSuccess ? cudaSetDevice(device) : err;
 }
 
+// the bf16 forward with output type OutT
+template <int D, typename OutT>
+cudaError_t launch_fwd_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                            MapDims dq, MapDims dk, MapDims dv, const uint8_t* mask, void* out,
+                            float* lse, Layout lo, int batch, const Problem& pr,
+                            cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_bytes<D>();
+  g_step = "the forward's shared memory";
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  g_step = "the forward's launch";
+  const dim3 grid((pr.n_q + kTile - 1) / kTile, pr.heads, batch);
+  flash_fwd_kernel<D, OutT><<<grid, kThreads, kSmem, stream>>>(
+      mq, mk, mv, dq, dk, dv, mask, static_cast<OutT*>(out), lse, lo, pr);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
                        void* out, float* lse, const long long* st, int batch, int dtype,
-                       const Problem& pr, cudaStream_t stream) {
+                       int out_f32, const Problem& pr, cudaStream_t stream) {
   if (dtype == 1) {
     CUtensorMap mq, mk, mv;
     MapDims dq, dk, dv;
@@ -1211,15 +1259,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_
         (err = make_map(&mv, &dv, "v's tensor map", v, layout(st, 2), batch, pr.heads, pr.n_k,
                         D, Tile<D>::kSpanCols)))
       return err;
-    constexpr int kSmem = fwd_smem_bytes<D>();
-    g_step = "the forward's shared memory";
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return err;
-    g_step = "the forward's launch";
-    const dim3 grid((pr.n_q + kTile - 1) / kTile, pr.heads, batch);
-    flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-        mq, mk, mv, dq, dk, dv, mask, static_cast<bf16*>(out), lse, layout(st, 3), pr);
+    return out_f32 ? launch_fwd_bf16<D, float>(mq, mk, mv, dq, dk, dv, mask, out, lse,
+                                               layout(st, 3), batch, pr, stream)
+                   : launch_fwd_bf16<D, bf16>(mq, mk, mv, dq, dk, dv, mask, out, lse,
+                                              layout(st, 3), batch, pr, stream);
   } else {
     g_step = "the forward's launch";
     const dim3 grid((pr.n_q + kScalarRows - 1) / kScalarRows, pr.heads, batch);
@@ -1297,25 +1340,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const uint8_
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 80 or 88. mask: (batch, n_k)
-// bytes, 1 = attend, or null. strides: batch, head and row strides in
-// elements of q, k, v, out (12 values; every row 16-byte aligned). lse:
-// (batch, heads, n_q) f32. Launches on `stream` without synchronising;
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 80, 88 or 128. mask:
+// (batch, n_k) bytes, 1 = attend, or null. strides: batch, head and row
+// strides in elements of q, k, v, out (12 values; every row 16-byte aligned).
+// out_f32: the output is f32 (bf16 inputs; f32 inputs always write f32).
+// lse: (batch, heads, n_q) f32. Launches on `stream` without synchronising;
 // returns the launch's cudaError_t (0 on success), or that of the tensor
 // maps' encoding (bf16).
 int mmlearn_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
                       void* lse, const long long* strides, int batch, int heads, int n_q,
-                      int n_k, int head_dim, int dtype, float scale, int causal, void* stream) {
+                      int n_k, int head_dim, int dtype, float scale, int causal, int out_f32,
+                      void* stream) {
   const Problem pr = make_problem(heads, n_q, n_k, scale, causal, mask != nullptr);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 32) return launch_fwd<32>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
-  if (head_dim == 64) return launch_fwd<64>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
-  if (head_dim == 80) return launch_fwd<80>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
-  if (head_dim == 88) return launch_fwd<88>(q, k, v, m, out, l, strides, batch, dtype, pr, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32: return launch_fwd<32>(q, k, v, m, out, l, strides, batch, dtype, out_f32, pr, s);
+    case 64: return launch_fwd<64>(q, k, v, m, out, l, strides, batch, dtype, out_f32, pr, s);
+    case 80: return launch_fwd<80>(q, k, v, m, out, l, strides, batch, dtype, out_f32, pr, s);
+    case 88: return launch_fwd<88>(q, k, v, m, out, l, strides, batch, dtype, out_f32, pr, s);
+    case 128: return launch_fwd<128>(q, k, v, m, out, l, strides, batch, dtype, out_f32, pr, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The backward: dq, dk, dv (the inputs' shapes and type) from q, k, v, the
@@ -1348,6 +1396,9 @@ int mmlearn_flash_bwd(const void* q, const void* k, const void* v, const void* m
   if (head_dim == 88)
     return launch_bwd<88>(q, k, v, m, dout, out, l, d, dq, dk, dv, strides, batch, dtype, pr,
                           s);
+  if (head_dim == 128)
+    return launch_bwd<128>(q, k, v, m, dout, out, l, d, dq, dk, dv, strides, batch, dtype, pr,
+                           s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -56,6 +56,13 @@ the JAX flagship train) in bf16 with the flagship's AdamW and schedule;
 ``drop_path_rate`` sets the image tower's stochastic depth (0 by default,
 as OpenCLIP trains it). ``vit_g14_task(patch_size=16)`` is ViT-g/16 (197
 tokens), whose attention takes K1 at D=88.
+
+:func:`tiny_training_task` is ``__graft_entry__._flagship_task(tiny=True)``:
+the pair at test widths (2 blocks of width 64, 32-px images, 16 tokens), in
+f32. :func:`dryrun_multichip` is the counterpart of
+``__graft_entry__.dryrun_multichip``: one sharded step of the tiny pair over
+n CPU processes on gloo (:mod:`mmlearn_tpu_torch.parallel`), started in
+fresh processes by :func:`~mmlearn_tpu_torch.parallel.mp_launch.run_workers`.
 """
 
 from __future__ import annotations
@@ -299,3 +306,104 @@ def vit_g14_task(
     towers = _large_towers(vit_giant, seed, patch_size=patch_size, image_depth=image_depth,
                            text_depth=text_depth)
     return ContrastivePretraining(towers).to(device).eval()
+
+
+def tiny_training_task(seed: int = 0, device: torch.device | str = "cpu") -> ContrastivePretraining:
+    """The flagship pair at the JAX package's test widths (``_flagship_task
+    (tiny=True)``): ViT of 2 blocks of width 64 (4 heads) on 32-px images in
+    8-px patches with a CLS token, the text tower of 2 blocks of width 64 on
+    16 tokens of a 64-word vocabulary, 32-d projections; AdamW with weight
+    decay 0.01 and warmup-cosine from 1e-3 over 100 warmup steps; f32."""
+    g = torch.Generator().manual_seed(seed)
+    towers = {
+        "rgb": VisionTransformer(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
+                                 use_cls_token=True, global_pool="cls", proj_dim=32,
+                                 generator=g),
+        "text": TextTransformer(vocab_size=64, max_length=16, embed_dim=64, depth=2,
+                                num_heads=4, pooling="eos", proj_dim=32, generator=g),
+    }
+    return ContrastivePretraining(
+        towers,
+        optimizer=functools.partial(torch.optim.AdamW, weight_decay=0.01),
+        lr_scheduler=functools.partial(linear_warmup_cosine_annealing_lr, base_lr=1e-3,
+                                       warmup_steps=100),
+    ).to(device)
+
+
+def _dryrun_mesh(n: int) -> dict:
+    """The dry run's mesh: ``fsdp=2`` where ``n`` is even, else pure data."""
+    return {"data": n // 2, "fsdp": 2} if n % 2 == 0 else {"data": n}
+
+
+def dryrun_step() -> float:
+    """One sharded step of the tiny pair in a process group of n CPU
+    processes (gloo): each process loads its rows of a global batch of 2 a
+    process through the distributed sampler. Returns the logged loss."""
+    from mmlearn_tpu_torch.datasets.builtin.synthetic import SyntheticImageText
+    from mmlearn_tpu_torch.datasets.core import CombinedDataset, DataLoader
+    from mmlearn_tpu_torch.datasets.core.samplers import CombinedDatasetRatioSampler
+    from mmlearn_tpu_torch.parallel.mesh import set_global_mesh
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    n = torch.distributed.get_world_size()
+    ds = CombinedDataset([SyntheticImageText(size=2 * n, image_size=32, seq_len=16,
+                                             vocab_size=64, num_classes=4)])
+    loader = DataLoader(ds, batch_size=2, sampler=CombinedDatasetRatioSampler(
+        ds, shuffle=True, seed=0), drop_last=True)
+    losses: list[float] = []
+
+    class Capture:
+        def on_train_start(self, trainer): ...
+
+        def on_train_batch_end(self, trainer, metrics, step):
+            if "loss" in metrics:
+                losses.append(float(metrics["loss"]))
+
+        def on_train_epoch_end(self, trainer, epoch): ...
+
+        def on_validation_end(self, trainer, metrics, step): ...
+
+        def on_train_end(self, trainer): ...
+
+    trainer = Trainer(max_steps=1, log_every_n_steps=1, mesh_shape=_dryrun_mesh(n),
+                      callbacks=[Capture()], device="cpu")
+    trainer.fit(tiny_training_task(), loader)
+    set_global_mesh(None)
+    return losses[-1]
+
+
+def _dryrun_worker() -> None:
+    """One process of :func:`dryrun_multichip` (its rank and world from the
+    environment): :func:`dryrun_step`; prints ``dryrun loss <value>``."""
+    from mmlearn_tpu_torch.parallel.mesh import init_from_env
+
+    init_from_env("cpu")
+    loss = dryrun_step()
+    torch.distributed.destroy_process_group()
+    print(f"dryrun loss {loss!r}", flush=True)
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 600) -> float:
+    """One sharded training step of the tiny pair over ``n_devices`` CPU
+    processes on gloo (mesh ``data x fsdp=2`` where even), each in a fresh
+    process. Raises if a process fails or the processes' losses differ;
+    returns the loss."""
+    import os
+    import sys
+
+    from mmlearn_tpu_torch.parallel.mp_launch import run_workers
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    code = "from mmlearn_tpu_torch.flagship import _dryrun_worker; _dryrun_worker()"
+    outs = run_workers([[sys.executable, "-c", code]] * int(n_devices), env=env, cwd=root,
+                       timeout=timeout)
+    losses = {line.split()[-1] for out in outs for line in out.splitlines()
+              if line.startswith("dryrun loss ")}
+    if len(losses) != 1:
+        raise RuntimeError(f"dryrun_multichip({n_devices}): the processes' losses {losses}")
+    loss = float(losses.pop())
+    print(f"dryrun_multichip: {n_devices} processes, mesh {_dryrun_mesh(int(n_devices))}, "
+          f"loss {loss}")
+    return loss

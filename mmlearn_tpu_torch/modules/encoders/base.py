@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -20,6 +21,17 @@ class EncoderOutput:
     last_hidden_state: torch.Tensor
     pooler_output: Optional[torch.Tensor] = None
     hidden_states: Optional[tuple[torch.Tensor, ...]] = None
+
+
+# a pytree node, so that what walks a module's outputs finds the tensors in
+# it: FSDP2 hooks a wrapped tower's outputs to gather its weights again before
+# their backward (PyTorch releases before 2.13 walk outputs with tree_flatten)
+pytree.register_pytree_node(
+    EncoderOutput,
+    lambda o: ([o.last_hidden_state, o.pooler_output, o.hidden_states], None),
+    lambda children, _: EncoderOutput(*children),
+    serialized_type_name="mmlearn_tpu_torch.modules.encoders.base.EncoderOutput",
+)
 
 
 def as_dtype(dtype: torch.dtype | str) -> torch.dtype:

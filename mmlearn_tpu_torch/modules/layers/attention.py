@@ -20,11 +20,17 @@ Routing is the JAX module's:
   kernels write the output with the heads already merged, and the gradient
   of qkv straight into one packed buffer.
 
-On a CPU tensor both kernel branches run as plain PyTorch, which is what the
+- the ring branch (``attention.py:78-108``) under the JAX conditions: no
+  mask, no attention dropout, no returned weights, a global mesh with a
+  ``seq`` axis of size P > 1 and ``N % P == 0``:
+  :func:`~mmlearn_tpu_torch.ops.ring_attention.sequence_sharded_attention`
+  over the mesh's ``seq`` exchange (every rank of the group holds the whole
+  sequence here, runs its block through the ring and gathers the output).
+
+On a CPU tensor the kernel branches run as plain PyTorch, which is what the
 JAX package computes off the TPU. Both projections are ``Int8Dense``, so
 ``MMLEARN_QUANT`` reaches them as it does in the JAX package. ``proj_drop``
-drops the projection's output. The ring-attention branch waits for
-parallelism (ROADMAP P10).
+drops the projection's output.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 from mmlearn_tpu_torch.ops.flash_attention import flash_attention_qkv, split_qkv
 from mmlearn_tpu_torch.ops.fused_attention import NEG, fused_mha, supports_fused
+from mmlearn_tpu_torch.ops.ring_attention import sequence_sharded_attention
+from mmlearn_tpu_torch.parallel.mesh import SEQ_AXIS, peek_global_mesh
 
 
 def materialized_attention(
@@ -120,7 +128,17 @@ class Attention(nn.Module):
         b, n, c = x.shape
         qkv = self.qkv(x)
         weights = None
-        if return_weights or attn_keep is not None:
+        ring = None
+        if not (return_weights or attn_keep is not None) and attention_mask is None:
+            mesh = peek_global_mesh()
+            seq = 1 if mesh is None else mesh.shape.get(SEQ_AXIS, 1)
+            if seq > 1 and n % seq == 0:
+                ring = mesh.seq_exchange()
+        if ring is not None:
+            out = sequence_sharded_attention(*split_qkv(qkv, self.num_heads), ring,
+                                             scale=self.scale, causal=self.causal)
+            out = out.transpose(1, 2).reshape(b, n, c)
+        elif return_weights or attn_keep is not None:
             out, weights = materialized_attention(qkv, self.num_heads, self.scale, self.causal,
                                                   attention_mask, attn_keep, self.attn_drop)
         elif supports_fused(self.num_heads, c // self.num_heads, n):

@@ -13,8 +13,20 @@ The ``(B, B)`` logits are f32: the JAX package computes them with
 ``preferred_element_type=float32`` outside any Pallas kernel, and the port
 takes ``torch.matmul`` on f32 operands (exact widening of bf16 embeddings;
 PyTorch's default keeps TF32 off for f32 matmuls). The JAX class's
-``local_loss``, ``gather_with_grad`` and ``cache_labels`` flags change
-nothing there and are not carried over.
+``cache_labels`` flag changes nothing there and is not carried over.
+
+Over several processes the batch is split over ``data x fsdp``, and the loss
+runs over the **global** batch, as GSPMD runs the JAX loss: each rank's
+embeddings (and presence masks) are gathered from every rank of the batch's
+group (:func:`~mmlearn_tpu_torch.parallel.collectives.all_gather`, with
+gradient, whose backward sums the ranks' gradients; FSDP2 averages them, so
+the weights' gradient is one process's on the global batch).
+``gather_with_grad=False`` detaches the other ranks' rows. With
+``local_loss`` a rank scores only its own rows against the gathered columns,
+positives at the offset :func:`~mmlearn_tpu_torch.parallel.collectives.local_loss_label_offset`
+gives, and returns its share of the global mean times the ranks (so that the
+ranks' mean is the global loss); without it every rank computes the global
+loss. In one process both are the loss above.
 """
 
 from __future__ import annotations
@@ -75,6 +87,30 @@ def masked_infonce_chunked(
     return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp_min(1)
 
 
+def infonce_rows(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
+                 valid_rows: torch.Tensor, valid_cols: torch.Tensor, offset: int,
+                 chunk_size: Optional[int] = None) -> torch.Tensor:
+    """The sum of InfoNCE(a -> b) over the valid rows of ``za`` (a rank's
+    rows) against every column of ``zb``, the positive of row ``i`` at column
+    ``offset + i`` (``local_loss``); streamed over column chunks with
+    ``chunk_size``."""
+    za32, zb32 = za.float(), zb.float()
+    pos = scale * (za32 * zb32[offset:offset + za.shape[0]]).sum(dim=-1)
+    if chunk_size is None:
+        lse = torch.logsumexp(torch.where(valid_cols[None, :], scale * za32 @ zb32.T, NEG), -1)
+    else:
+        m = torch.full((za.shape[0],), -torch.inf, device=za.device)
+        l = torch.zeros(za.shape[0], device=za.device)
+        for start in range(0, zb.shape[0], chunk_size):
+            s = scale * torch.matmul(za32, zb32[start:start + chunk_size].T)
+            s = torch.where(valid_cols[None, start:start + chunk_size], s, NEG)
+            m_cur = torch.maximum(m, s.max(dim=-1).values)
+            l = l * torch.exp(m - m_cur) + torch.exp(s - m_cur[:, None]).sum(dim=-1)
+            m = m_cur
+        lse = m + torch.log(l)
+    return torch.where(valid_rows, lse - pos, 0.0).sum()
+
+
 def _validity(
     mod: str,
     b: int,
@@ -95,6 +131,8 @@ class ContrastiveLoss:
     """CLIP InfoNCE generalised to N modality pairs (see module docstring)."""
 
     l2_normalize: bool = False
+    local_loss: bool = False  # a rank's rows against the gathered columns
+    gather_with_grad: bool = True  # False: the other ranks' rows detached
     modality_alignment: bool = False
     chunked: bool = False  # streaming log-sum-exp; O(B * chunk) memory
     chunk_size: int = 4096
@@ -118,10 +156,27 @@ class ContrastiveLoss:
             presence: optional ``{modality: (B,) bool}`` masks, which take
                 precedence over ``example_ids``.
         """
+        from mmlearn_tpu_torch.parallel.collectives import (
+            all_gather,
+            axis_size,
+            local_loss_label_offset,
+        )
+
         feats = dict(embeddings)
         if self.l2_normalize:
             feats = {k: l2_normalize(v) for k, v in feats.items()}
         device = next(iter(feats.values())).device
+        world = axis_size()
+        local_b = next(iter(feats.values())).shape[0]
+        local_feats = feats
+        if world > 1:
+            # the global batch: every rank's rows, in rank order
+            feats = {k: all_gather(v, with_grad=self.gather_with_grad) for k, v in feats.items()}
+            example_ids = None if example_ids is None else {
+                k: all_gather(v) for k, v in example_ids.items()}
+            presence = None if presence is None else {
+                k: all_gather(v) for k, v in presence.items()}
+        offset = local_loss_label_offset("batch", local_b)
         total = torch.zeros((), device=device)
         metrics: dict[str, torch.Tensor] = {}
         for pair in modality_loss_pairs:
@@ -130,7 +185,16 @@ class ContrastiveLoss:
             b = za.shape[0]
             valid = (_validity(mod_a, b, device, example_ids, presence)
                      & _validity(mod_b, b, device, example_ids, presence))
-            if self.chunked:
+            if self.local_loss and world > 1:
+                # this rank's share of the global mean, times the ranks
+                rows = valid[offset:offset + local_b]
+                chunk = self.chunk_size if self.chunked else None
+                n = valid.sum().clamp_min(1)
+                loss_ab = world * infonce_rows(local_feats[mod_a], zb, logit_scale, rows, valid,
+                                               offset, chunk) / n
+                loss_ba = world * infonce_rows(local_feats[mod_b], za, logit_scale, rows, valid,
+                                               offset, chunk) / n
+            elif self.chunked:
                 loss_ab = masked_infonce_chunked(za, zb, logit_scale, valid, self.chunk_size)
                 loss_ba = masked_infonce_chunked(zb, za, logit_scale, valid, self.chunk_size)
             else:

@@ -176,6 +176,28 @@ def _merge_gathered_shards(
     return np.concatenate(qs), np.concatenate(ts), np.concatenate(idxs)
 
 
+def _gather_processes(queries: torch.Tensor, targets: torch.Tensor, indexes: np.ndarray):
+    """Every process's rows (the batch's shards over ``data x fsdp``, of
+    unequal sizes under an unpadded eval sampler), merged in rank order with
+    the positives offset as :func:`_merge_gathered_shards` does; one process
+    keeps its own."""
+    from mmlearn_tpu_torch.parallel.collectives import axis_size, process_allgather_object
+
+    if axis_size() == 1:
+        return queries, targets, indexes
+    parts = process_allgather_object(
+        (queries.cpu().numpy(), targets.cpu().numpy(), np.asarray(indexes)))
+    counts = np.array([[len(q), len(t)] for q, t, _ in parts], np.int64)
+    max_q, max_t = int(counts[:, 0].max()), int(counts[:, 1].max())
+    gq = np.zeros((len(parts), max_q, queries.shape[-1]), parts[0][0].dtype)
+    gt = np.zeros((len(parts), max_t, targets.shape[-1]), parts[0][1].dtype)
+    gi = np.zeros((len(parts), max_q), np.int64)
+    for p, (q, t, i) in enumerate(parts):
+        gq[p, :len(q)], gt[p, :len(t)], gi[p, :len(i)] = q, t, i
+    q, t, i = _merge_gathered_shards(gq, gt, gi, counts)
+    return (torch.from_numpy(q).to(queries.device), torch.from_numpy(t).to(targets.device), i)
+
+
 def _rows(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
@@ -275,15 +297,7 @@ class RetrievalRecallAtK:
         if not self._batches:
             return {k: 0.0 for k in ks}
         queries, targets, indexes = self._gather()
-        # one process: the JAX package's multi-process gather
-        # (_merge_gathered_shards of every rank's rows) goes here
-        world = (torch.distributed.get_world_size()
-                 if torch.distributed.is_available() and torch.distributed.is_initialized()
-                 else 1)
-        if world != 1:
-            raise NotImplementedError(
-                f"RetrievalRecallAtK on {world} processes: the gather across processes is "
-                "not ported yet")
+        queries, targets, indexes = _gather_processes(queries, targets, indexes)
         q = l2_normalize(queries.float())
         t = l2_normalize(targets.float())
         k_max = min(max(ks), t.shape[0])

@@ -59,11 +59,14 @@ NEG = -0.7 * float(np.finfo(np.float32).max)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 #: the same launches by head dim: ``{(key of LAUNCHES, D): launches}``
 HEAD_DIM_LAUNCHES: dict[tuple[str, int], int] = {}
+#: launches of K3f's f32-output instance (bf16 inputs: the ring's hop), also
+#: counted in ``LAUNCHES["flash_fwd"]``
+F32_OUT_LAUNCHES = {"flash_fwd_f32": 0}
 
 #: the head dims the CUDA kernels take: 32 and 64 in one swizzled span a
 #: tile row, 80 and 88 in three spans of 32 columns (the last zero-filled
-#: by TMA past D)
-_KERNEL_HEAD_DIMS = (32, 64, 80, 88)
+#: by TMA past D), 128 in four
+_KERNEL_HEAD_DIMS = (32, 64, 80, 88, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # batch and heads are grid dimensions
 
@@ -99,9 +102,13 @@ def attention_reference(q, k, v, mask, scale: float, causal: bool) -> torch.Tens
     return flash_fwd_reference(q, k, v, mask, scale, causal)[0]
 
 
-def flash_fwd_reference(q, k, v, mask, scale: float, causal: bool):
+def flash_fwd_reference(q, k, v, mask, scale: float, causal: bool,
+                        out_dtype: Optional[torch.dtype] = None):
     """:func:`attention_reference`'s output, and the f32 log-sum-exp of each
-    row's scores ``(B, H, N_q)`` that the TPU kernel emits for its backward."""
+    row's scores ``(B, H, N_q)`` that the TPU kernel emits for its backward.
+    ``out_dtype=torch.float32`` leaves the output in f32 (the ring's hop:
+    ``_flash_forward_pallas(..., out_dtype=float32)``); the default is q's
+    type."""
     s, _ = _scores(q, k, mask, scale, causal)
     m = s.amax(-1, keepdim=True)
     e = torch.exp(s - m)
@@ -109,7 +116,7 @@ def flash_fwd_reference(q, k, v, mask, scale: float, causal: bool):
     p = e / l
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     lse = (m + torch.log(l)).squeeze(-1)
-    return out.to(q.dtype), lse
+    return out.to(out_dtype or q.dtype), lse
 
 
 def flash_bwd_reference(q, k, v, mask, out, lse, dout, scale: float, causal: bool):
@@ -150,7 +157,8 @@ _COMMON_ARGTYPES = [
     ctypes.c_int, ctypes.c_float, ctypes.c_int,  # dtype, scale, causal
     ctypes.c_void_p,  # stream
 ]
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _COMMON_ARGTYPES  # q k v mask out lse strides
+# q k v mask out lse strides, then the common arguments with out_f32 before the stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _COMMON_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 # q k v mask dout out lse delta dq dk dv strides
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + _COMMON_ARGTYPES
 
@@ -235,21 +243,29 @@ def _common(q, k, scale: float, causal: bool):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool):
+def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool,
+                    out_dtype: Optional[torch.dtype] = None):
     """K3f: the output, a ``(B, H, N_q, D)`` view of a ``(B, N_q, H, D)``
-    buffer (so a caller that merges the heads reads it with no copy), and the
-    f32 log-sum-exp ``(B, H, N_q)``."""
+    buffer (so a caller that merges the heads reads it with no copy), in q's
+    type or in f32 under ``out_dtype=torch.float32`` (the ring's hop), and
+    the f32 log-sum-exp ``(B, H, N_q)``."""
     q, k, v = _layout(q), _layout(k), _layout(v)
     b, h, n_q, d = q.shape
-    out = torch.empty(b, n_q, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"K3f writes q's type or float32, not {out_dtype}")
+    out = torch.empty(b, n_q, h, d, dtype=out_dtype, device=q.device).transpose(1, 2)
     lse = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
     fwd, _, error_string = _library()
+    *common, stream = _common(q, k, scale, causal)
     with torch.cuda.device(q.device):
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  _strides(q, k, v, out), *_common(q, k, scale, causal))
+                  _strides(q, k, v, out), *common, int(out_dtype == torch.float32), stream)
     _raise_on(error_string, err, "flash attention forward")
     _count("flash_fwd", d)
+    if out_dtype != q.dtype:
+        F32_OUT_LAUNCHES["flash_fwd_f32"] += 1
     return out, lse
 
 
@@ -337,7 +353,7 @@ def flash_attention(
     A CPU tensor takes :func:`flash_fwd_reference` (and
     :func:`flash_bwd_reference` for the gradient) at any shape. A CUDA
     tensor launches the kernels at every length; they take float32 or
-    bfloat16 and ``D`` in {32, 64, 80, 88} and raise on anything else.
+    bfloat16 and ``D`` in {32, 64, 80, 88, 128} and raise on anything else.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"Expected (B, H, N, D) inputs, got {tuple(q.shape)}")
@@ -426,7 +442,7 @@ def flash_attention_qkv(
         ``(B, N, H * D)`` in qkv's dtype.
 
     A CPU tensor takes the plain versions at any shape; a CUDA tensor
-    launches the kernels (float32 or bfloat16, ``D`` in {32, 64, 80, 88}) or raises.
+    launches the kernels (float32 or bfloat16, ``D`` in {32, 64, 80, 88, 128}) or raises.
     """
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, {num_heads} * 3 * D), got {tuple(qkv.shape)}")

@@ -14,6 +14,12 @@ the JAX package's layout:
 - ``manifest.json``: per modality its ``shards``, ``rows``, ``dim`` and
   whether the rows are ``normalized``.
 
+Over several processes (the batch split over ``data x fsdp``) each process
+writes its own rows, its shard names and its manifest suffixed ``_p{rank}``
+(``rgb_p1_00000.npz``, ``manifest_p1.json``), as the JAX package's
+(:102-186); ``EmbeddingIndex.load`` reads every manifest. Disjoint coverage
+takes a distributed eval sampler (``DistributedEvalSampler``).
+
 Embeddings stay on the device until a shard is flushed (``shard_size``
 rows or the epoch's end): then the shard's embeddings cross to the host in
 one copy, its indices and validity in another.
@@ -27,6 +33,14 @@ from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def _suffix() -> str:
+    """``_p{rank}`` among the batch's shards over several processes, else
+    nothing."""
+    from mmlearn_tpu_torch.parallel.collectives import axis_index, axis_size
+
+    return f"_p{axis_index()}" if axis_size() > 1 else ""
 
 from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import DATASET_INDEX_KEY, EXAMPLE_INDEX_KEY
@@ -119,7 +133,7 @@ class EmbeddingExport(EvaluationHooks):
             if self._buffers.get(mod):
                 self._flush(mod)
             results[f"export/{mod}_rows"] = self._manifest[mod]["rows"]
-        with open(os.path.join(self.output_dir, "manifest.json"), "w") as f:
+        with open(os.path.join(self.output_dir, f"manifest{_suffix()}.json"), "w") as f:
             json.dump(self._manifest, f, indent=2)
         self._buffers = {}
         return results
@@ -139,7 +153,7 @@ class EmbeddingExport(EvaluationHooks):
         # padded and absent rows never reach the disk
         emb, ex_idx, ds_idx = emb[valid], ex_idx[valid], ds_idx[valid]
         m = self._manifest[mod]
-        name = f"{mod}_{len(m['shards']):05d}.npz"
+        name = f"{mod}{_suffix()}_{len(m['shards']):05d}.npz"
         np.savez(os.path.join(self.output_dir, name), embeddings=emb,
                  example_index=ex_idx, dataset_index=ds_idx)
         m["shards"].append(name)

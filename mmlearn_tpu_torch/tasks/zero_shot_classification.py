@@ -51,6 +51,22 @@ class ClassificationTaskSpec:
     top_k: Sequence[int] = field(default_factory=lambda: [1])
 
 
+def _gathered(scores: dict) -> dict:
+    """``{(modality, dataset): (scores, targets, selected)}`` as numpy, each
+    process's rows concatenated in rank order over the batch's shards (the
+    union of the keys every process saw; one process keeps its own)."""
+    from mmlearn_tpu_torch.parallel.collectives import axis_size, process_allgather_object
+
+    local = {key: tuple(torch.cat([c[i] for c in chunks]).cpu().numpy() for i in range(3))
+             for key, chunks in scores.items()}
+    if axis_size() == 1:
+        return local
+    parts = process_allgather_object(local)
+    keys = sorted({key for part in parts for key in part}, key=str)
+    return {key: tuple(np.concatenate([part[key][i] for part in parts if key in part])
+                       for i in range(3)) for key in keys}
+
+
 @store(group="eval_task", name="ZeroShotClassification", populate_full_signature=False)
 class ZeroShotClassification(EvaluationHooks):
     """Zero-shot classification against prompt-template class embeddings."""
@@ -149,12 +165,11 @@ class ZeroShotClassification(EvaluationHooks):
             str(s.query_modality).lower(): [int(k) for k in s.top_k] for s in self.task_specs
         }
         results: dict[str, float] = {}
-        for (q, ds_idx), chunks in self._scores.items():
-            sel = torch.cat([c[2] for c in chunks]).cpu().numpy()
+        for (q, ds_idx), (scores, targets, sel) in _gathered(self._scores).items():
             if not sel.any():
                 continue  # no example of this dataset reached the epoch
-            scores = torch.cat([c[0] for c in chunks]).cpu().numpy()[sel]
-            targets = torch.cat([c[1] for c in chunks]).cpu().numpy()[sel].astype(np.int64)
+            scores = scores[sel]
+            targets = targets[sel].astype(np.int64)
             prefix = f"classification/ds{ds_idx}_{q}"
             if scores.ndim == 1:
                 # binary: sigmoid(score) > 0.5 <=> score > 0

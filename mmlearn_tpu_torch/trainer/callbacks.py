@@ -11,6 +11,12 @@ loop's epoch and batch, for resuming an unsized loader mid-epoch) and
 under a temporary name and renamed when complete, as Orbax finalizes a
 save, so a run killed mid-write never resumes from half a checkpoint.
 
+Over several processes every rank takes part in a save (the shards of an
+FSDP2 task are gathered into whole tensors, :func:`~mmlearn_tpu_torch.
+trainer.state.full_state`), rank 0 alone writes the one-device format, and
+the ranks meet at a barrier once it is on disk; every rank reads a
+checkpoint it restores, and cuts it to its own shards, at any world size.
+
 The Hydra registration of the JAX classes waits for the config layer
 (ROADMAP P11).
 """
@@ -29,10 +35,22 @@ from typing import Any, Optional
 import torch
 
 from mmlearn_tpu_torch.conf import store
+from mmlearn_tpu_torch.trainer.state import full_state
 
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.pt"
+
+
+def _distributed() -> bool:
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoint files: rank 0, or the only
+    process."""
+    return not _distributed() or torch.distributed.get_rank() == 0
 
 
 class Callback:
@@ -160,7 +178,7 @@ class ModelCheckpoint(Callback):
         if self._ckpt_path is None:
             path = self._ckpt_dir(trainer)
             os.makedirs(path, exist_ok=True)
-            for name in os.listdir(path):  # half-written steps of a run that died
+            for name in os.listdir(path) if _writer() else ():  # half-written steps of a run that died
                 if ".tmp-" in name and name.split(".tmp-")[0].isdigit():
                     shutil.rmtree(os.path.join(path, name), ignore_errors=True)
             self._ckpt_path = path
@@ -201,8 +219,12 @@ class ModelCheckpoint(Callback):
     def _write(self, trainer: Any, step: int) -> None:
         """The one write path (periodic and monitored saves)."""
         self._ensure(trainer)
-        state, event = snapshot(trainer.state.state_dict())
-        if self.async_save:
+        state = full_state(trainer.state.state_dict())  # every rank: a collective
+        if not _writer():
+            self._steps_saved_this_run.add(step)
+            return
+        state, event = snapshot(state)
+        if self.async_save and not _distributed():
             writer = threading.Thread(target=self._write_files, args=(step, state, event),
                                       name=f"checkpoint-{step}", daemon=True)
             self._writers[step] = writer
@@ -218,7 +240,8 @@ class ModelCheckpoint(Callback):
         writer = self._writers.pop(step, None)
         if writer is not None:
             writer.join()
-        shutil.rmtree(self.step_path(step), ignore_errors=True)
+        if _writer():
+            shutil.rmtree(self.step_path(step), ignore_errors=True)
 
     def _collect(self) -> None:
         """Delete the checkpoints past the newest ``max_to_keep`` that no pin
@@ -251,13 +274,16 @@ class ModelCheckpoint(Callback):
         self._collect()
         if wait or not self.async_save:
             self.wait_until_finished()
+        if _distributed():
+            # the files are on disk before any rank reads or decides on them
+            torch.distributed.barrier()
         logger.info("Saved checkpoint at step %d", step)
 
     def _save_loop_position(self, trainer: Any, step: int) -> None:
         """``loop_position-<step>.json``: the fit loop's position after the
         step, one file a step so that it matches the checkpoint restored."""
         pos = getattr(trainer, "loop_position", None)
-        if pos is None:
+        if pos is None or not _writer():
             return
         path = self._ckpt_path
         payload = {"step": int(step), **{k: int(v) for k, v in pos.items()}}
@@ -302,6 +328,8 @@ class ModelCheckpoint(Callback):
             logger.warning("Ignoring unreadable monitored scores: %s", err)
 
     def _persist_monitored(self, path: str) -> None:
+        if not _writer():
+            return
         try:
             tmp = self._scores_path(path) + f".tmp-{os.getpid()}"
             with open(tmp, "w") as f:

@@ -12,6 +12,13 @@ by position, so that a checkpoint restores by name
 (:meth:`TrainState.load_state_dict` with ``strict=False`` takes what
 matches a changed model) and :func:`mmlearn_tpu_torch.bridge.train_state_from_jax`
 can write one from a JAX train state.
+
+A task sharded with FSDP2 holds DTensors: :func:`full_state` gathers a state
+dict's shards into whole tensors (on every rank: a collective), so that a
+checkpoint has the one-device format whatever the world size, and
+:meth:`TrainState.load_state_dict` cuts whole tensors to the shards of the
+live ones (:func:`shard_like`), so that a checkpoint restores at any world
+size.
 """
 
 from __future__ import annotations
@@ -22,6 +29,34 @@ from typing import Any, Optional
 import torch
 
 from mmlearn_tpu_torch.tasks.base import TrainingTask
+
+
+def _is_dtensor(t: Any) -> bool:
+    return hasattr(t, "device_mesh") and hasattr(t, "to_local")
+
+
+def full_state(tree: Any) -> Any:
+    """``tree`` with every DTensor gathered into a whole tensor (every rank
+    of its mesh must call this, in the same order)."""
+    if _is_dtensor(tree):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: full_state(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_state(v) for v in tree)
+    return tree
+
+
+def shard_like(full: torch.Tensor, like: Any) -> torch.Tensor:
+    """A whole tensor as this rank's shard of ``like``'s layout (a DTensor
+    of the same placements, cut locally with no communication), or as it is
+    where ``like`` is a plain tensor."""
+    if not _is_dtensor(like):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full.to(like.device), like.device_mesh, like.placements,
+                             src_data_rank=None)
 
 
 @dataclass
@@ -81,7 +116,8 @@ class TrainState:
         state = self.task.on_checkpoint_load(state)
         skipped: list[str] = []
         own = self.task.state_dict()
-        weights = state["task"]
+        weights = {k: shard_like(v, own[k]) if torch.is_tensor(v) and k in own else v
+                   for k, v in state["task"].items()}
         if strict:
             self.task.load_state_dict(weights, strict=True)
         else:
@@ -105,8 +141,12 @@ class TrainState:
             opt["param_groups"] = [{**g, "params": o["params"]}
                                    for g, o in zip(groups, opt["param_groups"])]
         opt["state"] = {}
+        params = self.params()
         for i, n in enumerate(names):
             moments = saved.get(n)
+            if moments is not None:
+                moments = {k: shard_like(v, params[i]) if torch.is_tensor(v) and v.ndim else v
+                           for k, v in moments.items()}
             if moments is not None and all(
                     not torch.is_tensor(v) or v.ndim == 0 or tuple(v.shape) == shapes[n]
                     for v in moments.values()):
@@ -130,7 +170,7 @@ class TrainState:
         accumulated = state.get("accumulated") or {}
         self.accumulated = None
         if accumulated:
-            device = {n: p.device for n, p in zip(names, self.params())}
-            self.accumulated = [accumulated[n].to(device[n]) if n in accumulated else None
-                                for n in names]
+            self.accumulated = [
+                shard_like(accumulated[n].to(p.device), p) if n in accumulated else None
+                for n, p in zip(names, self.params())]
         return skipped

@@ -66,15 +66,33 @@ which the JAX trainer maps to ``"bf16-mixed"``) cast floating inputs and
 normalized images to bf16, any other value to f32; ``None`` takes the
 dtype the task's towers compute in. The JAX trainer's XLA-only options
 (``compilation_cache_dir``, ``donate_state``, the profiler trace,
-``"bf16-mixed"``'s attention-score switch) have no counterpart;
-``mesh_shape`` other than one device raises until parallelism is ported
-(ROADMAP P10).
+``"bf16-mixed"``'s attention-score switch) have no counterpart.
+
+Over several processes (:mod:`mmlearn_tpu_torch.parallel`): under
+``MMLEARN_MULTIHOST=1`` the trainer joins the process group the environment
+describes (the JAX trainer's ``jax.distributed.initialize``); where
+``torch.distributed`` is initialized or ``mesh_shape`` is given it builds the
+mesh (``data``, ``fsdp``, ``seq``; ``model > 1`` raises) and sets it as the
+global mesh. The task is then wrapped with FSDP2 before its optimizer is
+built (:func:`~mmlearn_tpu_torch.parallel.partitioning.shard_task`). A
+loader whose sampler splits the data over the ``data x fsdp`` ranks yields
+each rank's rows; a loader that yields the global batch is cut to the rank's
+rows by :func:`~mmlearn_tpu_torch.parallel.mesh.shard_batch` on the feeder's
+thread, after ``prepare_batch`` (so an I-JEPA batch's masks are the global
+batch's). FSDP2 averages the ranks' gradients at every micro-step: each
+micro-step's ``grad_norm`` and the accumulated mean (saved with a
+checkpoint mid-window) are the global gradient's, as the JAX trainer's.
+``grad_norm`` and clipping take the global norm over the shards; the logged
+losses are the mean over the ranks (the global loss); TFLOP/s and MFU are
+over the mesh (the JAX trainer's ``peak x mesh.size``); loggers write from
+rank 0 and checkpoints are written by rank 0 (``ModelCheckpoint``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import signal
 import time
 from typing import Any, Iterable, Mapping, Optional, Sequence, Union
@@ -86,6 +104,8 @@ from mmlearn_tpu_torch.datasets.core.loader import DeviceFeeder
 from mmlearn_tpu_torch.datasets.core.modalities import Modalities
 from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
 from mmlearn_tpu_torch.modules.layers.dropout import masks_from, step_source
+from mmlearn_tpu_torch.parallel.mesh import shard_batch
+from mmlearn_tpu_torch.parallel.partitioning import sync_replicated_grads
 from mmlearn_tpu_torch.tasks.base import TrainingTask, as_tensor, compute_dtype
 from mmlearn_tpu_torch.tasks.hooks import EvalRuntime
 from mmlearn_tpu_torch.trainer.flops import FlopCounter, device_peak_tflops
@@ -162,6 +182,11 @@ def _batch_size_of(batch: Mapping[str, Any]) -> int:
     return fallback
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself otherwise)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _to_device(tree: Any, device: torch.device) -> Any:
     """A batch's arrays as tensors on ``device``, copied synchronously (the
     validation and test loops)."""
@@ -214,10 +239,6 @@ class Trainer:
         if gradient_clip_algorithm not in ("norm", "value"):
             raise ValueError(f"gradient_clip_algorithm must be 'norm' or 'value', got "
                              f"{gradient_clip_algorithm!r}")
-        if any(int(v) != 1 for v in (mesh_shape or {}).values()):
-            raise NotImplementedError(
-                f"mesh_shape={dict(mesh_shape)}: the port trains on one device; meshes and "
-                "sharding wait for parallelism (ROADMAP P10)")
         if precision in ("fp16", "16-mixed", "16"):
             precision = "bf16-mixed"  # the JAX trainer's mapping
         #: the JAX trainer's ``precision`` (see the module docstring)
@@ -263,8 +284,28 @@ class Trainer:
         #: ``log_mfu``
         self._step_flops: Optional[float] = None
         self.device = torch.device(device)
+        import torch.distributed as dist
+
+        from mmlearn_tpu_torch.parallel.mesh import create_mesh, init_from_env, set_global_mesh
+
+        if os.environ.get("MMLEARN_MULTIHOST") == "1":
+            self.device = init_from_env(self.device)
+        #: the mesh over the processes (``None``: one device, no groups)
+        self.mesh = None
+        if mesh_shape is not None or (dist.is_available() and dist.is_initialized()):
+            shape = dict(mesh_shape or {})
+            self.mesh = create_mesh(data=int(shape.get("data", -1)),
+                                    fsdp=int(shape.get("fsdp", 1)),
+                                    model=int(shape.get("model", 1)),
+                                    seq=int(shape.get("seq", 1)),
+                                    slices=int(shape.get("slices", 1)), device=self.device)
+            self.device = self.mesh.device
+            if self.mesh.device_mesh is not None:
+                set_global_mesh(self.mesh)
         self._limit_train: Optional[int] = None
         self._val_interval: Optional[int] = None
+        #: whether the fit's loader yields the global batch (cut to the rank's rows)
+        self._batch_is_global = False
 
         self.state: Optional[TrainState] = None
         #: the step the run restored (None for a fresh run), and the loop
@@ -458,7 +499,10 @@ class Trainer:
                 if skips > 0:  # consumed before the checkpoint
                     skips -= 1
                     continue
-                yield batch_idx, task.prepare_batch(dict(raw), s)
+                batch = task.prepare_batch(dict(raw), s)
+                if self._batch_is_global:
+                    batch = shard_batch(batch, self.mesh)
+                yield batch_idx, batch
                 s += 1
                 if s >= max_steps:  # no step would take a further batch
                     return
@@ -514,6 +558,8 @@ class Trainer:
             overlay_params(task, overlay)
             task.init_extras()
             logger.info("applied init overlay onto the task's weights")
+        self._shard(task)
+        self._batch_is_global = self._global_batches(train_loader)
         optimizer, lr_scheduler = task.configure_optimizers(max_steps=max_steps)
         self._lr_schedule = None if lr_scheduler is None else lr_scheduler.lr_lambdas[0]
         self.state = TrainState(0, task, optimizer, lr_scheduler)
@@ -538,6 +584,37 @@ class Trainer:
             self._close_feeder()  # abnormal exits release the producer too
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.device_mesh is not None
+
+    def _shard(self, task: TrainingTask) -> None:
+        """Wrap ``task`` with FSDP2 over the mesh, once (a task already
+        wrapped is kept)."""
+        from torch.distributed.fsdp import FSDPModule
+
+        if self._sharded and not isinstance(task, FSDPModule):
+            from mmlearn_tpu_torch.parallel.partitioning import shard_task
+
+            shard_task(task, self.mesh)
+            logger.info("task sharded with FSDP2 over mesh %s", self.mesh.shape)
+
+    def _global_batches(self, loader: Any) -> bool:
+        """Whether ``loader`` yields the global batch (cut to this rank's
+        rows by ``shard_batch``) rather than this rank's rows (its sampler
+        splits the data over the ``data x fsdp`` ranks)."""
+        if not self._sharded or self.mesh.dp_size == 1:
+            return False
+        replicas = int(getattr(getattr(loader, "sampler", None), "num_replicas", 1))
+        if replicas == 1:
+            return True
+        if replicas != self.mesh.dp_size:
+            raise ValueError(
+                f"the loader's sampler splits the data over {replicas} replicas; the mesh "
+                f"{self.mesh.shape} has {self.mesh.dp_size} batch shards (data x fsdp): pass "
+                f"rank={self.mesh.dp_rank}, num_replicas={self.mesh.dp_size}")
+        return False
 
     def _start_position(self, train_loader: Any) -> tuple[int, int]:
         """The epoch and the batches to skip in it for the restored step."""
@@ -608,11 +685,14 @@ class Trainer:
                     if now > t_log:
                         host["examples_per_sec"] = examples_since_log / (now - t_log)
                         if self._step_flops:
-                            tflops = self._step_flops * steps_since_log / (now - t_log) / 1e12
+                            # every process runs its shard of the step: over the mesh
+                            ranks = self.mesh.size if self._sharded else 1
+                            tflops = (ranks * self._step_flops * steps_since_log
+                                      / (now - t_log) / 1e12)
                             host["tflops_per_sec"] = tflops
                             peak = device_peak_tflops(self.device)
                             if peak:
-                                host["mfu"] = tflops / peak
+                                host["mfu"] = tflops / (peak * ranks)
                     t_log, examples_since_log, steps_since_log = now, 0, 0
                     for cb in self.callbacks:
                         cb.on_train_batch_end(self, host, step)
@@ -676,17 +756,23 @@ class Trainer:
         with masks_from(step_source(self.seed, i, self.device)):
             loss, metrics = task.loss_fn(batch)
         loss.backward()
+        if self._sharded:
+            sync_replicated_grads(task, self.mesh)
         params = state.params()
-        grads = [p.grad for p in params]
-        grad_norm = torch.nn.utils.get_total_norm([g for g in grads if g is not None])
+        full = [p.grad for p in params]  # FSDP2's sharded gradients are DTensors
+        # their local shards: every update below is in place, on this rank's shard
+        grads = [None if g is None else _local(g) for g in full]
+        grad_norm = self._global_norm([g for g in grads if g is not None])
         record = {"step": i, "lr": lr, **metrics, "grad_norm": grad_norm}
         state.step = i + 1
         if k > 1:
             m = i % k
             acc = state.accumulated if m else None
             if acc is None:
-                state.accumulated = [None if g is None else g.div_(m + 1) if m else g
-                                     for g in grads]
+                for g in grads:
+                    if g is not None and m:
+                        g.div_(m + 1)
+                state.accumulated = list(full)
             else:
                 # acc + (g - acc) / (m + 1), MultiSteps' running mean, in
                 # three multi-tensor launches; a first gradient (acc None) is
@@ -694,17 +780,20 @@ class Trainer:
                 both = [j for j, (a, g) in enumerate(zip(acc, grads))
                         if a is not None and g is not None]
                 deltas = [grads[j] for j in both]
-                torch._foreach_sub_(deltas, [acc[j] for j in both])
+                acc_local = [_local(acc[j]) for j in both]
+                torch._foreach_sub_(deltas, acc_local)
                 torch._foreach_div_(deltas, m + 1)
-                torch._foreach_add_([acc[j] for j in both], deltas)
+                torch._foreach_add_(acc_local, deltas)
                 for j, g in enumerate(grads):
                     if g is not None and acc[j] is None:
-                        acc[j] = g.div_(m + 1)
+                        g.div_(m + 1)
+                        acc[j] = full[j]
             for p, acc in zip(params, state.accumulated):
                 p.grad = acc  # the window's mean so far
             if m < k - 1:
                 return record
-            grads, state.accumulated = state.accumulated, None
+            grads = [None if a is None else _local(a) for a in state.accumulated]
+            state.accumulated = None
             clip_norm = None
         else:
             clip_norm = grad_norm
@@ -715,6 +804,18 @@ class Trainer:
             state.lr_scheduler.step()
         return record
 
+    def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient given by its local shards: the
+        local sum of squares added over the ``fsdp`` ranks (over ``data`` the
+        shards are replicas). On one shard it is ``get_total_norm``'s."""
+        if not self._sharded or self.mesh.shape["fsdp"] == 1 or not grads:
+            return torch.nn.utils.get_total_norm(grads)
+        import torch.distributed as dist
+
+        sq = torch.stack([g.float().square().sum() for g in grads]).sum()
+        dist.all_reduce(sq, group=self.mesh.group("fsdp"))
+        return sq.sqrt()
+
     def _clip(self, grads: list[torch.Tensor], norm: Optional[torch.Tensor]) -> None:
         if not self.gradient_clip_val:
             return
@@ -723,14 +824,17 @@ class Trainer:
                 g.clamp_(-self.gradient_clip_val, self.gradient_clip_val)
             return
         if norm is None:
-            norm = torch.nn.utils.get_total_norm(grads)
+            norm = self._global_norm(grads)
         coef = torch.clamp(self.gradient_clip_val / norm, max=1.0)
         for g in grads:
             g.mul_(coef)
 
     def _read_back(self, pending: list[dict[str, Any]]) -> dict[str, float]:
         """Move the pending records to :attr:`history`; the last one's
-        metrics (without ``step``) for the callbacks and loggers."""
+        metrics (without ``step``) for the callbacks and loggers. Over
+        several batch shards the losses are the ranks' mean."""
+        if self._sharded and self.mesh.dp_size > 1:
+            self._mean_losses(pending)
         for record in pending:
             self.history.append({k: float(v) for k, v in record.items()})
         pending.clear()
@@ -738,6 +842,21 @@ class Trainer:
         logger.info("step %d loss %.6f lr %.3e grad_norm %.4f", last["step"],
                     last["loss"], last["lr"], last["grad_norm"])
         return {k: v for k, v in last.items() if k != "step"}
+
+    def _mean_losses(self, records: list[dict[str, Any]]) -> None:
+        """Each record's losses (keys holding ``loss``) replaced in place by
+        their mean over the ``data x fsdp`` ranks, in one all-reduce."""
+        import torch.distributed as dist
+
+        keys = [(i, k) for i, r in enumerate(records) for k in r if "loss" in k]
+        if not keys:
+            return
+        values = torch.stack([torch.as_tensor(records[i][k], device=self.device).float()
+                              for i, k in keys])
+        dist.all_reduce(values, group=self.mesh.dp_group())
+        values = (values / self.mesh.dp_size).tolist()
+        for (i, k), v in zip(keys, values):
+            records[i][k] = v
 
     # -- validation and test --------------------------------------------------
     def prepare_eval_state(
@@ -757,6 +876,7 @@ class Trainer:
         del loader  # the port's modules hold their weights already
         task.to(self.device)
         task.prepare_seed = self.seed
+        self._shard(task)
         optimizer, lr_scheduler = task.configure_optimizers(max_steps=1)
         self.state = TrainState(0, task, optimizer, lr_scheduler)
         if ckpt_path is not None:
@@ -814,12 +934,16 @@ class Trainer:
             limit = None  # -1: the whole loader (num_sanity_val_steps=-1)
         losses = []
         dtype = self._input_dtype(task)
+        self._shard(task)
+        cut = self._global_batches(loader)
         for batch_idx, batch in enumerate(loader):
             if limit is not None and batch_idx >= limit:
                 break  # 0 turns the phase off
             if not (compute_loss or hooks):
                 continue
             batch = task.prepare_batch(dict(batch), batch_idx, training=False)
+            if cut:
+                batch = shard_batch(batch, self.mesh)
             placed = self._device_inputs(_to_device(batch, self.device), dtype)
             if compute_loss:
                 losses.append(task.validation_loss(placed)[0].float())
@@ -828,7 +952,15 @@ class Trainer:
             for hook in hooks:
                 hook.evaluation_step(runtime, full_batch, batch_idx)
         results: dict[str, float] = {}
-        if losses:
+        if compute_loss and self._sharded and self.mesh.dp_size > 1:
+            # every rank's batches' losses (an unpadded eval sampler's shards differ)
+            from mmlearn_tpu_torch.parallel.collectives import process_allgather_object
+
+            local = torch.stack(losses).tolist() if losses else []
+            losses = [v for part in process_allgather_object(local) for v in part]
+            if losses:
+                results[f"{phase}/loss"] = float(np.mean(losses))
+        elif losses:
             results[f"{phase}/loss"] = float(np.mean(torch.stack(losses).tolist()))
         for hook in hooks:
             for k, v in (hook.on_evaluation_epoch_end(runtime) or {}).items():

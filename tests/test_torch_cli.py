@@ -81,10 +81,13 @@ def test_cli_override_applies(tmp_path):
 
 def test_cli_trainer_runs_on_the_card_unless_told():
     """The composed trainer targets ``cuda`` unless the config says ``cpu``;
-    a mesh over more devices raises naming P10."""
+    a mesh over more devices than the processes raises, and the model axis
+    (tensor parallelism) raises naming the next slice."""
     assert build_experiment(["+experiment=tiny_clip_synthetic"])["trainer"]["device"] == "cuda"
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(ValueError, match="needs more than the 1 available"):
         main(["+experiment=tiny_clip_synthetic", CPU, "trainer.mesh_shape.data=4"])
+    with pytest.raises(NotImplementedError, match="next slice"):
+        main(["+experiment=tiny_clip_synthetic", CPU, "trainer.mesh_shape.model=2"])
 
 
 def test_cli_export_job(tmp_path):
@@ -163,8 +166,12 @@ def test_cli_error_paths(monkeypatch):
         main(["task=NoSuchTask"])
     with pytest.raises(ConfigError, match="[Mm]alformed"):
         main(["a_bare_word_is_not_an_override"])
+    # the multi-host launch joins the process group the environment gives:
+    # without the rendezvous variables it raises before building anything
     monkeypatch.setenv("MMLEARN_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="P10"):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK|MASTER_ADDR|WORLD_SIZE"):
         main(["+experiment=tiny_clip_synthetic", CPU])
 
 
@@ -247,7 +254,7 @@ def test_launcher_arg_parsing():
 
 def test_slurm_launcher_writes_scripts_and_submits(tmp_path):
     """One script a job (``sbatch`` stubbed), carrying the job's argv and
-    the directives; a job over several processes raises naming P10."""
+    the directives; a job over several processes exports MMLEARN_MULTIHOST=1."""
     from mmlearn_tpu_torch.cli.launcher import launch_slurm
 
     sbatch = tmp_path / "sbatch"
@@ -262,8 +269,8 @@ def test_slurm_launcher_writes_scripts_and_submits(tmp_path):
     assert "MMLEARN_MULTIHOST=0" in script
     assert "a=1" in script and "mmlearn_tpu_torch.cli.run" in script
     assert (tmp_path / "calls.txt").read_text().count("srun") == 2
-    with pytest.raises(NotImplementedError, match="P10"):
-        launch_slurm([["a=1"]], [str(tmp_path / "job2")], sbatch=str(sbatch), multihost=True)
+    launch_slurm([["a=1"]], [str(tmp_path / "job2")], sbatch=str(sbatch), multihost=True)
+    assert "MMLEARN_MULTIHOST=1" in (tmp_path / "job2" / "submit.sh").read_text()
 
 
 def test_local_parallel_launcher(tmp_path):

@@ -249,7 +249,8 @@ def test_registrations_mirror_the_jax_store():
 
 def test_trainer_precision_and_mesh_shape():
     """``precision`` casts inputs as the JAX trainer's (fp16 names to
-    bf16-mixed); a mesh over more than one device raises naming P10."""
+    bf16-mixed); a mesh over more devices than the processes raises, and the
+    model axis raises naming the next slice."""
     import torch
 
     from mmlearn_tpu_torch.tasks.base import TrainingTask
@@ -261,8 +262,10 @@ def test_trainer_precision_and_mesh_shape():
         assert Trainer(precision=precision, device="cpu")._input_dtype(task) == want
     assert Trainer(precision="fp16", device="cpu").precision == "bf16-mixed"
     Trainer(mesh_shape={"data": 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(ValueError, match="needs more than the 1 available"):
         Trainer(mesh_shape={"data": 4}, device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        Trainer(mesh_shape={"model": 2}, device="cpu")
 
 
 # ------------------------------------- the port's YAMLs against the JAX ones

@@ -137,6 +137,38 @@ def test_encoders_and_weight_io_slice_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_parallel_slice_imports_without_jax():
+    """The parallel slice's modules and names (the mesh, collectives,
+    partitioning and FSDP2 wrapper, the local launcher, the ring), with JAX
+    and the JAX package blocked; the launcher's worker environment and the
+    ring's list exchange run there too."""
+    names = ("from mmlearn_tpu_torch.parallel import DATA_AXIS, FSDP_AXIS, SEQ_AXIS, "
+             "MODEL_AXIS, MESH_AXES, MESH_AXES_SEQ, DEFAULT_RULES, all_gather, axis_index, "
+             "axis_size, batch_spec, create_mesh, get_global_mesh, infer_param_specs, "
+             "local_batch_size, local_loss_label_offset, pmean, process_allgather, psum, "
+             "set_global_mesh, shard_batch, shard_task\n"
+             "from mmlearn_tpu_torch.parallel.mesh import emulated_seq_mesh, init_from_env\n"
+             "from mmlearn_tpu_torch.parallel.collectives import process_allgather_object, "
+             "process_local_rows, process_local_rows_device\n"
+             "from mmlearn_tpu_torch.parallel.partitioning import sync_replicated_grads\n"
+             "from mmlearn_tpu_torch.parallel.mp_launch import free_port, run_workers, "
+             "worker_env\n"
+             "from mmlearn_tpu_torch.ops.ring_attention import ring_attention, "
+             "ring_attention_blocks, sequence_sharded_attention, GroupExchange, "
+             "ListExchange\n"
+             "from mmlearn_tpu_torch.flagship import dryrun_multichip, tiny_training_task\n"
+             "import torch\n"
+             "assert worker_env(1, 2, 1234, {})['RANK'] == '1'\n"
+             "q = torch.randn(1, 2, 8, 4)\n"
+             "out = sequence_sharded_attention(q, q, q, ListExchange(2), causal=True)\n"
+             "assert out.shape == q.shape\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_a_cuda_card(tmp_path):
     if not torch.cuda.is_available():
         # no CUDA card: the script must refuse, not fall back
