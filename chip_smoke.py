@@ -278,12 +278,16 @@ Phases, each fatal on failure:
     flagship's towers through ``cli.run`` (``build_experiment`` and
     ``run_experiment``) at world 1 over NCCL: one process started by
     ``mp_launch.run_workers`` under ``MMLEARN_MULTIHOST=1``, FSDP2 over a
-    1x1 mesh, b128, 6 steps and a validation with zero-shot retrieval,
+    1x1 mesh, b128, 12 steps and a validation with zero-shot retrieval,
     against the same job on the undistributed trainer in this process: the
     loss of every step and every weight bit-equal (or within 1e-6 relative,
     the operation named), K1's and K2's launches phase 9's a step, the
-    recall equal, ms a step beside the undistributed trainer's and phase
-    9's.
+    recall equal; for both runs each of steps 2-7 on the host clock (their
+    median beside phase 9's ms), the feeder's wait and the garbage
+    collector's time, and steps 8-12 under torch.profiler (the kernels'
+    device time a step and the idle share). K3f's bf16-output instance at
+    D=128 runs on no main path (the ring's hops write f32): its row reports
+    0 launches, and its ring count is checked to be 0.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
 checks that K5 never launched there; so do the eighth to the sixteenth.
@@ -5439,8 +5443,12 @@ K3_D128_N, K3_D128_H = 16384, 8
 # hop; against the plain ring 3.1e-3 and 3.4e-3: the plain version rounds the
 # normalized p, the kernels the unnormalized; first run on one H100)
 RING_REL_TOL = {"out": 6e-3, "grad": 7e-3}
-PAR_STEPS, PAR_BATCH, PAR_VAL = 6, 128, 2
-PAR_MARKS = (1, PAR_STEPS)
+PAR_STEPS, PAR_BATCH, PAR_VAL = 12, 128, 2
+# phase 16's two windows a run: steps 2 to PAR_PROF on the host clock (a
+# synchronize after each; the median step), then torch.profiler over the
+# steps after PAR_PROF (the kernels' device time a step)
+PAR_PROF = 7
+PAR_WORKERS = 8  # the train loader's fetch threads
 TRAINER_MS: dict = {}  # phase 9's ms a micro-step, for phase 16
 
 
@@ -5609,6 +5617,9 @@ def ring_path(device, gen) -> dict:
                 for key, count in head_dim_counts().items():
                     total[key] = total.get(key, 0) + count
                 total["flash_fwd_f32", d] = total.get(("flash_fwd_f32", d), 0) + f32
+                # K3f's input-dtype instance, apart from its f32 one (0 on the ring)
+                total["flash_fwd_bf16", d] = (total.get(("flash_fwd_bf16", d), 0)
+                                              + counts["flash_fwd"] - f32)
                 for name, got, want in (("out", out, ref), *zip(
                         ("dq", "dk", "dv"), grads, ref_grads)):
                     r = rel_err(got, want)
@@ -5647,8 +5658,9 @@ def ring_path(device, gen) -> dict:
 def parallel_argv(out_dir: str) -> list:
     """The CLI's overrides of phase 16's run: the tiny experiment's
     synthetic pairs and trainer at the flagship's towers (ViT-B/16 at 224 px,
-    the 77-token text tower, bf16), b128, PAR_STEPS steps and a validation of
-    PAR_VAL batches at the end, on the card."""
+    the 77-token text tower, bf16), b128 drawn by PAR_WORKERS threads,
+    PAR_STEPS steps and a validation of PAR_VAL batches at the end, on the
+    card."""
     rgb, text = "task.encoders.rgb", "task.encoders.text"
     return [
         "+experiment=tiny_clip_synthetic", f"runtime.output_dir={out_dir}",
@@ -5660,6 +5672,10 @@ def parallel_argv(out_dir: str) -> list:
         f"datasets.val.size={PAR_VAL * PAR_BATCH}", "datasets.val.image_size=224",
         "datasets.val.seq_len=77", "datasets.val.vocab_size=49408",
         f"dataloader.train.batch_size={PAR_BATCH}", f"dataloader.val.batch_size={PAR_BATCH}",
+        # the synthetic examples are drawn on the host (150,528 normals an
+        # image): one thread makes a batch in about 0.3 s, more than the
+        # undistributed step, so the card's 8 cores draw them
+        f"+dataloader.train.num_workers={PAR_WORKERS}",
         f"{rgb}.img_size=224", f"{rgb}.patch_size=16", f"{rgb}.embed_dim=768", f"{rgb}.depth=12",
         f"{rgb}.num_heads=12", f"+{rgb}.learned_pos_embed=true", f"+{rgb}.pre_norm=true",
         f"+{rgb}.act_layer=quick_gelu", f"{rgb}.proj_dim=512", f"+{rgb}.dtype=bfloat16",
@@ -5669,41 +5685,81 @@ def parallel_argv(out_dir: str) -> list:
     ]
 
 
+def profiled_kernel_ms(prof) -> float:
+    """The device time of the kernels and memsets ``prof`` recorded, in ms
+    (user ranges left out: they would count their kernels twice)."""
+    import torch
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+
+
 class ParallelProbe:
-    """Phase 16's callback: the host clock after a synchronize at
-    PAR_MARKS, the trainer, its history and the validation results."""
+    """Phase 16's callback: after each step, a synchronize, the host clock,
+    the trainer's feeder wait and the time the garbage collector took so
+    far; torch.profiler over the steps after PAR_PROF (its start-up outside
+    the clock); the trainer, its history and the validation results."""
 
     runs: list = []
 
     def __init__(self) -> None:
         self.times: dict = {}
+        self.waits: dict = {}
+        self.gc_s: dict = {}
+        self._gc = [0.0, 0.0]  # seconds in the collector, the running pass's start
+        self.kernel_ms = float("nan")
+        self.prof = None
         self.trainer = None
         self.val: dict = {}
         ParallelProbe.runs.append(self)
 
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc[1] = time.perf_counter()
+        else:
+            self._gc[0] += time.perf_counter() - self._gc[1]
+
     def on_train_start(self, trainer) -> None:
         self.trainer = trainer
+        gc.callbacks.append(self._on_gc)
 
     def on_train_batch_end(self, trainer, metrics, step) -> None:
         import torch
 
-        if step in PAR_MARKS:
+        torch.cuda.synchronize()
+        self.times[step] = time.perf_counter()
+        self.waits[step] = trainer.feeder_wait_s
+        self.gc_s[step] = self._gc[0]
+        if step == PAR_STEPS and self.prof is not None:
+            self.prof.stop()
+            self.kernel_ms = profiled_kernel_ms(self.prof) / (PAR_STEPS - PAR_PROF)
+            self.prof = None
+        if step == PAR_PROF:
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
             torch.cuda.synchronize()
-            self.times[step] = time.perf_counter()
+            self.times["prof_start"] = time.perf_counter()
 
     def on_train_epoch_end(self, trainer, epoch) -> None: ...
 
     def on_validation_end(self, trainer, metrics, step) -> None:
         self.val = dict(metrics)
 
-    def on_train_end(self, trainer) -> None: ...
+    def on_train_end(self, trainer) -> None:
+        gc.callbacks.remove(self._on_gc)
 
 
 def parallel_run(out_dir: str) -> dict:
     """Phase 16's job through the CLI (``build_experiment`` and
     ``run_experiment``, ``main``'s two halves) with zero-shot retrieval as
     the task's evaluation: launches counted from 0, the history, the
-    weights on the CPU, ms a step over steps 2-6, the validation results."""
+    weights on the CPU, the validation results; the step's times: each step
+    of steps 2 to PAR_PROF on the host clock, their median, the feeder wait
+    over them, the wall and kernel time a step under the profiler; and what
+    the process holds beside the job (threads, torch's threads, the
+    allocator's retries)."""
     import torch
 
     from mmlearn_tpu_torch.cli.run import build_experiment, run_experiment
@@ -5715,14 +5771,30 @@ def parallel_run(out_dir: str) -> dict:
         "_target_": "mmlearn_tpu_torch.tasks.zero_shot_retrieval.ZeroShotCrossModalRetrieval",
         "task_specs": [{"query_modality": "rgb", "target_modality": "text", "top_k": [1, 5]}]}}}
     reset_counts()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
     state = run_experiment(cfg)
     torch.cuda.synchronize()
     counts = launch_counts()
     probe = ParallelProbe.runs[-1]
     weights = {k: v.detach().cpu() for k, v in full_state(state.task.state_dict()).items()
                if torch.is_tensor(v)}
-    ms = (probe.times[PAR_STEPS] - probe.times[1]) / (PAR_STEPS - 1) * 1e3
-    return {"counts": counts, "history": probe.trainer.history, "weights": weights, "ms": ms,
+    t = probe.times
+    steps_ms = [(t[i] - t[i - 1]) * 1e3 for i in range(2, PAR_PROF + 1)]
+    diag = {
+        "steps_ms": steps_ms,
+        "wait_ms": (probe.waits[PAR_PROF] - probe.waits[1]) * 1e3 / (PAR_PROF - 1),
+        "gc_ms": (probe.gc_s[PAR_PROF] - probe.gc_s[1]) * 1e3 / (PAR_PROF - 1),
+        "gc_objects": len(gc.get_objects()),
+        "prof_wall_ms": (t[PAR_STEPS] - t["prof_start"]) * 1e3 / (PAR_STEPS - PAR_PROF),
+        "kernel_ms": probe.kernel_ms,
+        "threads": sorted(th.name for th in threading.enumerate()),
+        "torch_threads": torch.get_num_threads(),
+        "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries,
+        "reserved_gb_before": reserved_gb,
+    }
+    return {"counts": counts, "history": probe.trainer.history, "weights": weights,
+            "ms": statistics.median(steps_ms), "diag": diag,
             "val": probe.val, "step": state.step,
             "sharded": type(state.task).__name__.startswith("FSDP"),
             "depth": sum(len(enc.blocks) for enc in state.task.encoders.values())}
@@ -5809,10 +5881,22 @@ def parallel_path(device) -> None:
     print(f"parallel path: validation {got['val']}")
     check(keys and all(got["val"][k] == want["val"][k] for k in keys),
           f"parallel path: recall {got['val']} against {want['val']}")
+    for run, res in (("NCCL", got), ("undistributed", want)):
+        d = res["diag"]
+        print(f"parallel path ({run}) steps 2-{PAR_PROF}: "
+              f"{', '.join(f'{x:.2f}' for x in d['steps_ms'])} ms (median {res['ms']:.2f}); "
+              f"feeder wait {d['wait_ms']:.2f} ms a step, garbage collector {d['gc_ms']:.2f} ms "
+              f"a step ({d['gc_objects']} objects tracked after the run); under the profiler (steps "
+              f"{PAR_PROF + 1}-{PAR_STEPS}) {d['prof_wall_ms']:.2f} ms a step, kernels "
+              f"{d['kernel_ms']:.2f} ms (idle share {1 - d['kernel_ms'] / d['prof_wall_ms']:.3f}); "
+              f"torch threads {d['torch_threads']}, allocator retries {d['alloc_retries']}, "
+              f"reserved before {d['reserved_gb_before']:.2f} GB; {len(d['threads'])} Python "
+              f"threads: {', '.join(d['threads'])}")
     print(f"parallel path train b{PAR_BATCH}: FSDP2 wrapper at world 1 over NCCL "
-          f"{got['ms']:.2f} ms a step, the undistributed trainer {want['ms']:.2f} ms "
-          f"({got['ms'] / want['ms']:.3f} x); phase 9's {TRAINER_MS.get('ms', float('nan')):.2f} "
-          f"ms a micro-step")
+          f"{got['ms']:.2f} ms a step (median of steps 2-{PAR_PROF}), the undistributed "
+          f"trainer {want['ms']:.2f} ms ({got['ms'] / want['ms']:.3f} x); kernels a step "
+          f"{got['diag']['kernel_ms']:.2f} / {want['diag']['kernel_ms']:.2f} ms; phase 9's "
+          f"{TRAINER_MS.get('ms', float('nan')):.2f} ms a micro-step")
 
 
 def parallel_phase(device) -> tuple[dict, dict, dict]:
@@ -6023,22 +6107,28 @@ def main() -> int:
             "mmlearn_tpu/ops/flash_attention.py:267", f"K3b {k3_row}",
             (("flash_bwd_dkv", d), ("flash_bwd_dq", d)))
     launches.update(large_by_dim)
-    # phase 16's K3 instances: their launches on the ring's runs (its main path)
+    # phase 16's K3 instances: their launches on the ring's runs (its main
+    # path). K3f's bf16-output instance at D=128 runs on no main path (every
+    # ring hop writes f32): it is checked and timed at the kernel phase only,
+    # and its ring count must stay 0
     for name, row, counts in (
             ("flash_attention_fwd_f32", "K3f f32 hop H=16 D=64", (("flash_fwd_f32", 64),)),
             ("flash_attention_fwd_f32_d128", "K3f f32 hop H=8 D=128",
              (("flash_fwd_f32", 128),)),
             ("flash_attention_fwd_d128", f"K3f N={K3_D128_N} H={K3_D128_H} D=128",
-             (("flash_fwd", 128),)),
+             (("flash_fwd_bf16", 128),)),
             ("flash_attention_bwd_d128", f"K3b N={K3_D128_N} H={K3_D128_H} D=128",
              (("flash_bwd_dkv", 128), ("flash_bwd_dq", 128)))):
         rows[name] = ("cuda", "mmlearn_tpu_torch/csrc/flash_attention.cu",
                       "mmlearn_tpu/ops/flash_attention.py:267" if "bwd" in name else
                       "mmlearn_tpu/ops/flash_attention.py:76", row, counts)
-        check(sum(ring_launches.get(c, 0) for c in counts) > 0,
-              f"{name} was never launched on phase 16's ring")
+        ring = sum(ring_launches.get(c, 0) for c in counts)
+        if name == "flash_attention_fwd_d128":
+            check(ring == 0, f"{name}: {ring} launches on phase 16's ring, which writes f32")
+        else:
+            check(ring > 0, f"{name} was never launched on phase 16's ring")
     errors["flash_attention_fwd_f32_d128"] = errors["flash_attention_fwd_f32"]
-    for key in (("flash_fwd_f32", 64), ("flash_fwd_f32", 128), ("flash_fwd", 128),
+    for key in (("flash_fwd_f32", 64), ("flash_fwd_f32", 128), ("flash_fwd_bf16", 128),
                 ("flash_bwd_dkv", 128), ("flash_bwd_dq", 128)):
         launches[key] = ring_launches.get(key, 0)
     for name in rows:

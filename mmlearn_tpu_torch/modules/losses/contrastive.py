@@ -64,38 +64,15 @@ def masked_infonce(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp_min(1)
 
 
-def masked_infonce_chunked(
-    za: torch.Tensor,
-    zb: torch.Tensor,
-    scale: torch.Tensor,
-    valid: torch.Tensor,
-    chunk_size: int = 4096,
-) -> torch.Tensor:
-    """InfoNCE(a -> b) with a streaming log-sum-exp over column chunks: the
-    ``(B, B)`` logits are never held whole. Equal to :func:`masked_infonce`
-    of ``scale * za zb^T``."""
-    za32, zb32 = za.float(), zb.float()
-    m = torch.full((za.shape[0],), -torch.inf, device=za.device)
-    l = torch.zeros(za.shape[0], device=za.device)
-    for start in range(0, zb.shape[0], chunk_size):
-        s = scale * torch.matmul(za32, zb32[start:start + chunk_size].T)
-        s = torch.where(valid[None, start:start + chunk_size], s, NEG)
-        m_cur = torch.maximum(m, s.max(dim=-1).values)
-        l = l * torch.exp(m - m_cur) + torch.exp(s - m_cur[:, None]).sum(dim=-1)
-        m = m_cur
-    ce = m + torch.log(l) - scale * (za32 * zb32).sum(dim=-1)
-    return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp_min(1)
-
-
 def infonce_rows(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
                  valid_rows: torch.Tensor, valid_cols: torch.Tensor, offset: int,
                  chunk_size: Optional[int] = None) -> torch.Tensor:
-    """The sum of InfoNCE(a -> b) over the valid rows of ``za`` (a rank's
-    rows) against every column of ``zb``, the positive of row ``i`` at column
-    ``offset + i`` (``local_loss``); streamed over column chunks with
-    ``chunk_size``."""
+    """The sum of InfoNCE(a -> b) over the valid rows of ``za`` (all rows,
+    or a rank's under ``local_loss``) against every column of ``zb``, the
+    positive of row ``i`` at column ``offset + i``. With ``chunk_size`` the
+    log-sum-exp streams over column chunks: the logits are never held
+    whole."""
     za32, zb32 = za.float(), zb.float()
-    pos = scale * (za32 * zb32[offset:offset + za.shape[0]]).sum(dim=-1)
     if chunk_size is None:
         lse = torch.logsumexp(torch.where(valid_cols[None, :], scale * za32 @ zb32.T, NEG), -1)
     else:
@@ -108,7 +85,21 @@ def infonce_rows(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
             l = l * torch.exp(m - m_cur) + torch.exp(s - m_cur[:, None]).sum(dim=-1)
             m = m_cur
         lse = m + torch.log(l)
+    pos = scale * (za32 * zb32[offset:offset + za.shape[0]]).sum(dim=-1)
     return torch.where(valid_rows, lse - pos, 0.0).sum()
+
+
+def masked_infonce_chunked(
+    za: torch.Tensor,
+    zb: torch.Tensor,
+    scale: torch.Tensor,
+    valid: torch.Tensor,
+    chunk_size: int = 4096,
+) -> torch.Tensor:
+    """InfoNCE(a -> b) with a streaming log-sum-exp over column chunks:
+    :func:`infonce_rows`' mean over the valid rows. Equal to
+    :func:`masked_infonce` of ``scale * za zb^T``."""
+    return infonce_rows(za, zb, scale, valid, valid, 0, chunk_size) / valid.sum().clamp_min(1)
 
 
 def _validity(

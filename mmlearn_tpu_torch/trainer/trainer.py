@@ -762,7 +762,7 @@ class Trainer:
         full = [p.grad for p in params]  # FSDP2's sharded gradients are DTensors
         # their local shards: every update below is in place, on this rank's shard
         grads = [None if g is None else _local(g) for g in full]
-        grad_norm = self._global_norm([g for g in grads if g is not None])
+        grad_norm = self._global_norm([g for g in full if g is not None])
         record = {"step": i, "lr": lr, **metrics, "grad_norm": grad_norm}
         state.step = i + 1
         if k > 1:
@@ -792,12 +792,12 @@ class Trainer:
                 p.grad = acc  # the window's mean so far
             if m < k - 1:
                 return record
-            grads = [None if a is None else _local(a) for a in state.accumulated]
+            full = state.accumulated
             state.accumulated = None
             clip_norm = None
         else:
             clip_norm = grad_norm
-        self._clip([g for g in grads if g is not None], clip_norm)
+        self._clip([g for g in full if g is not None], clip_norm)
         optimizer.step()  # the applied gradient stays in .grad until the next step
         task.post_update(i // k)
         if state.lr_scheduler is not None:
@@ -805,29 +805,39 @@ class Trainer:
         return record
 
     def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
-        """The global norm of a gradient given by its local shards: the
-        local sum of squares added over the ``fsdp`` ranks (over ``data`` the
-        shards are replicas). On one shard it is ``get_total_norm``'s."""
+        """The global norm of the gradients as the parameters hold them:
+        FSDP2's ``DTensor`` shards and the plain, replicated gradients of the
+        parameters it does not manage (the 0-d logit scale). The shards' sum
+        of squares is added over the ``fsdp`` ranks (over ``data`` they are
+        replicas), the plain gradients' squares once. On one shard it is
+        ``get_total_norm``'s."""
+        local = [_local(g) for g in grads]
         if not self._sharded or self.mesh.shape["fsdp"] == 1 or not grads:
-            return torch.nn.utils.get_total_norm(grads)
+            return torch.nn.utils.get_total_norm(local)
         import torch.distributed as dist
 
-        sq = torch.stack([g.float().square().sum() for g in grads]).sum()
+        def squares(ts: list[torch.Tensor]) -> torch.Tensor:
+            return sum((t.float().square().sum() for t in ts),
+                       torch.zeros((), device=local[0].device))
+
+        sq = squares([t for g, t in zip(grads, local) if t is not g])
         dist.all_reduce(sq, group=self.mesh.group("fsdp"))
-        return sq.sqrt()
+        return (sq + squares([g for g, t in zip(grads, local) if t is g])).sqrt()
 
     def _clip(self, grads: list[torch.Tensor], norm: Optional[torch.Tensor]) -> None:
+        """Clip in place the gradients as the parameters hold them (see
+        :meth:`_global_norm`), by ``norm`` where it is given."""
         if not self.gradient_clip_val:
             return
         if self.gradient_clip_algorithm == "value":
             for g in grads:
-                g.clamp_(-self.gradient_clip_val, self.gradient_clip_val)
+                _local(g).clamp_(-self.gradient_clip_val, self.gradient_clip_val)
             return
         if norm is None:
             norm = self._global_norm(grads)
         coef = torch.clamp(self.gradient_clip_val / norm, max=1.0)
         for g in grads:
-            g.mul_(coef)
+            _local(g).mul_(coef)
 
     def _read_back(self, pending: list[dict[str, Any]]) -> dict[str, float]:
         """Move the pending records to :attr:`history`; the last one's

@@ -5,8 +5,9 @@ gloo processes (``tests/torch_mp_worker.py``, through the port's
 ``mp_launch``) that runs every multi-process scenario, each held to one
 process on the global batch at the tolerances of
 ``tests/parallel/test_multiprocess.py``: the fit at ``data=2`` and at
-``fsdp=2`` (losses rtol 2e-5 / atol 1e-6, weights 1e-5 / 1e-6; SGD, whose
-update is linear in the gradient), the contrastive loss's gradients through
+``fsdp=2`` (losses and gradient norms rtol 2e-5 / atol 1e-6, weights 1e-5 /
+1e-6; SGD, whose update is linear in the gradient, clipped by the global
+norm), the contrastive loss's gradients through
 the gather, the retrieval recall and the classification metrics (equal), the
 export shards, a checkpoint saved at world 2 and resumed at world 1 (1e-5 /
 1e-6), the ring over ``batch_isend_irecv`` (bit-equal to the list exchange)
@@ -221,8 +222,9 @@ def runs(tmp_path_factory):
     spawn = threading.Thread(target=_spawn, args=(out, result))
     spawn.start()
     try:
-        task, losses = worker.fit(None, root=str(tmp_path_factory.mktemp("one_process")))
-        fit = (np.asarray(losses), worker.flat_params(task))
+        task, capture = worker.fit(None, root=str(tmp_path_factory.mktemp("one_process")))
+        fit = (np.asarray(capture.losses), np.asarray(capture.grad_norms),
+               worker.flat_params(task))
         evaluation = single_eval(tmp_path_factory.mktemp("one_process_eval"))
     finally:
         spawn.join(timeout=330)
@@ -249,11 +251,17 @@ def one_process_eval(runs):
 
 @pytest.mark.parametrize("axis", ["data", "fsdp"])
 def test_fit_matches_one_process(two_processes, one_process, axis):
+    """Every step's loss and gradient norm (the norm the clipping applies,
+    which counts the replicated logit scale's gradient once) and the
+    weights."""
     ranks, _ = two_processes
-    losses, params = one_process
+    losses, grad_norms, params = one_process
+    assert grad_norms[0] > worker.CLIP  # the first steps are clipped
     for r in range(2):
         np.testing.assert_allclose(ranks[r][f"fit_{axis}_losses_{r}"], losses, rtol=2e-5,
                                    atol=1e-6)
+        np.testing.assert_allclose(ranks[r][f"fit_{axis}_grad_norms_{r}"], grad_norms,
+                                   rtol=2e-5, atol=1e-6)
     np.testing.assert_array_equal(ranks[0][f"fit_{axis}_params_0"],
                                   ranks[1][f"fit_{axis}_params_1"])
     np.testing.assert_allclose(ranks[0][f"fit_{axis}_params_0"], params, rtol=1e-5, atol=1e-6)
@@ -332,7 +340,7 @@ def test_checkpoint_from_two_processes_resumes_in_one(two_processes, tmp_path):
     from mmlearn_tpu_torch.trainer import Trainer
 
     trainer = Trainer(max_steps=4, log_every_n_steps=1, device="cpu", seed=0,
-                      default_root_dir=str(tmp_path / "a"))
+                      default_root_dir=str(tmp_path / "a"), gradient_clip_val=worker.CLIP)
     state = trainer.fit(resumed, worker.Loader(worker.batches()), ckpt_path=str(out / "ckpt"))
     assert trainer.restored_step == 2 and state.step == 4
     straight, _ = worker.fit(None, steps=4, root=str(tmp_path / "b"))

@@ -3,8 +3,9 @@ rank and world from the environment that ``mmlearn_tpu_torch.parallel.mp_launch`
 sets, gloo on the CPU. Runs every scenario in one process group and writes
 what the parent test compares under ``<outdir>``:
 
-- ``fit_data`` / ``fit_fsdp``: 6 steps of the tiny pair (SGD) at ``data=2``
-  and at ``fsdp=2`` on the global batches of :func:`batches`;
+- ``fit_data`` / ``fit_fsdp``: 6 steps of the tiny pair (SGD, clipped by the
+  global norm at :data:`CLIP`) at ``data=2`` and at ``fsdp=2`` on the global
+  batches of :func:`batches`: losses, gradient norms and weights;
 - ``loss``: the contrastive loss and its embedding gradients through the
   gather, global and ``local_loss``;
 - ``eval``: ``Trainer.validate`` with zero-shot retrieval and an embedding
@@ -34,6 +35,9 @@ sys.path.insert(0, REPO)
 
 GLOBAL_BATCH = 8
 STEPS = 6
+#: the fits' ``gradient_clip_val``: below the global norm of the first steps
+#: (28.1, 3.6, 1.03 in one process), so those steps are clipped
+CLIP = 1.0
 
 
 def batches(n: int = STEPS, seed: int = 0) -> list[dict]:
@@ -64,16 +68,18 @@ class Loader:
 
 
 class Capture:
-    """The logged losses by step."""
+    """The logged losses and gradient norms by step."""
 
     def __init__(self):
         self.losses = []
+        self.grad_norms = []
 
     def on_train_start(self, trainer): ...
 
     def on_train_batch_end(self, trainer, metrics, step):
         if "loss" in metrics:
             self.losses.append(float(metrics["loss"]))
+            self.grad_norms.append(float(metrics["grad_norm"]))
 
     def on_train_epoch_end(self, trainer, epoch): ...
 
@@ -102,15 +108,16 @@ def flat_params(task) -> np.ndarray:
 
 
 def fit(mesh_shape, steps=STEPS, callbacks=(), root="root"):
+    """The tiny pair's fit; returns the task and the :class:`Capture`."""
     from mmlearn_tpu_torch.trainer import Trainer
 
     capture = Capture()
     trainer = Trainer(max_steps=steps, log_every_n_steps=1, mesh_shape=mesh_shape,
                       callbacks=[capture, *callbacks], device="cpu", seed=0,
-                      default_root_dir=root)
+                      default_root_dir=root, gradient_clip_val=CLIP)
     task = sgd_task()
     trainer.fit(task, Loader(batches()))
-    return task, capture.losses
+    return task, capture
 
 
 def loss_inputs(seed: int = 3):
@@ -252,8 +259,9 @@ def main() -> None:
     rank, world = dist.get_rank(), dist.get_world_size()
     out: dict[str, np.ndarray] = {}
     for name, shape in (("data", {"data": world}), ("fsdp", {"data": 1, "fsdp": world})):
-        task, losses = fit(shape, root=os.path.join(outdir, f"root_{name}"))
-        out[f"fit_{name}_losses_{rank}"] = np.asarray(losses)
+        task, capture = fit(shape, root=os.path.join(outdir, f"root_{name}"))
+        out[f"fit_{name}_losses_{rank}"] = np.asarray(capture.losses)
+        out[f"fit_{name}_grad_norms_{rank}"] = np.asarray(capture.grad_norms)
         out[f"fit_{name}_params_{rank}"] = flat_params(task)
         set_global_mesh(None)
     scenario_loss(rank, world, out)
