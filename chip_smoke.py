@@ -288,9 +288,30 @@ Phases, each fatal on failure:
     device time a step and the idle share). K3f's bf16-output instance at
     D=128 runs on no main path (the ring's hops write f32): its row reports
     0 launches, and its ring count is checked to be 0.
+17. the tensor-parallel path (``tp_phase``), on the one card: the
+    flagship's towers at full width (ViT-B/16 at 224 px, the 12-block
+    causal text tower), b128, bf16, ``TP_STEPS`` steps of ``Trainer.fit``
+    on ``mesh_shape`` ``data=1, fsdp=1, model=2``: two processes started by
+    ``mp_launch.run_workers``, both on ``cuda:0`` over gloo (NCCL refuses
+    two ranks of one communicator on one device), each running K1f/K1b on
+    its 6 of the image tower's 12 heads and 4 of the text tower's 8, K2f/K2b
+    on the whole rows; biases drawn from N(0, ``TP_BIAS_STD``) so that a
+    bias added on both ranks shows; against the same steps of the
+    undistributed trainer in this process: every step's loss and
+    ``grad_norm`` (``TP_LOSS_REL``, ``TP_NORM_REL``) and every parameter
+    after the steps (``TP_WEIGHT_REL``, each norm-relative); each rank's
+    K1f, K1b, K2f and K2b launches equal to the undistributed run's, and no
+    layer on the sharded plan's plain route; ms a step a rank (steps 2-4 on
+    the host clock) against the undistributed step's, and the collectives'
+    host time a step (steps 5-6 under torch.profiler). Then each rank
+    splits ``TP_LAYOUTS``' attention layers, whose sharded plan says
+    ``"xla"`` (the local heads of a ``model=4`` group, or a head count that
+    2 does not divide): forward and backward in bf16 launch K3 on the
+    rank's heads and take no plain route, within ``TP_LAYOUT_REL`` of the
+    same layer unsplit.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the sixteenth.
+checks that K5 never launched there; so do the eighth to the seventeenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -720,8 +741,9 @@ def k1p_check(tag: str, x, mask, h: int, causal: bool, out, dqkv, dout, err: dic
 def kernel_checks(device, gen) -> dict:
     """K1 against its plain version on the card at batch 8: forward and
     backward (through ``fused_mha`` and autograd) on the image and text
-    attention cases (with a ragged and a left-padded mask) and at the
-    lengths where its bf16 code branches. Returns each kernel's largest
+    attention cases (with a ragged and a left-padded mask), at the lengths
+    where its bf16 code branches, and on a ``model=2`` rank's heads of each
+    tower (phase 17's shapes). Returns each kernel's largest
     error (K2's at 0, for :func:`norm_checks`)."""
     import torch
 
@@ -753,11 +775,23 @@ def kernel_checks(device, gen) -> dict:
         cases += [("edge", n, h, d, None, False, torch.bfloat16),
                   ("edge causal", n, h, d, None, True, torch.bfloat16),
                   ("edge causal+left-pad mask", n, h, d, edge_left, True, torch.bfloat16)]
+    # phase 17's shapes: a model=2 rank's heads of the image and text towers,
+    # with and without a ragged key mask, drawn from a generator of their own
+    # so that the cases above keep their data
+    tp_gen = torch.Generator(device=device).manual_seed(SEED + 175)
+    image_mask = torch.arange(197, device=device)[None] < (lens * 197) // 77
+    tp_cases = [("a model=2 rank's image heads", 197, 6, 64, None, False, torch.bfloat16),
+                ("a model=2 rank's image heads+ragged mask", 197, 6, 64, image_mask, False,
+                 torch.bfloat16),
+                ("a model=2 rank's text heads causal", 77, 4, 64, None, True, torch.bfloat16),
+                ("a model=2 rank's text heads causal+ragged mask", 77, 4, 64, mask.bool(), True,
+                 torch.bfloat16)]
     err = {"fused_mha_fwd": 0.0, "fused_mha_bwd": 0.0, "layernorm_fwd": 0.0,
            "layernorm_bwd": 0.0}
-    for label, n, h, d, m, causal, dtype in cases:
-        x = torch.randn(b, n, 3 * h * d, generator=gen, device=device).to(dtype)
-        dout = torch.randn(b, n, h * d, generator=gen, device=device).to(dtype)
+    for i, (label, n, h, d, m, causal, dtype) in enumerate(cases + tp_cases):
+        g = gen if i < len(cases) else tp_gen
+        x = torch.randn(b, n, 3 * h * d, generator=g, device=device).to(dtype)
+        dout = torch.randn(b, n, h * d, generator=g, device=device).to(dtype)
         x.requires_grad_()
         out = fa.fused_mha(x, m, num_heads=h, causal=causal)
         (dqkv,) = torch.autograd.grad(out, x, dout)
@@ -5916,6 +5950,364 @@ def parallel_phase(device) -> tuple[dict, dict, dict]:
     return rows, launches, errors
 
 
+TP_STEPS = 6
+TP_BATCH = 128
+TP_MESH = {"data": 1, "fsdp": 1, "model": 2}
+#: the spread of the biases phase 17 draws (the towers start them at 0)
+TP_BIAS_STD = 0.02
+#: SGD (an update linear in the gradient, as phase 9's parity and the CPU
+#: tests take: AdamW's sign-like first updates turn bf16 rounding of
+#: near-zero gradients into whole steps)
+TP_LR = 0.1
+TP_TIMED = (2, 4)  # steps 2-4 on the host clock
+#: limits of phase 17 against the undistributed trainer, each relative:
+#: every step's loss and ``grad_norm``; after the steps, each parameter's
+#: ||got - want|| / ||want||, and over its update from the start,
+#: ||got - want|| / ||want - start||: about 2x a sound run's readings on an
+#: NVIDIA H100 80GB HBM3 at 700 W (6.584e-05, 8.011e-03, 1.626e-02,
+#: 4.704e-02), below a copy that adds the bias on both ranks (8.473e-04,
+#: 3.827e-02, 4.793e-02, 1.993e-01) or skips the all-reduce (6.586e-03,
+#: 2.165, 7.184e-01, 5.311); ``tools/tp_mutants.py`` reads them
+TP_LOSS_REL = 1.5e-4
+TP_NORM_REL = 1.6e-2
+TP_WEIGHT_REL = 3.5e-2
+TP_UPDATE_REL = 1e-1
+#: phase 17's attention layers whose sharded plan says "xla", split over
+#: its model=2 group: (label, heads, head dim, tokens, causal, masked); on
+#: the card each runs its local heads on K3
+TP_LAYOUTS = (("ViT-B/16's 3 local heads at model=4", 6, 64, 197, False, False),
+              ("ViT-H/14's 4 local heads at model=4", 8, 80, 257, False, False),
+              ("3 heads, qkv gathered (H % model != 0)", 3, 64, 77, True, True))
+TP_LAYOUT_BATCH = 8
+#: limit of a TP_LAYOUTS layer's output and input gradient against the
+#: same layer unsplit (K1 on every head there), norm-relative: about 2x a
+#: sound run's largest reading on an NVIDIA H100 80GB HBM3 at 700 W
+#: (4.399e-03), below the output of a copy that adds the bias on both ranks
+#: (1.630e-01) or skips the all-reduce (6.959e-01)
+TP_LAYOUT_REL = 9e-3
+#: the profiler events phase 17 counts as the model group's collectives
+TP_COMM_EVENTS = ("all_reduce", "allreduce", "all_gather", "allgather", "reduce_scatter",
+                  "wait_tensor", "broadcast")
+
+
+def tp_task(device):
+    """Phase 17's flagship: the towers from a seed, every bias drawn from
+    N(0, TP_BIAS_STD) by a generator of its own, SGD with momentum at
+    TP_LR and no schedule, on ``device``."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import flagship_training_task
+
+    task = flagship_training_task("cpu", seed=SEED + 170)
+    g = torch.Generator().manual_seed(SEED + 172)
+    with torch.no_grad():
+        for name, p in task.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * TP_BIAS_STD)
+    task.optimizer_factory = functools.partial(torch.optim.SGD, lr=TP_LR, momentum=0.9)
+    task.lr_scheduler_factory = None
+    return task.to(device)
+
+
+class TPProbe:
+    """Phase 17's callback: the host clock after a synchronize at each
+    step's end, every step's loss and ``grad_norm``, and torch.profiler over
+    the steps after TP_TIMED's last."""
+
+    def __init__(self) -> None:
+        self.times: dict = {}
+        self.records: list = []
+        self.prof = None
+        self.comm_ms = float("nan")
+        self.comm_calls: dict = {}
+
+    def on_train_start(self, trainer) -> None: ...
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.times[step] = time.perf_counter()
+        self.records.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        if step == TP_STEPS and self.prof is not None:
+            self.prof.stop()
+            steps = TP_STEPS - TP_TIMED[1]
+            comm = [e for e in self.prof.key_averages()
+                    if any(k in e.key.lower() for k in TP_COMM_EVENTS)]
+            self.comm_ms = sum(e.self_cpu_time_total for e in comm) / 1e3 / steps
+            self.comm_calls = {e.key: e.count // steps for e in comm}
+            self.prof = None
+        if step == TP_TIMED[1] and trainer.mesh is not None:
+            self.prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU])
+            self.prof.start()
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None: ...
+
+    def on_train_end(self, trainer) -> None: ...
+
+
+def tp_fit(device, mesh_shape=None, task=None) -> dict:
+    """TP_STEPS steps of :func:`tp_task` (or ``task``, built by it) at b128
+    through ``Trainer.fit`` (on ``mesh_shape``, or undistributed), launches
+    counted from 0: the records, the launches, the plain-route count, ms a
+    step over TP_TIMED (median), the collectives' host time a step, and the
+    weights whole on the CPU, at the start and after the steps."""
+    import torch
+
+    from mmlearn_tpu_torch.ops.fused_attention import PLAIN_ROUTE
+    from mmlearn_tpu_torch.trainer import Trainer
+    from mmlearn_tpu_torch.trainer.state import full_state
+
+    task = tp_task(device) if task is None else task.to(device)
+    start = {n: p.detach().float().cpu() for n, p in task.named_parameters()}
+    probe = TPProbe()
+    trainer = Trainer(max_steps=TP_STEPS, log_every_n_steps=1, mesh_shape=mesh_shape,
+                      callbacks=[probe], device=device, seed=SEED)
+    loader = SyntheticPairs(TP_STEPS, TP_BATCH, SEED + 171, device)
+    reset_counts()
+    PLAIN_ROUTE["xla"] = 0
+    state = trainer.fit(task, loader)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t = probe.times
+    steps_ms = [(t[i] - t[i - 1]) * 1e3 for i in range(TP_TIMED[0], TP_TIMED[1] + 1)]
+    weights = {k: v.detach().float().cpu() for k, v in
+               full_state({n: p for n, p in state.task.named_parameters()}).items()}
+    heads = {}
+    for name, mod in state.task.named_modules():
+        if type(mod).__name__ == "Attention":
+            heads[name.split(".")[1]] = mod.model_shard
+    return {"records": probe.records, "counts": counts, "plain": PLAIN_ROUTE["xla"],
+            "steps_ms": steps_ms, "ms": statistics.median(steps_ms),
+            "comm_ms": probe.comm_ms, "comm_calls": probe.comm_calls, "weights": weights,
+            "start": start,
+            "model_shard": heads, "depth": sum(len(e.blocks) for e in state.task.encoders.values())}
+
+
+def tp_layouts(device) -> dict:
+    """Each ``TP_LAYOUTS`` attention layer (bf16, biases from N(0,
+    ``TP_BIAS_STD``)) split over the global mesh's ``model`` group, one
+    forward and backward at batch ``TP_LAYOUT_BATCH`` with launches counted
+    from 0, against the same layer unsplit on the same rank: ``{label:
+    {"plan", "counts", "plain", "y_rel", "dx_rel"}}``."""
+    import copy
+
+    import torch
+
+    from mmlearn_tpu_torch.flagship import ragged_text_batch
+    from mmlearn_tpu_torch.modules.layers.attention import Attention
+    from mmlearn_tpu_torch.ops.fused_attention import PLAIN_ROUTE, shard_plan
+    from mmlearn_tpu_torch.parallel.mesh import get_global_mesh
+    from mmlearn_tpu_torch.parallel.partitioning import infer_param_specs
+    from mmlearn_tpu_torch.parallel.tensor_parallel import parallelize
+
+    mesh = get_global_mesh()
+    b = TP_LAYOUT_BATCH
+    results = {}
+    for i, (label, h, d, n, causal, masked) in enumerate(TP_LAYOUTS):
+        torch.manual_seed(SEED + 176 + i)
+        attn = Attention(h * d, h, qkv_bias=True, causal=causal, dtype=torch.bfloat16)
+        with torch.no_grad():
+            for p in (attn.qkv.bias, attn.proj.bias):
+                p.normal_(0.0, TP_BIAS_STD)
+        attn = attn.to(device)
+        whole = copy.deepcopy(attn)
+        layer = torch.nn.ModuleDict({"attn": attn})
+        parallelize(layer, mesh, infer_param_specs(layer, mesh))
+        g = torch.Generator(device=device).manual_seed(SEED + 180 + i)
+        x = torch.randn(b, n, h * d, generator=g, device=device)
+        dy = torch.randn(b, n, h * d, generator=g, device=device).to(torch.bfloat16)
+        mask = ragged_text_batch(b, g, device)["text_attention_mask"].bool() if masked else None
+        reset_counts()
+        PLAIN_ROUTE["xla"] = 0
+        xs = x.clone().requires_grad_()
+        y = attn(xs, mask)
+        (dx,) = torch.autograd.grad(y, xs, dy)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        plain = PLAIN_ROUTE["xla"]
+        xw = x.clone().requires_grad_()
+        yw = whole(xw, mask)
+        (dxw,) = torch.autograd.grad(yw, xw, dy)
+        results[label] = {"plan": shard_plan(h, d, b, mesh), "counts": counts, "plain": plain,
+                          "y_rel": rel_err(y, yw), "dx_rel": rel_err(dx, dxw)}
+    return results
+
+
+def gather_through_c10d() -> None:
+    """Route the functional all-gather (``DTensor``'s gather of a shard:
+    a split layer's replicated bias gradient, ``full_tensor``) through
+    c10d's ``all_gather_into_tensor``, the same collective: on CUDA tensors
+    gloo carries the latter (and every other collective phase 17 makes),
+    while its functional all-gather ends the process (SIGSEGV, torch 2.11
+    on the H100). Phase 17's two ranks share one card, which NCCL refuses,
+    so gloo carries them; a job of one process a card runs NCCL and needs
+    none of this."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed import distributed_c10d
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        pg = distributed_c10d._resolve_process_group(funcol._resolve_group_name(group, tag))
+        n = pg.size()
+        out = self.new_empty((n * self.shape[0], *self.shape[1:]))
+        dist.all_gather_into_tensor(out, self.contiguous(), group=pg)
+        return out if gather_dim == 0 else torch.cat(out.chunk(n), dim=gather_dim)
+
+    funcol.all_gather_tensor = all_gather_tensor
+
+
+def tp_worker(out_dir: str) -> None:
+    """One rank of phase 17's job, started by ``run_workers``: joins the
+    group over gloo on ``cuda:0`` (both ranks share the card), runs
+    :func:`tp_fit` on TP_MESH and saves its result (the weights from rank 0)
+    to ``<out_dir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlearn_tpu_torch.parallel.mesh import init_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = "0"  # both ranks' card
+    device = init_from_env("cuda:0", backend="gloo")
+    gather_through_c10d()
+    result = tp_fit(device, TP_MESH)
+    result["layouts"] = tp_layouts(device)
+    rank = dist.get_rank()
+    result.update(backend=dist.get_backend(), world=dist.get_world_size(), rank=rank)
+    if rank:
+        result.pop("weights")
+    result.pop("start")
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def tp_phase(device) -> dict:
+    """Phase 17 (see the module docstring). Returns rank 0's launches on
+    the fit."""
+    import shutil
+
+    import torch
+
+    from mmlearn_tpu_torch.parallel.mp_launch import run_workers
+
+    root = os.path.join(WORK_DIR, "tensor_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    code = f"import chip_smoke; chip_smoke.tp_worker({root!r})"
+    t0 = time.perf_counter()
+    spawned: dict = {}
+
+    def spawn() -> None:
+        try:
+            spawned["out"] = run_workers([[sys.executable, "-c", code]] * 2, env=env, cwd=REPO,
+                                         timeout=420)
+        except BaseException as err:  # noqa: BLE001 - raised below
+            spawned["error"] = err
+
+    thread = threading.Thread(target=spawn)
+    thread.start()
+    master = tp_task("cpu")  # the undistributed run's, built while the ranks run
+    thread.join()
+    if "error" in spawned:
+        raise spawned["error"]
+    print(f"tensor-parallel path: 2 ranks on one card in {time.perf_counter() - t0:.1f} s; "
+          "rank 0's last lines:\n" + "\n".join(spawned["out"][0].splitlines()[-3:]))
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    want = tp_fit(device, task=master)
+    print(f"tensor-parallel path: the undistributed trainer in {time.perf_counter() - t0:.1f} s")
+    for r, got in enumerate(ranks):
+        check(got["backend"] == "gloo" and got["world"] == 2 and got["rank"] == r,
+              f"tensor-parallel path rank {r}: backend {got['backend']}, world {got['world']}")
+        check(got["model_shard"] == {"rgb": (r, 2), "text": (r, 2)},
+              f"tensor-parallel path rank {r}: heads split {got['model_shard']}")
+    # launches: each rank runs every block on its heads, so the undistributed run's counts
+    kernels = ("fused_mha_fwd", "fused_mha_bwd", "layernorm_fwd", "layernorm_bwd")
+    per_step = {"fused_mha_fwd": want["depth"], "fused_mha_bwd": 2 * want["depth"],
+                "layernorm_fwd": 2 * want["depth"], "layernorm_bwd": 2 * want["depth"]}
+    for label, res in (("undistributed", want), ("rank 0", ranks[0]), ("rank 1", ranks[1])):
+        counts = res["counts"]
+        print(f"tensor-parallel path ({label}): launched " + ", ".join(
+            f"{k} {counts[k]} (want {per_step[k] * TP_STEPS}: {per_step[k]} a step)"
+            for k in kernels) + f"; the plain route {res['plain']} times")
+        check(all(counts[k] == per_step[k] * TP_STEPS for k in kernels),
+              f"tensor-parallel path ({label}) launches")
+        check(res["plain"] == 0, f"tensor-parallel path ({label}): the sharded plan's plain "
+              f"route taken {res['plain']} times")
+        check(counts["int8_qmm"] == counts["int8_qmm_bytes"] == 0,
+              f"K5 launched on the tensor-parallel path without {QUANT_ENV}")
+    # the numbers: every step's loss and grad_norm, every parameter after the steps
+    loss_rel = max(max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(res["records"],
+                                                                    want["records"]))
+                   for res in ranks)
+    norm_rel = max(max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(res["records"],
+                                                                    want["records"]))
+                   for res in ranks)
+    got_w, want_w, start = ranks[0]["weights"], want["weights"], want["start"]
+    check(set(got_w) == set(want_w), "tensor-parallel path: parameter names")
+    weight_rel = {n: rel_err(got_w[n], want_w[n]) for n in want_w}
+    update_rel = {n: float((got_w[n] - want_w[n]).norm() / (want_w[n] - start[n]).norm())
+                  for n in want_w if bool((want_w[n] != start[n]).any())}
+    worst = max(weight_rel, key=weight_rel.get)
+    worst_update = max(update_rel, key=update_rel.get)
+    print(f"tensor-parallel path: losses {['%.6f' % r[0] for r in ranks[0]['records']]} "
+          f"(undistributed {['%.6f' % r[0] for r in want['records']]}); grad_norm "
+          f"{['%.4f' % r[1] for r in ranks[0]['records']]} (undistributed "
+          f"{['%.4f' % r[1] for r in want['records']]})")
+    print(f"tensor-parallel path: largest relative difference from the undistributed run: "
+          f"loss {loss_rel:.3e} (limit {TP_LOSS_REL:.1e}), grad_norm {norm_rel:.3e} (limit "
+          f"{TP_NORM_REL:.1e}); after {TP_STEPS} steps ||got - want|| / ||want|| "
+          f"{weight_rel[worst]:.3e} at {worst} (limit {TP_WEIGHT_REL:.1e}; median over "
+          f"{len(weight_rel)} tensors {statistics.median(weight_rel.values()):.3e}), over the "
+          f"update ||got - want|| / ||want - start|| {update_rel[worst_update]:.3e} at "
+          f"{worst_update} (limit {TP_UPDATE_REL:.1e}; median {statistics.median(update_rel.values()):.3e})")
+    for r, res in enumerate(ranks):
+        calls = ", ".join(f"{k} {v}" for k, v in sorted(res["comm_calls"].items()))
+        print(f"tensor-parallel path rank {r}: steps {TP_TIMED[0]}-{TP_TIMED[1]} "
+              f"{', '.join(f'{x:.2f}' for x in res['steps_ms'])} ms (median {res['ms']:.2f}); "
+              f"collectives' host time {res['comm_ms']:.2f} ms a step (steps "
+              f"{TP_TIMED[1] + 1}-{TP_STEPS} under torch.profiler; a step's calls: {calls})")
+    print(f"tensor-parallel path train b{TP_BATCH}: model=2 on one card over gloo "
+          f"{ranks[0]['ms']:.2f} / {ranks[1]['ms']:.2f} ms a step a rank, the undistributed "
+          f"trainer {want['ms']:.2f} ms ({ranks[0]['ms'] / want['ms']:.3f} x)")
+    # the layouts whose plan says "xla": the local heads on K3, no plain route
+    want_counts = {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    for label, *_ in TP_LAYOUTS:
+        for r, res in enumerate(ranks):
+            got = res["layouts"][label]
+            print(f"tensor-parallel path rank {r}, {label}: plan {got['plan']!r}, launched "
+                  f"{got['counts']}, the plain route {got['plain']} times; against the layer "
+                  f"unsplit: output {got['y_rel']:.3e}, input gradient {got['dx_rel']:.3e} "
+                  f"(limit {TP_LAYOUT_REL:.1e})")
+            check(got["plan"] == "xla", f"tensor-parallel path, {label}: plan {got['plan']!r}")
+            check(got["counts"] == want_counts and got["plain"] == 0,
+                  f"tensor-parallel path rank {r}, {label}: launched {got['counts']}, the "
+                  f"plain route {got['plain']} times (want {want_counts}, 0)")
+            check(max(got["y_rel"], got["dx_rel"]) <= TP_LAYOUT_REL,
+                  f"tensor-parallel path rank {r}, {label}: off the unsplit layer by "
+                  f"{max(got['y_rel'], got['dx_rel']):.3e}")
+    check(ranks[0]["records"] == ranks[1]["records"],
+          "tensor-parallel path: the two ranks' records differ")
+    check(loss_rel <= TP_LOSS_REL, f"tensor-parallel path: loss off by {loss_rel:.3e}")
+    check(norm_rel <= TP_NORM_REL, f"tensor-parallel path: grad_norm off by {norm_rel:.3e}")
+    check(weight_rel[worst] <= TP_WEIGHT_REL,
+          f"tensor-parallel path: {worst} off by {weight_rel[worst]:.3e}")
+    check(update_rel[worst_update] <= TP_UPDATE_REL,
+          f"tensor-parallel path: {worst_update}'s update off by {update_rel[worst_update]:.3e}")
+    return ranks[0]["counts"]
+
+
 def _tensors(state: dict) -> dict:
     return {k: v for k, v in state.items() if hasattr(v, "shape")}
 
@@ -6042,14 +6434,18 @@ def main() -> int:
     times.update(parallel_rows)
     errors.update(parallel_errors)
     print(f"parallel path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_launches = tp_phase(device)
+    print(f"tensor-parallel path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate, the large presets' runs,
-    # the record path's fits, the BIOSCAN-CLIP fit, the multi-task run A
+    # the record path's fits, the BIOSCAN-CLIP fit, the multi-task run A,
+    # the tensor-parallel fit's rank 0
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
                    input_launches, eval_launches, large_launches_run, record_launches,
-                   bioscan_launches_run, multitask_launches_run):
+                   bioscan_launches_run, multitask_launches_run, tp_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

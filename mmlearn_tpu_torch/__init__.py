@@ -23,8 +23,9 @@ exporters, LoRA, the Lightning importer) and the BIOSCAN-CLIP project; the
 auxiliary tasks (I-JEPA on a contrastive task's shared tower), the config
 layer (``conf/``) and the experiment CLI (``cli/``, ``mmlearn_torch_run``)
 with the multi-task and I-JEPA project configs; parallelism over
-``torch.distributed`` (``parallel/``: the ``data``, ``fsdp`` and ``seq`` mesh
-axes, FSDP2) with ring attention (``ops/ring_attention.py``).
+``torch.distributed`` (``parallel/``: the ``data``, ``fsdp``, ``seq`` and
+``model`` mesh axes, FSDP2 and the column and row splits of tensor
+parallelism) with ring attention (``ops/ring_attention.py``).
 """
 
 __version__ = "0.1.0"

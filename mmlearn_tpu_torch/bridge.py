@@ -147,11 +147,36 @@ def torch_to_jax(module: nn.Module, scanned: bool = False,
             if state_dict is not None:
                 p = state_dict[f"{name}.{pname}" if name else pname]
             leaf, axes = _jax_leaf(mod, pname)
-            arr = p.detach().cpu().numpy()
+            arr = _whole(p.detach()).cpu().numpy()
             flat["/".join(filter(None, [jax_module_path(name), leaf]))] = (
                 np.ascontiguousarray(arr if axes is None else arr.transpose(axes))
             )
     return _stack_blocks(flat) if scanned else flat
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a DTensor (a task split over ``model`` and sharded by
+    FSDP2) gathered from its shards, a collective every rank of its mesh
+    makes in the same order; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def load_state(module: nn.Module, state: Mapping[str, Any]) -> None:
+    """Load a whole ``state_dict`` (the JAX parameters through
+    :func:`jax_to_torch`, or a one-device checkpoint's) into ``module``,
+    strictly. Into a parallelized task (split over ``model``, sharded by
+    FSDP2) through ``set_model_state_dict`` with the full state dict: each
+    rank keeps its shares of the whole tensors it is given."""
+    if any(hasattr(p, "placements") for p in module.parameters()):
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            set_model_state_dict,
+        )
+
+        set_model_state_dict(module, dict(state),
+                             options=StateDictOptions(full_state_dict=True, strict=True))
+    else:
+        module.load_state_dict(dict(state), strict=True)
 
 
 def _stack_blocks(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -6,8 +6,10 @@ Every draw is numpy's, from ``default_rng(seed + epoch)``, in the JAX
 package's order, so the same seed and epoch give the same indices. Each
 replica takes the strided shard ``indices[rank::num_replicas]`` of one
 global order. ``rank`` and ``num_replicas`` are passed explicitly; where
-they are not, they come from ``torch.distributed`` if it is initialized,
-else 0 and 1 (the JAX package asks ``jax.process_index()``).
+they are not, they are the global mesh's batch shards (``dp_rank`` of
+``data x fsdp``: the ranks of a ``seq`` or ``model`` group read the same
+rows) where one is set, else ``torch.distributed``'s rank and world where it
+is initialized, else 0 and 1 (the JAX package asks ``jax.process_index()``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ def _default_rank_and_replicas(
         return rank, num_replicas
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
+    from mmlearn_tpu_torch.parallel.mesh import peek_global_mesh
+
+    mesh = peek_global_mesh()
+    if mesh is not None and mesh.device_mesh is not None:
+        default_rank, default_world = mesh.dp_rank, mesh.dp_size
+    elif dist.is_available() and dist.is_initialized():
         default_rank, default_world = dist.get_rank(), dist.get_world_size()
     else:
         default_rank, default_world = 0, 1

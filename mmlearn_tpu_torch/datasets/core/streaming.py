@@ -6,8 +6,8 @@ and epoch.
 
 - shards are assigned round-robin ``shards[rank::world_size]`` so every
   process reads a disjoint subset. ``rank`` and ``world_size`` default to
-  ``torch.distributed``'s where a process group is up, else 0 and 1, the
-  rule of the port's samplers (the JAX package asks
+  the global mesh's batch shards, else ``torch.distributed``'s where a
+  process group is up, else 0 and 1, the rule of the port's samplers (the JAX package asks
   ``jax.process_index()`` and ``jax.process_count()``);
 - shard *order* reshuffles per epoch from ``(seed, epoch)`` -- ``set_epoch``
   follows the sampler protocol and is propagated by ``DataLoader``;
@@ -48,9 +48,9 @@ class StreamingDataset:
             that emits a uniformly-shuffled stream.
         seed: base seed; the effective stream order is a pure function of
             ``(seed, epoch, rank)``.
-        rank / world_size: shard-assignment coordinates; default to
-            ``torch.distributed``'s rank and world size where a process
-            group is up, else 0 and 1.
+        rank / world_size: shard-assignment coordinates; default to the
+            global mesh's batch shards, else ``torch.distributed``'s rank
+            and world size where a process group is up, else 0 and 1.
         infinite: loop forever, auto-advancing the epoch at each wrap so
             every pass sees a fresh shuffle.
     """

@@ -331,14 +331,20 @@ def tiny_training_task(seed: int = 0, device: torch.device | str = "cpu") -> Con
 
 
 def _dryrun_mesh(n: int) -> dict:
-    """The dry run's mesh: ``fsdp=2`` where ``n`` is even, else pure data."""
+    """The dry run's mesh, the JAX ``_dryrun_multichip_impl``'s rule:
+    ``fsdp=2, model=2`` where 4 divides ``n``, ``fsdp=2`` where ``n`` is
+    even, else pure data."""
+    if n % 4 == 0:
+        return {"data": n // 4, "fsdp": 2, "model": 2}
     return {"data": n // 2, "fsdp": 2} if n % 2 == 0 else {"data": n}
 
 
 def dryrun_step() -> float:
     """One sharded step of the tiny pair in a process group of n CPU
-    processes (gloo): each process loads its rows of a global batch of 2 a
-    process through the distributed sampler. Returns the logged loss."""
+    processes (gloo) on :func:`_dryrun_mesh`: each batch shard (``data x
+    fsdp``; the ranks of a ``model`` group read the same rows) loads its 2
+    rows of the global batch through the distributed sampler. Returns the
+    logged loss."""
     from mmlearn_tpu_torch.datasets.builtin.synthetic import SyntheticImageText
     from mmlearn_tpu_torch.datasets.core import CombinedDataset, DataLoader
     from mmlearn_tpu_torch.datasets.core.samplers import CombinedDatasetRatioSampler
@@ -346,10 +352,6 @@ def dryrun_step() -> float:
     from mmlearn_tpu_torch.trainer import Trainer
 
     n = torch.distributed.get_world_size()
-    ds = CombinedDataset([SyntheticImageText(size=2 * n, image_size=32, seq_len=16,
-                                             vocab_size=64, num_classes=4)])
-    loader = DataLoader(ds, batch_size=2, sampler=CombinedDatasetRatioSampler(
-        ds, shuffle=True, seed=0), drop_last=True)
     losses: list[float] = []
 
     class Capture:
@@ -367,6 +369,12 @@ def dryrun_step() -> float:
 
     trainer = Trainer(max_steps=1, log_every_n_steps=1, mesh_shape=_dryrun_mesh(n),
                       callbacks=[Capture()], device="cpu")
+    ds = CombinedDataset([SyntheticImageText(size=2 * n, image_size=32, seq_len=16,
+                                             vocab_size=64, num_classes=4)])
+    mesh = trainer.mesh
+    loader = DataLoader(ds, batch_size=2, sampler=CombinedDatasetRatioSampler(
+        ds, shuffle=True, seed=0, rank=mesh.dp_rank, num_replicas=mesh.dp_size),
+        drop_last=True)
     trainer.fit(tiny_training_task(), loader)
     set_global_mesh(None)
     return losses[-1]
@@ -385,7 +393,7 @@ def _dryrun_worker() -> None:
 
 def dryrun_multichip(n_devices: int, timeout: float = 600) -> float:
     """One sharded training step of the tiny pair over ``n_devices`` CPU
-    processes on gloo (mesh ``data x fsdp=2`` where even), each in a fresh
+    processes on gloo (mesh :func:`_dryrun_mesh`), each in a fresh
     process. Raises if a process fails or the processes' losses differ;
     returns the loss."""
     import os

@@ -11,6 +11,9 @@ two products and one sum, where ``lerp`` would round otherwise).
 ``skip_keys``: parameters whose name (the port's dotted name, such as
 ``blocks.0.attn.qkv.weight``) contains one of these strings take the
 student's value instead of the average.
+
+Under FSDP2 (and a ``model`` split) the teacher is sharded exactly as the
+student, so the update is elementwise on each rank's local shards.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ class ExponentialMovingAverage:
         averaged, sources = [], []
         new_params = dict(new.named_parameters())
         for name, p in ema.named_parameters():
-            src = new_params[name]
+            p, src = _local(p), _local(new_params[name])
             if any(s in name for s in self.skip_keys):
                 p.copy_(src)
             else:
@@ -58,3 +61,8 @@ class ExponentialMovingAverage:
         if averaged:
             torch._foreach_mul_(averaged, float(decay))
             torch._foreach_add_(averaged, sources, alpha=float(np.float32(1.0) - decay))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself otherwise)."""
+    return t.to_local() if hasattr(t, "to_local") else t

@@ -27,6 +27,23 @@ Routing is the JAX module's:
   over the mesh's ``seq`` exchange (every rank of the group holds the whole
   sequence here, runs its block through the ring and gathers the output).
 
+Split over the mesh's ``model`` axis
+(:mod:`~mmlearn_tpu_torch.parallel.tensor_parallel`), ``qkv`` gives each rank
+its heads (``H / P`` of them, whole) and every branch runs on those, routed
+by :func:`kernel_route`: on the card, K1 where
+:func:`~mmlearn_tpu_torch.ops.fused_attention.supports_fused` admits the
+local heads and the flash branch otherwise, whatever the JAX ``fused_mha``
+plan (:func:`~mmlearn_tpu_torch.ops.fused_attention.shard_plan`) says, since
+its ``"xla"`` answers come from the TPU kernel's lane tiling, which binds no
+CUDA kernel; on a CPU tensor the materialized route where that plan says
+``"xla"`` (counted in ``PLAIN_ROUTE``), what the JAX package computes there.
+The ring's heads go over ``model`` as the JAX
+``sequence_sharded_attention``'s ``P(batch, model, seq, None)``. ``proj`` is
+split row-wise: its partial products are all-reduced over the group and its
+bias added once. The attention-dropout mask is drawn for every head and cut
+to the rank's, so a dropped-out step is one process's; returned weights are
+gathered back to every head.
+
 On a CPU tensor the kernel branches run as plain PyTorch, which is what the
 JAX package computes off the TPU. Both projections are ``Int8Dense``, so
 ``MMLEARN_QUANT`` reaches them as it does in the JAX package. ``proj_drop``
@@ -43,9 +60,16 @@ from torch import nn
 from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
 from mmlearn_tpu_torch.ops.flash_attention import flash_attention_qkv, split_qkv
-from mmlearn_tpu_torch.ops.fused_attention import NEG, fused_mha, supports_fused
+from mmlearn_tpu_torch.ops.fused_attention import (
+    NEG,
+    PLAIN_ROUTE,
+    fused_mha,
+    shard_plan,
+    supports_fused,
+)
 from mmlearn_tpu_torch.ops.ring_attention import sequence_sharded_attention
 from mmlearn_tpu_torch.parallel.mesh import SEQ_AXIS, peek_global_mesh
+from mmlearn_tpu_torch.parallel.tensor_parallel import gather_heads, local_slice
 
 
 def materialized_attention(
@@ -74,6 +98,19 @@ def materialized_attention(
     return out.transpose(1, 2).reshape(b, n, -1), weights
 
 
+def kernel_route(device_type: str, plan, seq: int, heads: int, head_dim: int, n: int) -> str:
+    """The route of a layer whose global heads :func:`supports_fused`
+    admits, on its ``heads`` local heads, given the sharded ``plan``
+    (:func:`shard_plan`) and the mesh's ``seq`` size: on a CPU tensor
+    ``"plain"`` (the materialized route) where the plan is ``"xla"`` without
+    a ``seq`` axis, as the JAX package computes ``_mha_reference_xla`` there,
+    else ``"fused"``; on the card ``"fused"`` (K1) where
+    :func:`supports_fused` admits the local heads, else ``"flash"`` (K3)."""
+    if device_type == "cpu":
+        return "plain" if plan == "xla" and seq == 1 else "fused"
+    return "fused" if supports_fused(heads, head_dim, n) else "flash"
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with a fused, head-major qkv projection."""
 
@@ -99,14 +136,19 @@ class Attention(nn.Module):
         self.proj_drop = float(proj_drop)
         self.qkv = Int8Dense(dim, 3 * dim, qkv_bias, dtype, param_dtype)
         self.proj = Int8Dense(dim, dim, True, dtype, param_dtype)
+        #: ``(rank, size)`` in the ``model`` group where ``qkv`` is split on
+        #: whole heads (set by ``tensor_parallel.parallelize``)
+        self.model_shard: Optional[tuple[int, int]] = None
 
     def draw_masks(self, x_shape) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         """The keep-masks of the attention weights ``(B, H, N, N)`` and of the
         output ``(B, N, C)`` for an input of ``x_shape``, from the current
         source (each ``None`` where nothing is dropped), in the JAX module's
-        order."""
+        order. Under a head split the weights' mask is cut to the rank's
+        heads."""
         b, n, c = x_shape
-        return (draw_keep(self.training, self.attn_drop, (b, self.num_heads, n, n)),
+        attn_keep = draw_keep(self.training, self.attn_drop, (b, self.num_heads, n, n))
+        return (local_slice(attn_keep, 1, self.model_shard),
                 draw_keep(self.training, self.proj_drop, (b, n, c)))
 
     def forward(
@@ -126,26 +168,40 @@ class Attention(nn.Module):
             )
         attn_keep, proj_keep = self.draw_masks(x.shape) if keeps is None else keeps
         b, n, c = x.shape
+        d = c // self.num_heads
         qkv = self.qkv(x)
+        heads = qkv.shape[-1] // (3 * d)  # H, or this rank's H / P under a head split
+        mesh = peek_global_mesh()
+        seq = 1 if mesh is None else mesh.shape.get(SEQ_AXIS, 1)
         weights = None
         ring = None
         if not (return_weights or attn_keep is not None) and attention_mask is None:
-            mesh = peek_global_mesh()
-            seq = 1 if mesh is None else mesh.shape.get(SEQ_AXIS, 1)
             if seq > 1 and n % seq == 0:
                 ring = mesh.seq_exchange()
         if ring is not None:
-            out = sequence_sharded_attention(*split_qkv(qkv, self.num_heads), ring,
+            out = sequence_sharded_attention(*split_qkv(qkv, heads), ring,
                                              scale=self.scale, causal=self.causal)
-            out = out.transpose(1, 2).reshape(b, n, c)
+            out = out.transpose(1, 2).reshape(b, n, heads * d)
         elif return_weights or attn_keep is not None:
-            out, weights = materialized_attention(qkv, self.num_heads, self.scale, self.causal,
+            out, weights = materialized_attention(qkv, heads, self.scale, self.causal,
                                                   attention_mask, attn_keep, self.attn_drop)
-        elif supports_fused(self.num_heads, c // self.num_heads, n):
-            out = fused_mha(qkv, attention_mask, num_heads=self.num_heads,
-                            scale=self.scale, causal=self.causal)
+            if return_weights and heads != self.num_heads:
+                weights = gather_heads(weights, 1)
         else:
-            out = flash_attention_qkv(qkv, attention_mask, num_heads=self.num_heads,
-                                      scale=self.scale, causal=self.causal)
+            route = "flash"
+            if supports_fused(self.num_heads, d, n):
+                plan = None if mesh is None else shard_plan(self.num_heads, d,
+                                                            b * mesh.dp_size, mesh)
+                route = kernel_route(qkv.device.type, plan, seq, heads, d, n)
+            if route == "plain":
+                PLAIN_ROUTE["xla"] += 1
+                out, _ = materialized_attention(qkv, heads, self.scale, self.causal,
+                                                attention_mask)
+            elif route == "fused":
+                out = fused_mha(qkv, attention_mask, num_heads=heads, scale=self.scale,
+                                causal=self.causal)
+            else:
+                out = flash_attention_qkv(qkv, attention_mask, num_heads=heads,
+                                          scale=self.scale, causal=self.causal)
         out = apply_keep(self.proj(out), proj_keep, self.proj_drop)
         return (out, weights) if return_weights else out

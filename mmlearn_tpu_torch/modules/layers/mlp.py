@@ -8,6 +8,12 @@ Layers are named ``fc{i}`` as in the JAX package, so
 Sequential-MLP heads) and dropout after each hidden activation (its masks
 from :mod:`~mmlearn_tpu_torch.modules.layers.dropout`); the JAX module's
 ``hidden_dims_multiplier`` and ``bias`` are not.
+
+Split over the mesh's ``model`` axis
+(:mod:`~mmlearn_tpu_torch.parallel.tensor_parallel`), ``fc1`` is
+column-parallel and ``fc2`` row-parallel: the activation and the hidden
+dropout act on the rank's columns, the dropout's mask drawn for the whole
+width and cut to them, so a dropped-out step is one process's.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.modules.layers.dropout import apply_keep, draw_keep
 from mmlearn_tpu_torch.modules.layers.normalization import LayerNorm
 from mmlearn_tpu_torch.modules.layers.quantization import Int8Dense
+from mmlearn_tpu_torch.parallel.tensor_parallel import local_slice
 
 # the towers' activations: exact-erf gelu and CLIP's quick_gelu
 _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -68,6 +75,9 @@ class MLP(nn.Module):
                 # flax nn.LayerNorm's default epsilon
                 self.add_module(f"norm{i + 1}", LayerNorm(dim, 1e-6, dtype, param_dtype))
             prev = dim
+        #: ``(rank, size)`` in the ``model`` group where ``fc1``'s output is
+        #: split (set by ``tensor_parallel.parallelize``)
+        self.model_shard: Optional[tuple[int, int]] = None
 
     def draw_masks(self, x_shape) -> Optional[list[torch.Tensor]]:
         """The keep-masks of the dropouts after the hidden activations for an
@@ -93,5 +103,8 @@ class MLP(nn.Module):
                     x = norm(x)
                 x = self.act(x)
                 if keeps is not None:
-                    x = apply_keep(x, keeps[i - 1], self.dropout)
+                    keep = keeps[i - 1]
+                    if keep is not None and keep.shape[-1] != x.shape[-1]:
+                        keep = local_slice(keep, -1, self.model_shard)
+                    x = apply_keep(x, keep, self.dropout)
         return x

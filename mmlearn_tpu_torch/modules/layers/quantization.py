@@ -22,7 +22,10 @@ kernel, as the JAX package leaves them to XLA: :func:`exact_int_dot` takes
 them in f64, which holds every s32 sum exactly (``|sum| <= 127^2 K <
 2^53``). Weights are quantized after the cast to the compute type, as
 ``Int8Dense`` quantizes after ``promote_dtype``. Parameter names and shapes
-are :class:`Dense`'s, so weights cross the bridge unchanged.
+are :class:`Dense`'s, so weights cross the bridge unchanged. A mode with the
+projections split over the mesh's ``model`` axis raises
+``NotImplementedError``: a row split would quantize a share of each row by
+scales that are not the whole row's (ROADMAP's queue).
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from mmlearn_tpu_torch.modules.layers.dense import Dense
+
+#: the values of ``MMLEARN_QUANT`` that name a mode
+QUANT_MODES = ("int8_fwd", "int8", "int8_sb")
 
 
 def quant_mode() -> Optional[str]:
@@ -131,6 +137,13 @@ class Int8Dense(Dense):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = quant_mode()
+        if mode in QUANT_MODES and hasattr(self.weight, "placements"):
+            # a row split would quantize a share of each row, by scales
+            # that are not the whole row's: other numbers than the JAX
+            # package's
+            raise NotImplementedError(
+                f"MMLEARN_QUANT={mode} with the projections split over the model axis "
+                "(ROADMAP: int8 under model > 1)")
         dt = self.dtype
         x, w = x.to(dt), self.merged_weight().to(dt)
         bias = None if self.bias is None else self.bias.to(dt)

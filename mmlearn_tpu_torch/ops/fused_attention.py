@@ -466,3 +466,42 @@ def fused_mha(
     elif qkv.device.type != "cpu":
         raise ValueError(f"fused_mha runs on cpu or cuda tensors, got {qkv.device}")
     return FusedMHAFunction.apply(qkv, mask, num_heads, scale, causal, packed)
+
+
+#: attention layers that took the plain route because :func:`shard_plan`
+#: said ``"xla"`` (the materialized scores on the rank's heads, no kernel;
+#: CPU tensors only)
+PLAIN_ROUTE = {"xla": 0}
+
+
+def shard_plan(num_heads: int, head_dim: int, b: int, mesh) -> Optional[int | str]:
+    """The JAX ``_shard_map_plan``, outcome for outcome, on the port's mesh
+    (:class:`~mmlearn_tpu_torch.parallel.mesh.Mesh`): ``None`` off a mesh
+    (``None``, or one device); ``"xla"`` where a ``seq`` axis is over 1, the
+    global batch ``b`` does not divide over ``data x fsdp``, ``model`` does
+    not divide ``num_heads``, or the local heads do not tile the TPU
+    kernel's head group; else the local head count ``num_heads / model``.
+
+    Where the JAX package computes ``_mha_reference_xla`` (``"xla"``) the
+    attention layer takes, on a CPU tensor, the plain route,
+    ``materialized_attention`` without weights, on the heads its rank holds,
+    and counts it in :data:`PLAIN_ROUTE`; on the card it runs those heads on
+    the kernels, K1 where :func:`supports_fused` admits them and K3 else
+    (``attention.kernel_route``). Under a ``seq`` axis the port keeps the routing of
+    its sequence-parallel slice: the same function on K1 for the layers the
+    ring does not take (a key mask), as there is no XLA to hand them to."""
+    if mesh is None or mesh.size <= 1:
+        return None
+    if any(size > 1 for axis, size in mesh.shape.items()
+           if axis not in ("data", "fsdp", "model")):
+        return "xla"
+    shards = mesh.shape["data"] * mesh.shape["fsdp"]
+    if b % shards:
+        return "xla"
+    model = mesh.shape.get("model", 1)
+    if num_heads % model:
+        return "xla"
+    local = num_heads // model
+    if local % _head_group(head_dim):
+        return "xla"
+    return local

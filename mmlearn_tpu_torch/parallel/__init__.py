@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed``: the mesh, the partitioning rules
-and FSDP2, the collectives. Counterpart of :mod:`mmlearn_tpu.parallel`; the
-model axis' specs wait for tensor parallelism."""
+with FSDP2 and the ``model`` axis' column and row splits
+(:mod:`~mmlearn_tpu_torch.parallel.tensor_parallel`), the collectives.
+Counterpart of :mod:`mmlearn_tpu.parallel`."""
 
 from mmlearn_tpu_torch.parallel.collectives import (
     all_gather,

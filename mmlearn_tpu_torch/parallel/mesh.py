@@ -11,8 +11,11 @@ device a process:
   sequence of a ring-attention layer is split over it
   (:mod:`~mmlearn_tpu_torch.ops.ring_attention`); its ranks hold the same
   rows of the batch;
-- ``model``: tensor parallelism, kept in the names and the order, of size 1:
-  ``model > 1`` raises (its rules wait for the next slice of the port).
+- ``model``: tensor parallelism (innermost): the attention and MLP
+  projections are split column- and row-wise over it
+  (:mod:`~mmlearn_tpu_torch.parallel.tensor_parallel`), each rank running
+  its share of the heads and of the MLP's hidden width; its ranks hold the
+  same rows of the batch.
 
 :class:`Mesh` holds a ``torch.distributed.device_mesh.DeviceMesh`` with
 those names where ``torch.distributed`` is initialized; a process that never
@@ -90,6 +93,15 @@ class Mesh:
         return self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
 
     @property
+    def model_size(self) -> int:
+        return self.shape[MODEL_AXIS]
+
+    @property
+    def model_rank(self) -> int:
+        """This process's place in its ``model`` group (the innermost axis)."""
+        return self.rank % self.model_size
+
+    @property
     def dp_rank(self) -> int:
         """This process's place among the :attr:`dp_size` row shards (the
         axes after ``fsdp`` vary fastest in the rank order)."""
@@ -102,6 +114,10 @@ class Mesh:
     def dp_mesh(self):
         """The 2-D ``(data, fsdp)`` sub-mesh FSDP2 shards over."""
         return self.device_mesh[DATA_AXIS, FSDP_AXIS]
+
+    def model_mesh(self):
+        """The 1-D ``model`` sub-mesh the projections are split over."""
+        return self.device_mesh[MODEL_AXIS]
 
     def dp_group(self):
         """One process group over ``data x fsdp`` (the batch's shards): the
@@ -131,20 +147,24 @@ def default_device(device: Optional[torch.device | str] = None) -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
-def init_from_env(device: Optional[torch.device | str] = None) -> torch.device:
+def init_from_env(device: Optional[torch.device | str] = None,
+                  backend: Optional[str] = None) -> torch.device:
     """Join the process group that the environment describes (``env://``:
     ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL for a
-    CUDA device (bound to ``LOCAL_RANK``), gloo for the CPU. Returns this
-    process's device; a group already joined is kept."""
+    CUDA device (bound to ``LOCAL_RANK``, one process a card), gloo for the
+    CPU, or the ``backend`` given (gloo for several processes sharing one
+    card, which NCCL refuses). Returns this process's device; a group
+    already joined is kept."""
     import torch.distributed as dist
 
     device = default_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                                init_method="env://", device_id=device if
-                                device.type == "cuda" else None)
+        dist.init_process_group(backend, init_method="env://",
+                                device_id=device if backend == "nccl" else None)
     return device
 
 
@@ -158,13 +178,9 @@ def create_mesh(
 ) -> Mesh:
     """The mesh over every process of ``torch.distributed`` (one device, no
     groups, where it is not initialized). Sizes and errors are the JAX
-    function's; the mesh covers every process; ``model > 1`` raises."""
+    function's; the mesh covers every process."""
     import torch.distributed as dist
 
-    if model > 1:
-        raise NotImplementedError(
-            f"model={model}: tensor parallelism (the model axis' partitioning rules and "
-            "fused_mha's sharded plan) waits for the next slice of the port")
     initialized = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if initialized else 1
     names, sizes = mesh_shape(n, data, fsdp, model, seq, slices)
@@ -179,7 +195,7 @@ def create_mesh(
 
     device_mesh = init_device_mesh(device.type, sizes, mesh_dim_names=names)
     rank = dist.get_rank()
-    # one group over data x fsdp a seq coordinate; every rank makes every one
+    # one group over data x fsdp a (seq, model) coordinate; every rank makes every one
     inner = n // (sizes[0] * sizes[1])
     dp_group = dist.group.WORLD
     if inner > 1:
@@ -245,11 +261,12 @@ def shard_batch(batch: Any, mesh: Mesh) -> Any:
     ``dp_size`` equal slices, in rank order over ``data x fsdp`` (the ranks
     of a ``seq`` group keep the same rows).
 
-    Arrays that lead with the batch dimension are sliced on it; arrays that
-    lead with another dimension and carry the batch second (I-JEPA's masks,
-    ``(n_masks, B, K)``) are sliced on the second; scalars, strings, lists
-    and arrays of other shapes are kept whole. A batch that does not divide
-    raises."""
+    Masks (a key ending in ``_masks``: I-JEPA's, ``(n_masks, B, K)``) are
+    sliced on their second dimension, whatever the mask count; other arrays
+    that lead with the batch dimension are sliced on it, and arrays that
+    lead with another and carry the batch second on the second; scalars,
+    strings, lists and arrays of other shapes are kept whole. A batch that
+    does not divide raises."""
     if mesh.dp_size == 1 or not isinstance(batch, Mapping):
         return batch
     b = _batch_dim(batch)
@@ -258,15 +275,18 @@ def shard_batch(batch: Any, mesh: Mesh) -> Any:
     rows = local_batch_size(b, mesh)
     lo = mesh.dp_rank * rows
 
-    def cut(value: Any) -> Any:
+    def cut(value: Any, key: str) -> Any:
         if isinstance(value, Mapping):
-            return {k: cut(v) for k, v in value.items()}
+            return {k: cut(v, str(k)) for k, v in value.items()}
         if not isinstance(value, (np.ndarray, torch.Tensor)) or value.ndim == 0:
             return value
+        second = value.ndim >= 2 and value.shape[1] == b
+        if second and key.endswith("_masks"):
+            return value[:, lo:lo + rows]
         if value.shape[0] == b:
             return value[lo:lo + rows]
-        if value.ndim >= 2 and value.shape[1] == b:
+        if second:
             return value[:, lo:lo + rows]
         return value
 
-    return {k: cut(v) for k, v in batch.items()}
+    return {k: cut(v, str(k)) for k, v in batch.items()}

@@ -19,9 +19,14 @@ the rest, so the values a step computes with are the same. FSDP2 takes no
 0-d parameter (the logit scale): those stay plain, replicated tensors, whose
 gradients :func:`sync_replicated_grads` averages over the ranks as FSDP2
 averages the rest. PyTorch's AdamW takes its per-tensor loop over DTensor
-parameters (its multi-tensor kernels take plain tensors only). The ``model``
-axis' entries of the specs wait for tensor parallelism; on this slice's
-meshes ``model`` is 1.
+parameters (its multi-tensor kernels take plain tensors only).
+
+The specs' ``model`` entries are applied first, where ``model > 1``: each
+layer whose spec puts ``model`` on a dim is split column- or row-wise over
+the ``model`` sub-mesh (:func:`~mmlearn_tpu_torch.parallel.tensor_parallel.parallelize`),
+then FSDP2 shards every parameter over ``(data, fsdp)`` as above: a split
+weight ends as a ``DTensor`` over ``(data, fsdp, model)``, sharded over
+``fsdp`` and ``model`` on the dims its spec names, replicated over ``data``.
 
 The task's own methods that run towers (``loss_fn``, ``validation_loss``,
 ``encode``) are registered with FSDP2, so calling them gathers the task's
@@ -159,13 +164,17 @@ TASK_METHODS = ("loss_fn", "validation_loss", "encode")
 
 
 def shard_task(task: nn.Module, mesh: Mesh) -> dict[str, tuple]:
-    """Wrap ``task`` in place with FSDP2 over ``mesh``'s ``(data, fsdp)``
-    sub-mesh by :func:`infer_param_specs` (see the module docstring).
+    """Split ``task``'s layers over ``mesh``'s ``model`` axis and wrap it
+    in place with FSDP2 over its ``(data, fsdp)`` sub-mesh by
+    :func:`infer_param_specs` (see the module docstring).
     Returns the specs. The task must be on the mesh's device."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import Shard
 
+    from mmlearn_tpu_torch.parallel.tensor_parallel import parallelize
+
     specs = infer_param_specs(task, mesh)
+    parallelize(task, mesh, specs)
     by_param = {p: specs[n] for n, p in task.named_parameters()}
     dp_mesh = mesh.dp_mesh()
 

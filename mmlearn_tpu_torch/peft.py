@@ -26,7 +26,9 @@
   (``re.search`` on the JAX path; the reference's bool/int/float/list freeze
   specs).
 
-The JAX ``lora_dropout`` is accepted and not applied, as there.
+The JAX ``lora_dropout`` is accepted and not applied, as there. Under a
+split over the mesh's ``model`` axis each rank merges into its share of the
+weight (:meth:`_Merge.merge`).
 """
 
 from __future__ import annotations
@@ -127,10 +129,22 @@ class _Merge:
         self.config = config
 
     def merge(self, weight: torch.Tensor) -> torch.Tensor:
+        """``weight + (a @ b)^T * scaling``. A weight split over the
+        ``model`` axis takes the rank's share of the delta: rows of a column
+        split (the factor's output columns), columns of a row split (its
+        input rows); the factors stay whole and replicated, and their
+        gradients are the whole delta's."""
         f = self.factors
         ab = (f.product(self.config.qkv_num_heads) if isinstance(f, LoRASlices)
               else f.product())
-        return weight + (ab * self.config.scaling).t().to(weight.dtype)
+        delta = (ab * self.config.scaling).t()
+        placements = getattr(weight, "placements", None)
+        if placements is not None:
+            from torch.distributed.tensor import DTensor, Replicate
+
+            delta = DTensor.from_local(delta, weight.device_mesh, [Replicate()],
+                                       run_check=False).redistribute(placements=placements)
+        return weight + delta.to(weight.dtype)
 
 
 def _target_layers(encoder: nn.Module, config: LoRAConfig) -> list[tuple[str, Dense]]:

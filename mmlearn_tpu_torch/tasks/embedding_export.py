@@ -18,7 +18,8 @@ Over several processes (the batch split over ``data x fsdp``) each process
 writes its own rows, its shard names and its manifest suffixed ``_p{rank}``
 (``rgb_p1_00000.npz``, ``manifest_p1.json``), as the JAX package's
 (:102-186); ``EmbeddingIndex.load`` reads every manifest. Disjoint coverage
-takes a distributed eval sampler (``DistributedEvalSampler``).
+takes a distributed eval sampler (``DistributedEvalSampler``). The ranks of
+a ``seq`` or ``model`` group hold the same rows: the first of them writes.
 
 Embeddings stay on the device until a shard is flushed (``shard_size``
 rows or the epoch's end): then the shard's embeddings cross to the host in
@@ -41,6 +42,15 @@ def _suffix() -> str:
     from mmlearn_tpu_torch.parallel.collectives import axis_index, axis_size
 
     return f"_p{axis_index()}" if axis_size() > 1 else ""
+
+
+def _writes() -> bool:
+    """Whether this rank writes its rows: the first rank of its ``seq x
+    model`` group (the axes after ``fsdp``), whose ranks hold the same rows."""
+    from mmlearn_tpu_torch.parallel.mesh import peek_global_mesh
+
+    mesh = peek_global_mesh()
+    return mesh is None or mesh.rank % (mesh.size // mesh.dp_size) == 0
 
 from mmlearn_tpu_torch.conf import store
 from mmlearn_tpu_torch.constants import DATASET_INDEX_KEY, EXAMPLE_INDEX_KEY
@@ -133,8 +143,9 @@ class EmbeddingExport(EvaluationHooks):
             if self._buffers.get(mod):
                 self._flush(mod)
             results[f"export/{mod}_rows"] = self._manifest[mod]["rows"]
-        with open(os.path.join(self.output_dir, f"manifest{_suffix()}.json"), "w") as f:
-            json.dump(self._manifest, f, indent=2)
+        if _writes():
+            with open(os.path.join(self.output_dir, f"manifest{_suffix()}.json"), "w") as f:
+                json.dump(self._manifest, f, indent=2)
         self._buffers = {}
         return results
 
@@ -154,8 +165,9 @@ class EmbeddingExport(EvaluationHooks):
         emb, ex_idx, ds_idx = emb[valid], ex_idx[valid], ds_idx[valid]
         m = self._manifest[mod]
         name = f"{mod}{_suffix()}_{len(m['shards']):05d}.npz"
-        np.savez(os.path.join(self.output_dir, name), embeddings=emb,
-                 example_index=ex_idx, dataset_index=ds_idx)
+        if _writes():
+            np.savez(os.path.join(self.output_dir, name), embeddings=emb,
+                     example_index=ex_idx, dataset_index=ds_idx)
         m["shards"].append(name)
         m["rows"] += int(emb.shape[0])
         m["dim"] = int(emb.shape[1])

@@ -12,7 +12,8 @@ under a temporary name and renamed when complete, as Orbax finalizes a
 save, so a run killed mid-write never resumes from half a checkpoint.
 
 Over several processes every rank takes part in a save (the shards of an
-FSDP2 task are gathered into whole tensors, :func:`~mmlearn_tpu_torch.
+FSDP2 task, over ``fsdp`` and over ``model`` where its layers are split,
+are gathered into whole tensors, :func:`~mmlearn_tpu_torch.
 trainer.state.full_state`), rank 0 alone writes the one-device format, and
 the ranks meet at a barrier once it is on disk; every rank reads a
 checkpoint it restores, and cuts it to its own shards, at any world size.

@@ -11,6 +11,10 @@ autograd Function reports (:func:`mmlearn_tpu_torch.ops.report_flops`): the
 count of its plain version's products at the same shapes, so a step counts
 the same FLOPs on the card as on the CPU, where the plain versions run.
 
+A product on ``DTensor`` operands (a layer split over the mesh's ``model``
+axis) is counted at its local shapes: the rank's share, which is what the
+rank computes and what the JAX trainer's per-device count holds.
+
 Elementwise work is not counted, per the usual MFU convention. Recompute is
 counted where the code does it: the attention backward recomputes the
 scores, one product in seven of an attention layer.
@@ -46,6 +50,22 @@ def device_peak_tflops(device: torch.device | str = "cuda") -> Optional[float]:
     return PEAK_TFLOPS.get(torch.cuda.get_device_name(device))
 
 
+class _LocalFlopCounterMode(FlopCounterMode):
+    """``FlopCounterMode`` that counts an op on ``DTensor`` operands at
+    their local shards' shapes (the mode sees the op before ``DTensor``
+    dispatches it to the local tensors, with the global shapes)."""
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        from torch.utils._pytree import tree_map
+
+        def local(t: Any) -> Any:
+            return getattr(t, "_local_tensor", t)
+
+        super()._count_flops(func_packet, tree_map(local, out), tree_map(local, args),
+                             tree_map(local, kwargs))
+        return out
+
+
 class FlopCounter:
     """``FlopCounterMode`` over the block, plus the kernels' reports.
 
@@ -53,7 +73,7 @@ class FlopCounter:
     :meth:`total` is everything counted."""
 
     def __init__(self) -> None:
-        self.mode = FlopCounterMode(display=False)
+        self.mode = _LocalFlopCounterMode(display=False)
         self.kernel_flops: dict[str, int] = defaultdict(int)
 
     def add(self, kernel: str, flops: int) -> None:

@@ -72,19 +72,23 @@ Over several processes (:mod:`mmlearn_tpu_torch.parallel`): under
 ``MMLEARN_MULTIHOST=1`` the trainer joins the process group the environment
 describes (the JAX trainer's ``jax.distributed.initialize``); where
 ``torch.distributed`` is initialized or ``mesh_shape`` is given it builds the
-mesh (``data``, ``fsdp``, ``seq``; ``model > 1`` raises) and sets it as the
-global mesh. The task is then wrapped with FSDP2 before its optimizer is
-built (:func:`~mmlearn_tpu_torch.parallel.partitioning.shard_task`). A
-loader whose sampler splits the data over the ``data x fsdp`` ranks yields
-each rank's rows; a loader that yields the global batch is cut to the rank's
+mesh (``data``, ``fsdp``, ``seq``, ``model``) and sets it as the global
+mesh. The task's layers are then split over ``model`` and the task wrapped
+with FSDP2 before its optimizer is built
+(:func:`~mmlearn_tpu_torch.parallel.partitioning.shard_task`). A loader
+whose sampler splits the data over the ``data x fsdp`` ranks yields each
+rank's rows (the ranks of a ``seq`` or ``model`` group take the same ones);
+a loader that yields the global batch is cut to the rank's
 rows by :func:`~mmlearn_tpu_torch.parallel.mesh.shard_batch` on the feeder's
 thread, after ``prepare_batch`` (so an I-JEPA batch's masks are the global
 batch's). FSDP2 averages the ranks' gradients at every micro-step: each
 micro-step's ``grad_norm`` and the accumulated mean (saved with a
 checkpoint mid-window) are the global gradient's, as the JAX trainer's.
-``grad_norm`` and clipping take the global norm over the shards; the logged
-losses are the mean over the ranks (the global loss); TFLOP/s and MFU are
-over the mesh (the JAX trainer's ``peak x mesh.size``); loggers write from
+``grad_norm`` and clipping take the global norm over the shards, each
+element once; the logged losses are the mean over the ranks (the global
+loss); the FLOPs counted are a rank's (its shares of the split products),
+and TFLOP/s and MFU are over the mesh (the JAX trainer's per-device count
+over ``peak x mesh.size``); loggers write from
 rank 0 and checkpoints are written by rank 0 (``ModelCheckpoint``).
 """
 
@@ -807,22 +811,34 @@ class Trainer:
     def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The global norm of the gradients as the parameters hold them:
         FSDP2's ``DTensor`` shards and the plain, replicated gradients of the
-        parameters it does not manage (the 0-d logit scale). The shards' sum
-        of squares is added over the ``fsdp`` ranks (over ``data`` they are
-        replicas), the plain gradients' squares once. On one shard it is
-        ``get_total_norm``'s."""
+        parameters it does not manage (the 0-d logit scale). Each shard's sum
+        of squares is added over the mesh axes it is sharded on (``fsdp``,
+        and ``model`` for a split weight); over the others (``data``, and
+        ``model`` for a parameter replicated over it: norms, biases,
+        embeddings, heads) the ranks hold replicas, counted once, as are the
+        plain gradients' squares. On one shard it is ``get_total_norm``'s."""
         local = [_local(g) for g in grads]
-        if not self._sharded or self.mesh.shape["fsdp"] == 1 or not grads:
+        axes = [a for a in ("fsdp", "model") if self._sharded and self.mesh.shape[a] > 1]
+        if not axes or not grads:
             return torch.nn.utils.get_total_norm(local)
         import torch.distributed as dist
 
-        def squares(ts: list[torch.Tensor]) -> torch.Tensor:
-            return sum((t.float().square().sum() for t in ts),
-                       torch.zeros((), device=local[0].device))
-
-        sq = squares([t for g, t in zip(grads, local) if t is not g])
-        dist.all_reduce(sq, group=self.mesh.group("fsdp"))
-        return (sq + squares([g for g, t in zip(grads, local) if t is g])).sqrt()
+        sums: dict[frozenset, torch.Tensor] = {}
+        for g, t in zip(grads, local):
+            over = frozenset() if t is g else frozenset(
+                name for name, p in zip(g.device_mesh.mesh_dim_names, g.placements)
+                if p.is_shard() and name in axes)
+            sums[over] = sums.get(over, torch.zeros((), device=t.device)) + (
+                t.float().square().sum())
+        keys = sorted(sums, key=sorted)
+        vec = torch.stack([sums[k] for k in keys])
+        for axis in axes:
+            idx = [i for i, k in enumerate(keys) if axis in k]
+            if idx:
+                part = vec[idx].contiguous()
+                dist.all_reduce(part, group=self.mesh.group(axis))
+                vec[idx] = part
+        return vec.sum().sqrt()
 
     def _clip(self, grads: list[torch.Tensor], norm: Optional[torch.Tensor]) -> None:
         """Clip in place the gradients as the parameters hold them (see

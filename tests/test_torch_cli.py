@@ -81,13 +81,14 @@ def test_cli_override_applies(tmp_path):
 
 def test_cli_trainer_runs_on_the_card_unless_told():
     """The composed trainer targets ``cuda`` unless the config says ``cpu``;
-    a mesh over more devices than the processes raises, and the model axis
-    (tensor parallelism) raises naming the next slice."""
+    a mesh over more devices than the processes raises; the model axis
+    (tensor parallelism) is accepted and meets the same check."""
     assert build_experiment(["+experiment=tiny_clip_synthetic"])["trainer"]["device"] == "cuda"
     with pytest.raises(ValueError, match="needs more than the 1 available"):
         main(["+experiment=tiny_clip_synthetic", CPU, "trainer.mesh_shape.data=4"])
-    with pytest.raises(NotImplementedError, match="next slice"):
-        main(["+experiment=tiny_clip_synthetic", CPU, "trainer.mesh_shape.model=2"])
+    with pytest.raises(ValueError, match="needs more than the 1 available"):
+        main(["+experiment=tiny_clip_synthetic", CPU, "trainer.mesh_shape.model=2",
+              "+trainer.mesh_shape.data=1"])
 
 
 def test_cli_export_job(tmp_path):

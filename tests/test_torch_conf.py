@@ -249,8 +249,8 @@ def test_registrations_mirror_the_jax_store():
 
 def test_trainer_precision_and_mesh_shape():
     """``precision`` casts inputs as the JAX trainer's (fp16 names to
-    bf16-mixed); a mesh over more devices than the processes raises, and the
-    model axis raises naming the next slice."""
+    bf16-mixed); a mesh over more devices than the processes raises; the
+    model axis is accepted and meets the same check."""
     import torch
 
     from mmlearn_tpu_torch.tasks.base import TrainingTask
@@ -264,8 +264,8 @@ def test_trainer_precision_and_mesh_shape():
     Trainer(mesh_shape={"data": 1}, device="cpu")
     with pytest.raises(ValueError, match="needs more than the 1 available"):
         Trainer(mesh_shape={"data": 4}, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Trainer(mesh_shape={"model": 2}, device="cpu")
+    with pytest.raises(ValueError, match="needs more than the 1 available"):
+        Trainer(mesh_shape={"data": 1, "model": 2}, device="cpu")
 
 
 # ------------------------------------- the port's YAMLs against the JAX ones

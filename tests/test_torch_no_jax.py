@@ -180,3 +180,30 @@ def test_chip_smoke_fails_without_a_cuda_card(tmp_path):
     proc = _run([sys.executable, "chip_smoke.py"], str(tmp_path))
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_tensor_parallel_slice_imports_without_jax():
+    """The tensor-parallel slice's modules and names (the splits, the
+    sharded plan, the attention layer's route, the bridge's loader), with
+    JAX and the JAX package blocked; the plan of the tiny pair's splits,
+    ``shard_plan`` and ``kernel_route`` run there too."""
+    names = ("from mmlearn_tpu_torch.parallel.tensor_parallel import COLUMN, ROW, "
+             "gather_heads, local_slice, parallelize, tp_plan\n"
+             "from mmlearn_tpu_torch.ops.fused_attention import PLAIN_ROUTE, shard_plan\n"
+             "from mmlearn_tpu_torch.modules.layers.attention import kernel_route\n"
+             "from mmlearn_tpu_torch.bridge import load_state\n"
+             "from mmlearn_tpu_torch.flagship import tiny_training_task\n"
+             "from mmlearn_tpu_torch.parallel.mesh import Mesh, mesh_shape\n"
+             "from mmlearn_tpu_torch.parallel.partitioning import infer_param_specs\n"
+             "mesh = Mesh(*mesh_shape(8, data=2, fsdp=2, model=2), 'cpu')\n"
+             "task = tiny_training_task()\n"
+             "plan = tp_plan(task, infer_param_specs(task, mesh), 2)\n"
+             "assert plan['encoders.rgb.blocks.0.attn.qkv'] == (COLUMN, False)\n"
+             "assert plan['encoders.text.blocks.1.mlp.fc2'] == (ROW, False)\n"
+             "assert shard_plan(12, 64, 8, mesh) == 6 and shard_plan(2, 64, 8, mesh) == 'xla'\n"
+             "assert kernel_route('cuda', 'xla', 1, 1, 64, 77) == 'flash'\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -58,7 +58,8 @@ def one_thread():
 
 @pytest.mark.parametrize("kw", [dict(data=8), dict(data=-1, fsdp=2), dict(data=2, fsdp=2, seq=2),
                                 dict(data=-1, seq=4), dict(data=1, fsdp=1, seq=8),
-                                dict(data=4, fsdp=2, slices=2)])
+                                dict(data=4, fsdp=2, slices=2), dict(data=2, fsdp=2, model=2),
+                                dict(data=-1, model=4), dict(data=2, seq=2, model=2)])
 def test_mesh_shape_matches_jax(kw):
     """Axis names and sizes of ``create_mesh`` over 8 devices, as the JAX
     function lays them out."""
@@ -80,14 +81,17 @@ def test_mesh_errors_match_jax(kw, match):
 
 def test_mesh_of_one_process_and_the_model_axis():
     """Without a process group the mesh is one device of the JAX axes; a
-    mesh larger than the processes raises; ``model > 1`` raises naming the
-    next slice."""
+    mesh larger than the processes raises; ``model > 1`` is accepted and
+    meets the same check (its layout is held to the JAX mesh by
+    ``test_mesh_shape_matches_jax``, its use by
+    ``tests/test_torch_tensor_parallel.py``)."""
     mesh = create_mesh(device="cpu")
     assert mesh.axis_names == MESH_AXES and mesh.size == 1 and mesh.device_mesh is None
+    assert mesh.model_size == 1 and mesh.model_rank == 0
     with pytest.raises(ValueError, match="needs more than"):
         create_mesh(data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        create_mesh(model=2, device="cpu")
+    with pytest.raises(ValueError, match="needs more than"):
+        create_mesh(data=1, model=2, device="cpu")
 
 
 @pytest.mark.parametrize("shape", [dict(data=4, fsdp=2), dict(data=8)])
