@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training, evaluation, data, BIOSCAN-CLIP and multi-task paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, evaluation, data, BIOSCAN-CLIP, multi-task, parallel and med_benchmarking paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -309,9 +309,45 @@ Phases, each fatal on failure:
     2 does not divide): forward and backward in bf16 launch K3 on the
     rank's heads and take no plain route, within ``TP_LAYOUT_REL`` of the
     same layer unsplit.
+18. the med_benchmarking experiments (``med_path``) through the port's CLI
+    at the YAMLs' widths (CLIP ViT-B/16 at 224 px and the 12-block causal
+    text tower at 77 tokens, bf16, remat): files written from ``SEED`` by 8
+    spawned processes in the layouts of PMC-OA (jsonl, JPEG; 1,024 train
+    and 640 valid pairs), ROCO (jsonl, JPEG), MIMIC-IV-CXR (jsonl with the
+    report and 14 CheXpert labels, grayscale PNG) and Quilt-1M (CSV with
+    ``subset``, JPEG), 1,024 pairs each at six sizes around 224, HAM10000
+    (CSV, ``.jpg``), PAD-UFES-20 (CSV with empty cells, PNG) and MedMNIST+
+    ``pathmnist``/``dermamnist`` (npz at 224), 256 images each; a
+    CLIP-format vocabulary learned from the captions (``write_clip_vocab``:
+    the byte alphabet, 600 merges, ``<|startoftext|>`` and
+    ``<|endoftext|>`` the two highest ids), the readers' roots in their
+    environment variables. 8 seeded rows of each reader equal to a plain
+    PIL decode through the eval transform; one b8 step of
+    ``baseline.yaml``'s task (two rows of each reader, MIMIC's
+    ``rgb_target`` present on its rows only) on the card against the CPU
+    at phase 5's limits, each row's EOS pooled where its attention mask
+    ends. Run A: ``+experiment=baseline`` for one epoch (16 micro-batches of
+    256, 4 optimizer steps of 4), the overrides the tokenizer's path, the
+    epochs, the checkpoint directory, ``trainer.log_mfu`` and a probe,
+    every count set to 0 first: launches a micro-step exactly (phase 12's
+    count under remat), every trained gradient finite and nonzero at the
+    first optimizer step, the validation on PMC-OA valid (padded last
+    batch) with its launches exact and each recall at 10, 50 and 200 equal
+    to its f64 recomputation from the gathered embeddings; pairs/s (3
+    windows of one optimizer step), ms a micro-step, FLOPs, MFU, peak
+    memory, the feeder's wait and the host seconds from ``main`` to the
+    first step. Run B: ``+experiment=zeroshot_classification_eval`` as the
+    eval job from run A's checkpoint, the six test sets whose readers need
+    ``datasets`` or pandas deleted (printed with why): the weights run A's
+    bit for bit, K1f's launches exact (the image tower a batch, the text
+    tower a set's prompts), each top-1 accuracy equal to its f64
+    recomputation, and 64 images of each set on the card against an f32 CPU
+    copy (cosines >= ``MIN_COSINE``). Then ``bioscan_1m.yaml`` composed and
+    its task instantiated on the card: parameter names, shapes, LoRA sites
+    and trainable set equal to ``recipe.bioscan_task()``'s.
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
-checks that K5 never launched there; so do the eighth to the seventeenth.
+checks that K5 never launched there; so do the eighth to the eighteenth.
 
 The packed kernels are held to their plain versions (K1's) at K1's limits,
 element-wise and as a whole, at batch 8 over every case and at the lengths
@@ -6308,6 +6344,904 @@ def tp_phase(device) -> dict:
     return ranks[0]["counts"]
 
 
+# phase 18: the med_benchmarking experiments through the port's CLI: the
+# medical CLIP pretraining (baseline.yaml) on files in the four image-text
+# readers' layouts, the zero-shot classification job
+# (zeroshot_classification_eval.yaml) from its last checkpoint, and
+# bioscan_1m.yaml composed on the card
+MED_SEARCHPATH = "pkg://mmlearn_tpu_torch.projects.med_benchmarking.configs"
+BIOSCAN_SEARCHPATH = "pkg://mmlearn_tpu_torch.projects.bioscan_clip.configs"
+MED_PAIRS = 1024  # pairs of each train reader: 16 micro-batches of 256, 4 optimizer steps
+MED_VALID = 640  # PMC-OA's valid split: 3 batches of 256, the last padded
+MED_EVAL = 256  # images of each zero-shot test set kept on the card
+#: image sizes (h, w) around 224, so that the transform resizes and crops
+MED_HW = ((224, 224), (200, 264), (256, 240), (240, 320), (288, 216), (232, 208))
+MED_MERGES = 600  # BPE merges learned from the captions
+MED_MARKS = (4, 8, 12, 16)  # 3 timed windows of one optimizer step each
+MED_PIXEL_ROWS = 8  # seeded indices of each reader held to a plain PIL decode
+MED_CPU_ROWS = 64  # images of each kept test set on the card against the CPU
+CLIP_VOCAB = 49408  # the text tower's vocabulary: every id of the local one below it
+CHEXPERT_LABELS = 14
+#: each reader's files under the phase's root and the variable its root comes from
+MED_ROOTS = (("pmcoa", "PMCOA_ROOT_DIR"), ("roco", "ROCO_ROOT_DIR"),
+             ("mimic", "MIMICIVCXR_ROOT_DIR"), ("quilt", "QUILT_ROOT_DIR"),
+             ("ham10000", "HAM10000_ROOT_DIR"), ("pad_ufes_20", "PAD_UFES_20_ROOT_DIR"),
+             ("medmnist", "MEDMNISTPLUS_ROOT_DIR"))
+#: the zero-shot YAML's test sets whose readers need a package the card's
+#: host lacks; they are held on the CPU (tests/test_torch_med_benchmarking.py)
+MED_DROPPED = {
+    "bach": "the HuggingFace hub through 'datasets'",
+    "pcam": "the HuggingFace hub through 'datasets'",
+    "nck_crc": "the HuggingFace hub through 'datasets'",
+    "lc25000_lung": "a save_to_disk cache through 'datasets'",
+    "lc25000_colon": "a save_to_disk cache through 'datasets'",
+    "sicap": "xlsx partitions through pandas and openpyxl",
+}
+MED_MNIST = (("pathmnist", 9), ("dermamnist", 7))
+MED_HAM_DX = ("nv", "mel", "bkl", "bcc", "akiec", "vasc", "df")
+MED_PAD_DX = ("BCC", "MEL", "SCC", "ACK", "NEV", "SEK")
+MED_WORDS = (
+    "chest", "x-ray", "CT", "MRI", "axial", "coronal", "sagittal", "image", "showing", "the",
+    "left", "right", "upper", "lower", "lobe", "lung", "liver", "kidney", "brain", "heart",
+    "mass", "lesion", "nodule", "opacity", "effusion", "pleural", "consolidation", "edema",
+    "fracture", "tumor", "carcinoma", "benign", "malignant", "tissue", "stained", "H&E",
+    "histology", "biopsy", "patient", "with", "no", "evidence", "of", "acute", "chronic",
+    "mild", "moderate", "severe", "enlarged", "normal", "abnormal", "arrow", "indicates",
+    "figure", "panel", "(a)", "(b)", "contrast-enhanced", "ultrasound", "cells", "gland",
+    "mucosa", "stroma", "cm", "mm", "in", "and", "a", "is", "seen", "at", "level",
+)
+MED_QUILT_SUBSETS = ("youtube", "pubmed", "twitter", "laion")
+
+
+def med_caption(seed: int, tag: int, idx: int, words=(4, 40)) -> str:
+    """Caption ``idx`` of set ``tag``: ``words`` seeded words of
+    ``MED_WORDS``, a number now and then, commas."""
+    import numpy as np
+
+    rng = np.random.default_rng((seed, tag, idx, 1))
+    out = []
+    for _ in range(int(rng.integers(*words))):
+        r = rng.random()
+        out.append(str(round(float(rng.uniform(0.5, 30.0)), 1)) if r < 0.06 else
+                   MED_WORDS[int(rng.integers(len(MED_WORDS)))] + ("," if r > 0.95 else ""))
+    return " ".join(out).rstrip(",") + "."
+
+
+def med_image(seed: int, tag: int, idx: int, hw) -> "np.ndarray":
+    """Image ``idx`` of set ``tag``: a smooth seeded pattern (three plane
+    waves and a blob, each a sum of outer products of 1-d profiles, so that
+    a few thousand images take seconds), uint8 of shape ``hw + (3,)``."""
+    import numpy as np
+
+    rng = np.random.default_rng((seed, tag, idx))
+    h, w = hw
+    y, x = np.linspace(0, 1, h, dtype=np.float32), np.linspace(0, 1, w, dtype=np.float32)
+    f, phase = rng.uniform(0.5, 6.0, (3, 2)), rng.uniform(0, 2 * np.pi, 3)
+    cy, cx, r = rng.uniform(0.2, 0.8, 3)
+    blob = np.outer(np.exp(-(y - cy) ** 2 / (0.05 * r)), np.exp(-(x - cx) ** 2 / (0.05 * r)))
+    channels = []
+    for c in range(3):
+        # sin(a y + b x + p) = sin(a y + p) cos(b x) + cos(a y + p) sin(b x)
+        ay, bx = 2 * np.pi * f[c, 1] * y + phase[c], 2 * np.pi * f[c, 0] * x
+        channels.append(np.outer(np.sin(ay), np.cos(bx)) + np.outer(np.cos(ay), np.sin(bx))
+                        + blob)
+    img = np.stack(channels, axis=-1)
+    return ((np.clip(img, -1, 2) + 1) * 85).round().astype(np.uint8)
+
+
+def _write_med_images(jobs) -> None:
+    """Write ``(path, seed, tag, idx, hw, gray)`` images (a worker's share
+    of :func:`write_med_tree`): JPEG (quality 90) or PNG by the extension."""
+    from PIL import Image
+
+    for path, seed, tag, idx, hw, gray in jobs:
+        pil = Image.fromarray(med_image(seed, tag, idx, hw))
+        if gray:
+            pil = pil.convert("L")
+        if path.endswith(".jpg"):
+            pil.save(path, quality=90)
+        else:
+            pil.save(path, compress_level=1)
+
+
+def write_med_tree(root: str, pairs: int, valid: int, n_eval: int, seed: int = SEED,
+                   hw=MED_HW, mnist_px: int = 224, processes: int = 0) -> dict:
+    """Files in the layouts of the readers that run on the card, under
+    ``root/<name>`` for each name of ``MED_ROOTS``: PMC-OA (``train.jsonl``
+    with ``pairs`` and ``valid.jsonl`` with ``valid`` pairs, ``images/``,
+    JPEG), ROCO (``train.jsonl``, ``images/``, JPEG), MIMIC-IV-CXR
+    (``train.jsonl`` with ``report`` and the 14 CheXpert labels in {1, 0,
+    -1}, grayscale PNGs under patient folders), Quilt-1M (``train.csv`` with
+    ``image_path``, ``caption`` and ``subset``, ``quilt_1m/``, JPEG),
+    HAM10000 (``HAM10000_metadata.csv``, ``images/<image_id>.jpg``),
+    PAD-UFES-20 (``metadata.csv`` with empty cells, ``images/``, PNG), each
+    of ``n_eval`` images, and MedMNIST+ ``pathmnist_224.npz`` and
+    ``dermamnist_224.npz`` (``test_images`` of ``n_eval`` at ``mnist_px``).
+    Captions and images from ``(seed, set, index)``; the images in this
+    process or in ``processes`` spawned ones. Returns ``{name: root}``."""
+    import csv
+    import multiprocessing
+
+    import numpy as np
+
+    roots = {name: os.path.join(root, name) for name, _ in MED_ROOTS}
+    jobs = []
+
+    def image(name, sub, rel, tag, idx, gray=False):
+        path = os.path.join(roots[name], sub, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        jobs.append((path, seed, tag, idx, hw[idx % len(hw)], gray))
+
+    def jsonl(name, split, rows):
+        with open(os.path.join(roots[name], f"{split}.jsonl"), "w") as f:
+            f.writelines(json.dumps(row) + "\n" for row in rows)
+
+    for split, n, tag in (("train", pairs, 1), ("valid", valid, 2)):
+        rows = []
+        for i in range(n):
+            rel = f"PMC{tag}{i:06d}_fig{i % 4 + 1}.jpg"
+            image("pmcoa", "images", rel, tag, i)
+            rows.append({"image": rel, "caption": med_caption(seed, tag, i)})
+        jsonl("pmcoa", split, rows)
+    rows = []
+    for i in range(pairs):
+        rel = f"ROCO_{i:05d}.jpg"
+        image("roco", "images", rel, 3, i)
+        rows.append({"image": rel, "caption": med_caption(seed, 3, i)})
+    jsonl("roco", "train", rows)
+    rows = []
+    for i in range(pairs):
+        rel = f"p1{i % 10}/p1{i:07d}/s5{i:07d}.png"
+        image("mimic", "images", rel, 4, i, gray=True)
+        labels = np.random.default_rng((seed, 4, i, 2)).integers(-1, 2, CHEXPERT_LABELS)
+        rows.append({"image": rel, "report": "FINDINGS: " + med_caption(seed, 4, i, (8, 60))
+                     + " IMPRESSION: " + med_caption(seed, 5, i, (2, 12)),
+                     "label": [float(v) for v in labels]})
+    jsonl("mimic", "train", rows)
+    os.makedirs(roots["quilt"], exist_ok=True)
+    with open(os.path.join(roots["quilt"], "train.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["image_path", "caption", "subset"])
+        for i in range(pairs):
+            rel = f"{i:06d}.jpg"
+            image("quilt", "quilt_1m", rel, 6, i)
+            out.writerow([rel, med_caption(seed, 6, i), MED_QUILT_SUBSETS[i % 4]])
+    os.makedirs(roots["ham10000"], exist_ok=True)
+    with open(os.path.join(roots["ham10000"], "HAM10000_metadata.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["lesion_id", "image_id", "dx", "dx_type", "age", "sex", "localization"])
+        for i in range(n_eval):
+            image_id = f"ISIC_{24306 + i:07d}"
+            image("ham10000", "images", image_id + ".jpg", 7, i)
+            out.writerow([f"HAM_{i // 2:07d}", image_id, MED_HAM_DX[(i * 5 + i // 7) % 7],
+                          "histo", "" if i % 9 == 0 else 5 * (i % 17), ("male", "female")[i % 2],
+                          "back"])
+    os.makedirs(roots["pad_ufes_20"], exist_ok=True)
+    with open(os.path.join(roots["pad_ufes_20"], "metadata.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["patient_id", "lesion_id", "smoke", "age", "img_id", "diagnostic",
+                      "biopsed"])
+        for i in range(n_eval):
+            img_id = f"PAT_{i // 3}_{i}_{100 + i}.png"
+            image("pad_ufes_20", "images", img_id, 8, i)
+            out.writerow([f"PAT_{i // 3}", i, "" if i % 4 else ("True", "False")[i % 8 // 4],
+                          20 + i % 60, img_id, MED_PAD_DX[(i * 7 + i // 5) % 6],
+                          ("True", "False")[i % 2]])
+    os.makedirs(roots["medmnist"], exist_ok=True)
+    for k, (name, classes) in enumerate(MED_MNIST):
+        images = np.stack([med_image(seed, 9 + k, i, (mnist_px, mnist_px)) for i in range(n_eval)])
+        labels = np.random.default_rng((seed, 9 + k)).integers(0, classes, (n_eval, 1))
+        np.savez(os.path.join(roots["medmnist"], f"{name}_224.npz"), test_images=images,
+                 test_labels=labels.astype(np.uint8))
+    if processes:
+        shares = [jobs[k::processes] for k in range(processes)]
+        with concurrent.futures.ProcessPoolExecutor(
+                processes, mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(_write_med_images, shares))
+    else:
+        _write_med_images(jobs)
+    return roots
+
+
+def clip_byte_alphabet() -> dict:
+    """CLIP's (and GPT-2's) bytes-to-unicode table: each of the 256 bytes
+    as a printable character."""
+    keep = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+            + list(range(ord("®"), ord("ÿ") + 1)))
+    chars, extra = {}, 0
+    for b in range(256):
+        if b in keep:
+            chars[b] = chr(b)
+        else:
+            chars[b] = chr(256 + extra)
+            extra += 1
+    return {b: chars[b] for b in keep + [b for b in range(256) if b not in keep]}
+
+
+def write_clip_vocab(out_dir: str, texts, merges: int = MED_MERGES) -> dict:
+    """A CLIP-format vocabulary under ``out_dir`` for ``HFCLIPTokenizer``:
+    ``vocab.json`` (the 256 byte characters, their ``</w>`` forms, the
+    tokens of ``merges`` BPE merges learned from ``texts``, then
+    ``<|startoftext|>`` and ``<|endoftext|>``, the two highest ids, as in
+    CLIP's vocabulary), ``merges.txt`` and ``tokenizer_config.json`` (the
+    pad token ``<|endoftext|>``, as CLIP's). Returns ``{"size", "bos",
+    "eos"}``."""
+    import collections
+    import re
+
+    alphabet = clip_byte_alphabet()
+    words: collections.Counter = collections.Counter()
+    for text in texts:
+        for word in re.findall(r"'s|'t|'re|'ve|'m|'ll|'d|[^\W\d_]+|\d|[^\s\w]+|_+",
+                               " ".join(text.lower().split())):
+            chars = [alphabet[b] for b in word.encode("utf-8")]
+            words[tuple(chars[:-1] + [chars[-1] + "</w>"])] += 1
+    tokens = list(alphabet.values())
+    tokens += [t + "</w>" for t in tokens]
+    known, learned = set(tokens), []
+    for _ in range(merges):
+        pairs: collections.Counter = collections.Counter()
+        for word, n in words.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        learned.append(best)
+        if best[0] + best[1] not in known:
+            known.add(best[0] + best[1])
+            tokens.append(best[0] + best[1])
+        merged: collections.Counter = collections.Counter()
+        for word, n in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if i + 1 < len(word) and (word[i], word[i + 1]) == best:
+                    out.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in learned))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "CLIPTokenizer", "model_max_length": 77,
+                   "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+                   "do_lower_case": True}, f)
+    return {"size": len(tokens), "bos": len(tokens) - 2, "eos": len(tokens) - 1}
+
+
+def med_captions(seed: int = SEED, pairs: int = MED_PAIRS, valid: int = MED_VALID) -> list:
+    """Every caption and report :func:`write_med_tree` writes."""
+    texts = [med_caption(seed, tag, i) for tag, n in ((1, pairs), (2, valid), (3, pairs),
+                                                      (6, pairs)) for i in range(n)]
+    return texts + [med_caption(seed, 4, i, (8, 60)) + " " + med_caption(seed, 5, i, (2, 12))
+                    for i in range(pairs)]
+
+
+def eos_positions(ids, mask) -> tuple:
+    """Each row's pooled position (``input_ids.argmax(-1)``, the text
+    tower's EOS pooling) and the position of its attention mask's last 1."""
+    import numpy as np
+
+    ids, mask = np.asarray(ids), np.asarray(mask)
+    last = mask.shape[1] - 1 - np.argmax(mask[:, ::-1] > 0, axis=1)
+    return ids.argmax(-1), last
+
+
+def _host(value):
+    import numpy as np
+    import torch
+
+    return value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+
+
+@contextlib.contextmanager
+def encode_spy():
+    """Record what the evaluation hooks encode: each (batch, modality) once,
+    its raw embeddings (f32, on the host) with the batch's dataset index,
+    targets and validity where it has them, and each text batch's pooled
+    and last-unmasked positions; the host clock after each call; and the
+    classification hook's class
+    embeddings (f64) at each epoch's end. A spy on ``EvalRuntime.encode``
+    (the forward is the runtime's own: nothing is encoded twice)."""
+    from mmlearn_tpu_torch.constants import DATASET_INDEX_KEY
+    from mmlearn_tpu_torch.datasets.core.modalities import Modalities
+    from mmlearn_tpu_torch.tasks import zero_shot_classification as zc
+    from mmlearn_tpu_torch.tasks.hooks import EvalRuntime
+
+    rec: dict = {"rows": [], "classes": [], "clock": []}
+    encode, epoch_end = EvalRuntime.encode, zc.ZeroShotClassification.on_evaluation_epoch_end
+    text = Modalities.get_modality("text")
+
+    def spy(self, batch, modality, normalize=False):
+        fresh = batch is not self._batch or modality not in self._encoded
+        out = encode(self, batch, modality, normalize)
+        rec["clock"].append(time.perf_counter())
+        if fresh:
+            meta = {k: _host(batch[k]) for k in (DATASET_INDEX_KEY, "rgb_target", "batch_validity")
+                    if k in batch}
+            if modality == "text":
+                meta["eos"] = eos_positions(_host(batch[text.name]),
+                                            _host(batch[text.attention_mask]))
+            rec["rows"].append((modality, self._encoded[modality].float().cpu().numpy(), meta))
+        return out
+
+    def keep(self, runtime):
+        rec["classes"].append({d: e.double().cpu().numpy()
+                               for d, e in self._class_embeddings.items()})
+        return epoch_end(self, runtime)
+
+    EvalRuntime.encode, zc.ZeroShotClassification.on_evaluation_epoch_end = spy, keep
+    try:
+        yield rec
+    finally:
+        EvalRuntime.encode, zc.ZeroShotClassification.on_evaluation_epoch_end = encode, epoch_end
+
+
+def spied_rows(rec, modality: str, with_validity: bool = True):
+    """The recorded batches of ``modality`` (those with a ``batch_validity``
+    only, or those without), their rows concatenated, padding dropped:
+    ``(embeddings, meta)``; ``meta["eos"]`` the pooled and last-unmasked
+    positions of text rows."""
+    import numpy as np
+
+    parts = [(emb, meta) for mod, emb, meta in rec["rows"]
+             if mod == modality and ("batch_validity" in meta) == with_validity]
+    keep = [meta.get("batch_validity", np.ones(len(emb), bool)) for emb, meta in parts]
+    emb = np.concatenate([e[k] for (e, _), k in zip(parts, keep)])
+    meta = {key: np.concatenate([m[key][k] for (_, m), k in zip(parts, keep)])
+            for key in parts[0][1] if key not in ("batch_validity", "eos")}
+    if "eos" in parts[0][1]:
+        meta["eos"] = tuple(np.concatenate([m["eos"][i][k] for (_, m), k in zip(parts, keep)])
+                            for i in (0, 1))
+    return emb, meta
+
+
+class MedProbe:
+    """A callback that phase 18 adds to the experiment's trainer through the
+    CLI (``+trainer.callbacks.probe``). Keeps the trainer; the host clock at
+    the start of training and after the first micro-step; at the first
+    optimizer step (micro-step ``accumulate_grad_batches``) the names of the
+    trained tensors whose applied gradient is missing, not finite or zero;
+    after each micro-step in ``marks`` the host clock (after a synchronize)
+    and the feeder's wait; after the last mark the launch counts (training
+    only: the validation comes after); the validation's metrics."""
+
+    runs: list = []
+
+    def __init__(self, marks=()) -> None:
+        self.marks = sorted(marks)
+        self.times, self.waits = {}, {}
+        self.trainer = self.bad = self.train_counts = self.metrics = None
+        self.t_start = self.t_first = None
+        MedProbe.runs.append(self)
+
+    def on_train_start(self, trainer) -> None:
+        self.trainer = trainer
+        self.t_start = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        import torch
+
+        if step == 1:
+            torch.cuda.synchronize()
+            self.t_first = time.perf_counter()
+        if step == trainer.accumulate_grad_batches:
+            bad, zero = _bad_grads((n, p) for n, p in trainer.state.task.named_parameters()
+                                   if p.requires_grad)
+            self.bad = bad + zero
+        if step in self.marks:
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+            self.waits[step] = trainer.feeder_wait_s
+        if self.marks and step == self.marks[-1]:
+            self.train_counts = launch_counts()
+
+    def on_train_epoch_end(self, trainer, epoch) -> None: ...
+
+    def on_validation_end(self, trainer, metrics, step) -> None:
+        self.trainer = trainer
+        self.metrics = dict(metrics)
+
+    def on_train_end(self, trainer) -> None: ...
+
+
+@contextlib.contextmanager
+def med_env(roots: dict):
+    """Each reader's root in the variable it reads, inside the block."""
+    with contextlib.ExitStack() as stack:
+        for name, var in MED_ROOTS:
+            stack.enter_context(environ(var, roots[name]))
+        yield
+
+
+def med_pixel_checks(roots: dict) -> None:
+    """For ``MED_PIXEL_ROWS`` seeded indices of each reader of the phase,
+    its ``rgb`` equal bit for bit to a plain PIL decode of its file (an
+    npz row for MedMNIST+) through the eval transform (CLIP's statistics,
+    224 px)."""
+    import numpy as np
+    from PIL import Image
+
+    from mmlearn_tpu_torch.datasets.builtin.image_utils import CLIP_MEAN, CLIP_STD, ImageTransform
+    from mmlearn_tpu_torch.projects.med_benchmarking.datasets import (
+        HAM10000,
+        MIMICIVCXR,
+        PMCOA,
+        ROCO,
+        MedMNISTPlus,
+        PadUfes20,
+        Quilt,
+    )
+
+    plain = ImageTransform(size=224, mean=CLIP_MEAN, std=CLIP_STD)
+    readers = {
+        "PMC-OA train": (PMCOA(split="train"), lambda d, e: os.path.join(
+            roots["pmcoa"], "images", e["image"])),
+        "PMC-OA valid": (PMCOA(split="valid"), lambda d, e: os.path.join(
+            roots["pmcoa"], "images", e["image"])),
+        "ROCO": (ROCO(), lambda d, e: os.path.join(roots["roco"], "images", e["image"])),
+        "MIMIC-IV-CXR": (MIMICIVCXR(), lambda d, e: os.path.join(
+            roots["mimic"], "images", e["image"])),
+        "Quilt": (Quilt(), lambda d, e: os.path.join(roots["quilt"], "quilt_1m",
+                                                     e["image_path"])),
+    }
+    rng = np.random.default_rng(SEED + 180)
+    checked, fetch_s = 0, {}
+    for label, (ds, path_of) in readers.items():
+        for i in rng.choice(len(ds), MED_PIXEL_ROWS, replace=False):
+            with Image.open(path_of(ds, ds.entries[i])) as img:
+                want = plain(np.asarray(img.convert("RGB")))
+            t0 = time.perf_counter()
+            got = ds[int(i)]["rgb"]
+            fetch_s[label] = fetch_s.get(label, 0.0) + time.perf_counter() - t0
+            check(np.array_equal(got, want), f"{label} row {i}: rgb differs")
+            checked += 1
+    for label, ds, path_of in (
+            ("HAM10000", HAM10000(), lambda ds, i: os.path.join(
+                roots["ham10000"], "images", f"{ds.paths[i]}.jpg")),
+            ("PAD-UFES-20", PadUfes20(), lambda ds, i: os.path.join(
+                roots["pad_ufes_20"], "images", ds.paths[i]))):
+        for i in rng.choice(len(ds), MED_PIXEL_ROWS, replace=False):
+            with Image.open(path_of(ds, int(i))) as img:
+                want = plain(np.asarray(img.convert("RGB")))
+            check(np.array_equal(ds[int(i)]["rgb"], want), f"{label} row {i}: rgb differs")
+            checked += 1
+    for name, _ in MED_MNIST:
+        ds = MedMNISTPlus(name=name, split="test")
+        images = np.load(os.path.join(roots["medmnist"], f"{name}_224.npz"))["test_images"]
+        for i in rng.choice(len(ds), MED_PIXEL_ROWS, replace=False):
+            check(np.array_equal(ds[int(i)]["rgb"], plain(images[i])),
+                  f"MedMNIST+ {name} row {i}: rgb differs")
+            checked += 1
+    print(f"med path: {checked} rows of {len(readers) + 4} readers equal bit for bit to a plain "
+          f"PIL decode of their files through the eval transform; a train example's fetch "
+          f"on one thread: " + ", ".join(f"{label} {t / MED_PIXEL_ROWS * 1e3:.2f} ms"
+                                          for label, t in fetch_s.items()))
+
+
+def med_parity(overrides, device) -> dict:
+    """One step of ``baseline.yaml``'s task at batch 8 (built by the CLI's
+    ``build_experiment`` and ``instantiate`` from the seed), two examples of
+    each train reader collated by the YAML's collator (MIMIC's
+    ``rgb_target`` present on its two rows only), the kernels on the card
+    against the plain versions on the CPU from the same weights: the loss
+    and the cosine of every trained gradient, at phase 5's limits, and each
+    row's EOS pooled where its attention mask ends. Inputs in bf16, as the
+    trainer casts them under ``precision: bf16``. Returns the vocabulary's
+    reach (the largest id in the batch)."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import build_experiment
+    from mmlearn_tpu_torch.conf import instantiate
+
+    cfg = build_experiment(overrides)
+    torch.manual_seed(cfg["seed"])
+    t0 = time.perf_counter()
+    with torch.device(device):  # the weights drawn on the card: the CPU's fills are slow
+        master = instantiate(cfg["task"]).to(device)
+    master.prepare_seed = cfg["seed"]
+    print(f"med step: the YAML's task built on the {device.type} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    readers = [instantiate(node) for node in cfg["datasets"]["train"].values()]
+    collate = instantiate(cfg["dataloader"]["train"]["collate_fn"])
+    host = collate([ds[i] for ds in readers for i in (0, 1)])
+    presence = host.get("rgb_target_presence")
+    mimic = list(cfg["datasets"]["train"]).index("mimic")
+    want = np.arange(PARITY_BATCH) // 2 == mimic
+    check(presence is not None and np.array_equal(presence, want),
+          f"MIMIC's rgb_target presence in a mixed batch {presence}, want {want}")
+    check(np.array_equal(host["rgb_target"][want].reshape(2, -1),
+                         np.stack([readers[mimic][i]["rgb_target"] for i in (0, 1)])),
+          "MIMIC's rgb_target rows differ from the reader's")
+    pooled, last = eos_positions(host["text"], host["text_attention_mask"])
+    check(np.array_equal(pooled, last), f"EOS pooled at {pooled}, the masks end at {last}")
+    host = master.prepare_batch(host, 0)
+    tasks = {"card": master, "cpu": copy.deepcopy(master).to("cpu")}  # before any gradient
+    losses, grads = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        task = tasks[where]
+        batch = {k: (torch.as_tensor(v).to(dev, torch.bfloat16) if k == "rgb" else v)
+                 for k, v in host.items()}
+        loss, _ = task.loss_fn(batch)
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu() for n, p in task.named_parameters()
+                        if p.requires_grad}
+        print(f"med step b={PARITY_BATCH} on the {where}: loss {losses[where]:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = {n: _cosine(grads["card"][n], grads["cpu"][n]) for n in grads["cpu"]}
+    worst = min(cos, key=cos.get)
+    print(f"med step parity b={PARITY_BATCH}, card vs CPU: loss rel diff {rel:.3e} (tol "
+          f"{LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} at {worst}, median "
+          f"{statistics.median(cos.values()):.6f} over {len(cos)} tensors (bound "
+          f"{MIN_GRAD_COSINE}); MIMIC's rgb_target on rows {np.flatnonzero(want).tolist()} "
+          f"of the mixed batch; EOS pooled at the masks' ends {last.tolist()}")
+    check(rel <= LOSS_RTOL, f"med loss on the card {losses['card']} vs CPU {losses['cpu']}")
+    check(cos[worst] >= MIN_GRAD_COSINE, f"med gradient of {worst}: cosine {cos[worst]}")
+    return int(np.asarray(host["text"]).max())
+
+
+def med_train(data, device, root: str) -> tuple:
+    """Run A of phase 18: ``baseline.yaml`` through ``cli.run.main`` for one
+    epoch, every count set to 0 first. Returns
+    (the task, the launch counts of training and of the validation, the
+    checkpoint directory)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import main as cli_main
+    from mmlearn_tpu_torch.ops.fused_attention import PLAIN_ROUTE
+
+    out = os.path.join(root, "A")
+    ckpt = os.path.join(out, "checkpoints")
+    argv = [*data, "trainer.max_epochs=1", f"runtime.output_dir={out}",
+            f"+trainer.callbacks.checkpoint.dirpath={ckpt}", "trainer.log_mfu=true",
+            "+trainer.callbacks.probe._target_=chip_smoke.MedProbe",
+            f"+trainer.callbacks.probe.marks={list(MED_MARKS)}"]
+    reset_counts()
+    PLAIN_ROUTE["xla"] = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with encode_spy() as rec:
+        state = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    probe = MedProbe.runs[-1]
+    task, trainer = state.task, probe.trainer
+    k = trainer.accumulate_grad_batches
+    print(f"med path: run A through the CLI in {wall:.1f} s ({state.step} micro-steps, "
+          f"{state.step // k} optimizer steps of {k}); {probe.t_start - t0:.1f} s from main to "
+          f"the fit's start, {probe.t_first - t0:.1f} s to the end of the first micro-step")
+    check(state.step == MED_MARKS[-1] and k == 4 and trainer.max_epochs == 1,
+          f"run A took {state.step} micro-steps at accumulate_grad_batches={k}")
+    check(trainer.device.type == "cuda" and next(task.parameters()).is_cuda,
+          "the CLI's trainer did not run on the card")
+    check(all(getattr(enc.blocks, "remat", False) for enc in task.encoders.values()),
+          "the towers are not under remat")
+    want = large_launches(task, remat=True)
+    train = probe.train_counts
+    print(f"med path: {state.step} micro-steps launched " + ", ".join(
+        f"{key} {train[key]} ({train[key] / state.step:g} a micro-step, want {v})"
+        for key, v in want.items() if v))
+    check(train == {key: v * state.step for key, v in want.items()} and PLAIN_ROUTE["xla"] == 0,
+          f"med launches {train}, want {want} a micro-step; plain routes {PLAIN_ROUTE}")
+    check(probe.bad is not None and not probe.bad,
+          f"missing, non-finite or zero gradients at the first optimizer step: "
+          f"{(probe.bad or [])[:10]}")
+    print(f"med path: every trained gradient finite and nonzero at the first optimizer step")
+    hist = trainer.history
+    print(f"med path: loss micro-step 0 {hist[0]['loss']:.6f}, {len(hist) - 1} "
+          f"{hist[-1]['loss']:.6f}; lr {hist[0]['lr']:.4e} -> {hist[-1]['lr']:.4e}")
+    check(all(math.isfinite(h["loss"]) for h in hist), "non-finite med losses")
+
+    # the validation: its launches, recalls in f64, EOS at the masks' ends
+    val = {key: counts[key] - train[key] for key in counts}
+    rgb, rgb_meta = spied_rows(rec, "rgb")
+    text, text_meta = spied_rows(rec, "text")
+    n_val = -(-MED_VALID // BATCH)
+    depth = sum(len(enc.blocks) for enc in task.encoders.values())
+    passes = 2 if task.compute_validation_loss else 1
+    want_val = {"fused_mha_fwd": passes * depth * n_val, "layernorm_fwd": 2 * passes * depth * n_val}
+    print(f"med path: validation over {len(rgb)} PMC-OA valid pairs in {n_val} batches "
+          f"launched {', '.join(f'{key} {v}' for key, v in val.items() if v)} (want "
+          f"{want_val}: the loss and the hooks' forwards)")
+    check(val == {key: want_val.get(key, 0) for key in val}, f"validation launches {val}")
+    check(len(rgb) == len(text) == MED_VALID, f"the hooks saw {len(rgb)} and {len(text)} pairs")
+    pooled, last = text_meta["eos"]
+    check(np.array_equal(pooled, last), "EOS not pooled where the attention mask ends")
+    ks = (10, 50, 200)
+    metrics, differ = probe.metrics, {}
+    for name, (q, t) in (("rgb_to_text", (rgb, text)), ("text_to_rgb", (text, rgb))):
+        recalls, gap = recall_f64(q, t, ks)
+        for kk, v in recalls.items():
+            got = metrics[f"retrieval/{name}_R@{kk}"]
+            if got != v:
+                differ[f"{name}_R@{kk}"] = (got, v)
+        print(f"med path: {name} recall {', '.join(f'R@{kk} {v:.4f}' for kk, v in recalls.items())}"
+              f" (f64 from the gathered embeddings; least nonzero distance of a score from its "
+              f"positive's {gap:.3e}); validation loss {metrics.get('validation/loss', float('nan')):.6f}")
+    check(not differ, f"med recalls differ from their f64 recomputation: {differ}")
+
+    # the windows inside the epoch, while the loader's threads decode the
+    # next batches; the last one after the loader has drained (its batches
+    # already queued), for the step's own pace
+    marks = sorted(probe.times)
+    window_s = [probe.times[b] - probe.times[a] for a, b in zip(marks, marks[1:])]
+    waits = [probe.waits[b] - probe.waits[a] for a, b in zip(marks, marks[1:])]
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    rates = [BATCH * n / w for n, w in zip(steps, window_s)]
+    # the epoch's windows pooled: all their pairs over all their seconds
+    inside_s, inside_steps = sum(window_s[:-1]), sum(steps[:-1])
+    rate = BATCH * inside_steps / inside_s
+    ms = inside_s / inside_steps * 1e3
+    flops = trainer._step_flops or 0.0
+    mfu = flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"med train b{BATCH} x {k} through the CLI: {rate:.1f} pairs/s over the "
+          f"{len(rates) - 1} windows of {steps[0]} micro-steps inside the epoch "
+          f"({BATCH * inside_steps} pairs in {inside_s:.3f} s; each window "
+          f"{', '.join(f'{r:.1f}' for r in rates[:-1])}), {ms:.2f} ms a micro-step, "
+          f"{flops / 1e12:.3f} TFLOPs a micro-step counted, MFU {mfu:.2%} of "
+          f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s, the feeder's wait "
+          f"{sum(waits[:-1]) / inside_s:.2%} of those windows; the last window, "
+          f"after the loader drained: {rates[-1]:.1f} pairs/s, "
+          f"{window_s[-1] / steps[-1] * 1e3:.2f} ms a micro-step, MFU "
+          f"{flops / (window_s[-1] / steps[-1]) / PEAK_FLOPS['bfloat16']:.2%}; peak memory "
+          f"{peak_gb:.2f} GB; card {card}")
+    MedProbe.runs.clear()
+    return task, train, val, ckpt
+
+
+def med_eval(device, vocab_dir: str, ckpt: str, weights: dict, root: str) -> tuple:
+    """Run B of phase 18: ``zeroshot_classification_eval.yaml`` as the eval
+    job through ``cli.run.main`` from run A's checkpoint, the test sets
+    whose readers need a package the host lacks deleted, every count set to
+    0 first. Returns its launch counts and its task."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import main as cli_main
+
+    drops = [f"~datasets.test.{name}" for name in MED_DROPPED]
+    print("med path: the eval job drops " + "; ".join(
+        f"{name} (reads {why})" for name, why in MED_DROPPED.items()))
+    argv = [f"searchpath=[{MED_SEARCHPATH}]", "+experiment=zeroshot_classification_eval", *drops,
+            "+task.evaluation_tasks.classification.task.tokenizer."
+            f"pretrained_model_name_or_path={vocab_dir}", f"resume_from_checkpoint={ckpt}",
+            f"runtime.output_dir={os.path.join(root, 'B')}",
+            "+trainer.callbacks.probe._target_=chip_smoke.MedProbe"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with encode_spy() as rec:
+        results = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    probe = MedProbe.runs.pop()
+    task, trainer = probe.trainer.state.task, probe.trainer
+    check(trainer.device.type == "cuda" and next(task.parameters()).is_cuda,
+          "the eval job did not run on the card")
+    got = {k: v for k, v in task.state_dict().items() if hasattr(v, "shape")}
+    differ = [k for k in weights if k not in got or not torch.equal(got[k].cpu(), weights[k])]
+    check(sorted(got) == sorted(weights) and not differ,
+          f"restored weights differ from run A's: {differ[:5]}")
+    print(f"med path: the eval job restored run A's {len(weights)} tensors bit for bit")
+
+    rgb, meta = spied_rows(rec, "rgb")
+    prompts, prompt_meta = spied_rows(rec, "text", with_validity=False)
+    (classes,) = rec["classes"]
+    sets = ("ham10000", "pad_ufes_20", "pathmnist", "dermamnist")
+    n_batches = -(-len(rgb) // BATCH)
+    depth_rgb, depth_text = (len(task.encoders[m].blocks) for m in ("rgb", "text"))
+    chunks = len(classes)  # each set's prompts fit one chunk of the hook's 64
+    want = {"fused_mha_fwd": depth_rgb * n_batches + depth_text * chunks}
+    want["layernorm_fwd"] = 2 * want["fused_mha_fwd"]
+    loop_s = rec["clock"][-1] - rec["clock"][len(classes) - 1]  # from the last prompt chunk
+    print(f"med path: the eval job over {len(rgb)} images of {len(sets)} sets in {n_batches} "
+          f"batches and {len(prompts)} class prompts in {wall:.1f} s, its image batches "
+          f"{len(rgb) / loop_s:.1f} images/s ({loop_s:.2f} s from the class embeddings to the "
+          f"last batch's encode, the loader's decode on one thread included); launched "
+          f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)} (want {want})")
+    check(len(rgb) == len(sets) * MED_EVAL and len(classes) == len(sets),
+          f"the job saw {len(rgb)} images, {len(classes)} class sets")
+    check(counts == {k: want.get(k, 0) for k in counts}, f"eval launches {counts}, want {want}")
+    pooled, last = prompt_meta["eos"]
+    check(np.array_equal(pooled, last), "a class prompt's EOS not pooled where its mask ends")
+    ds, labels = meta["dataset_index"], meta["rgb_target"]
+    differ = {}
+    for d, name in enumerate(sets):
+        acc = accuracy_f64(rgb[ds == d], classes[d], labels[ds == d].astype(np.int64), [1])
+        key = f"classification/ds{d}_rgb_top1_accuracy"
+        want_acc = acc.get(1, acc.get(0))
+        print(f"med path: {name} top-1 accuracy {results[key]:.4f} over {(ds == d).sum()} images, "
+              f"{len(classes[d])} classes (f64 {want_acc:.4f})")
+        if results[key] != want_acc:
+            differ[name] = (results[key], want_acc)
+    check(not differ, f"zero-shot accuracies differ from their f64 recomputation: {differ}")
+    return counts, task
+
+
+@contextlib.contextmanager
+def skipped_init():
+    """``torch.nn.init``'s random fills as no-ops inside the block, for a
+    copy whose every weight is loaded after it is built (on the CPU the
+    fills take most of a tower's construction)."""
+    import torch.nn.init as init
+
+    saved = {name: getattr(init, name) for name in (
+        "trunc_normal_", "normal_", "uniform_", "kaiming_uniform_", "xavier_uniform_")}
+    for name in saved:
+        setattr(init, name, lambda tensor, *args, **kwargs: tensor)
+    try:
+        yield
+    finally:
+        for name, fill in saved.items():
+            setattr(init, name, fill)
+
+
+def med_eval_vs_cpu(task, device, vocab_dir: str) -> None:
+    """The eval job's hook over the first ``MED_CPU_ROWS`` images of each
+    kept test set (the readers at their 224 px, as the YAML reads them) on
+    the card and on an f32 CPU copy of the task (plain
+    versions): each image's embedding and each class embedding at cosine
+    >= ``MIN_COSINE`` (phase 11's limit); the centered readings printed."""
+    import numpy as np
+
+    from mmlearn_tpu_torch.datasets.processors.tokenizers import HFCLIPTokenizer
+    from mmlearn_tpu_torch.projects.med_benchmarking.datasets import (
+        HAM10000,
+        MedMNISTPlus,
+        PadUfes20,
+    )
+    from mmlearn_tpu_torch.tasks import ClassificationTaskSpec, EvaluationSpec, ZeroShotClassification
+    from mmlearn_tpu_torch.trainer import Trainer
+
+    heads = [Head(ds, MED_CPU_ROWS) for ds in (
+        HAM10000(), PadUfes20(), MedMNISTPlus("pathmnist", split="test"),
+        MedMNISTPlus("dermamnist", split="test"))]
+    hook = {"classification": EvaluationSpec(ZeroShotClassification(
+        [ClassificationTaskSpec("rgb", [1])], tokenizer=HFCLIPTokenizer(vocab_dir)),
+        run_on_test=True)}
+    out = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        if side == "card":
+            model = task
+        else:
+            with skipped_init():
+                model = cpu_copy_f32(task)
+        model.compute_test_loss = False  # the YAML's: no text in a classification batch
+        kept, model.evaluation_tasks = model.evaluation_tasks, hook
+        t0 = time.perf_counter()
+        with encode_spy() as rec:
+            results = Trainer(device=where, precision="bf16" if side == "card" else None).test(
+                model, eval_loader(heads))
+        model.evaluation_tasks = kept
+        out[side] = (spied_rows(rec, "rgb")[0], rec["classes"][0], results)
+        print(f"med path, eval on the {side}: {len(heads) * MED_CPU_ROWS} images in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model
+    (card, card_cls, card_res), (cpu, cpu_cls, cpu_res) = out["card"], out["cpu"]
+    worst = {"rgb": _row_cosines(card, cpu).min()}
+    worst.update({f"classes ds{d}": _row_cosines(card_cls[d], cpu_cls[d]).min() for d in cpu_cls})
+    centered = _centered_agreement(card, cpu, np.arange(len(card)))
+    print(f"med path, card vs f32 CPU on {MED_CPU_ROWS} images a set: least row cosine "
+          + ", ".join(f"{k} {v:.6f}" for k, v in worst.items()) + f" (bound {MIN_COSINE}); "
+          f"centered rgb: least cosine {centered[0]:.6f}, {centered[1]} rows nearer another "
+          f"image's CPU row, least margin {centered[2]:.3e} (printed, not held); top-1 card/CPU "
+          + ", ".join(f"ds{d} {card_res[k]:.4f}/{cpu_res[k]:.4f}" for d in range(len(heads))
+                      for k in [f"classification/ds{d}_rgb_top1_accuracy"]))
+    check(all(v >= MIN_COSINE for v in worst.values()), f"med eval card vs CPU: {worst}")
+
+
+def bioscan_composed(device) -> None:
+    """``bioscan_1m.yaml`` composed by the CLI's ``build_experiment`` and its
+    ``task`` instantiated on the card (the host has no h5py, so its
+    datasets are not built here): parameter names, shapes, LoRA sites and
+    the trainable set equal to ``recipe.bioscan_task()``'s."""
+    import torch
+
+    from mmlearn_tpu_torch.cli.run import build_experiment
+    from mmlearn_tpu_torch.conf import instantiate
+    from mmlearn_tpu_torch.projects.bioscan_clip.recipe import bioscan_task
+
+    t0 = time.perf_counter()
+    cfg = build_experiment([f"searchpath=[{BIOSCAN_SEARCHPATH}]", "+experiment=bioscan_1m"])
+    torch.manual_seed(cfg["seed"])
+    with torch.device(device):
+        task = instantiate(cfg["task"]).to(device)
+    check(all(p.device.type == device.type for p in task.parameters()),
+          f"the composed BIOSCAN task is not on {device}")
+    with torch.device("meta"):
+        recipe = bioscan_task(device="meta")
+
+    def layout(t):
+        return ({n: tuple(p.shape) for n, p in t.named_parameters()},
+                {n for n, p in t.named_parameters() if p.requires_grad})
+
+    (got, got_trained), (want, want_trained) = layout(task), layout(recipe)
+    lora = sorted(n for n in got if "lora" in n)
+    print(f"BIOSCAN: bioscan_1m.yaml composed and its task on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {len(got)} tensors "
+          f"({sum(p.numel() for p in task.parameters()) / 1e6:.2f} M), {len(lora)} LoRA "
+          f"factors, {len(got_trained)} trained; equal to recipe.bioscan_task()'s: "
+          f"{got == want and got_trained == want_trained}")
+    check(got == want, "the composed BIOSCAN task's parameters differ from the recipe's: "
+          f"{sorted(set(got) ^ set(want))[:5]}")
+    check(got_trained == want_trained and lora == sorted(n for n in want if "lora" in n),
+          "the composed BIOSCAN task's LoRA sites or trainable set differ from the recipe's")
+
+
+def med_path(device) -> dict:
+    """Phase 18, the med_benchmarking experiments through the CLI. Returns
+    the launch counts of run A (training and validation) and of the eval
+    job."""
+    import shutil
+
+    import torch
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    root = os.path.join(WORK_DIR, "med")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    roots = write_med_tree(os.path.join(root, "data"), MED_PAIRS, MED_VALID, MED_EVAL,
+                           processes=min(8, host_cores()))
+    vocab_dir = os.path.join(root, "clip_vocab")
+    vocab = write_clip_vocab(vocab_dir, med_captions())
+    print(f"med path: {4 * MED_PAIRS} train pairs, {MED_VALID} valid pairs and "
+          f"{4 * MED_EVAL} test images written, and a CLIP-format vocabulary of "
+          f"{vocab['size']} tokens learned from the captions ({MED_MERGES} merges; "
+          f"<|startoftext|> {vocab['bos']}, <|endoftext|> {vocab['eos']}), in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(vocab["eos"] == vocab["size"] - 1 < CLIP_VOCAB, f"vocabulary {vocab}")
+    tok = f"pretrained_model_name_or_path={vocab_dir}"
+    data = [f"searchpath=[{MED_SEARCHPATH}]", "+experiment=baseline",
+            f"+dataloader.train.collate_fn.batch_processors.text.{tok}",
+            f"+dataloader.val.collate_fn.batch_processors.text.{tok}"]
+    with med_env(roots):
+        t0 = time.perf_counter()
+        med_pixel_checks(roots)
+        top = med_parity(data, device)
+        check(top == vocab["eos"], f"the largest id of the batch is {top}, not <|endoftext|>")
+        print(f"med path: pixel checks and step parity in {time.perf_counter() - t0:.1f} s")
+        task, train, val, ckpt = med_train(data, device, root)
+        weights = {k: v.detach().cpu().clone() for k, v in task.state_dict().items()
+                   if hasattr(v, "shape")}
+        del task
+        gc.collect()
+        t0 = time.perf_counter()
+        counts, task = med_eval(device, vocab_dir, ckpt, weights, root)
+        del weights
+        print(f"med path: eval job checked in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        med_eval_vs_cpu(task, device, vocab_dir)
+        del task
+        print(f"med path: eval card vs CPU in {time.perf_counter() - t0:.1f} s")
+    bioscan_composed(device)
+    for key, value in val.items():
+        train[key] = train.get(key, 0) + value + counts.get(key, 0)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    return train
+
+
 def _tensors(state: dict) -> dict:
     return {k: v for k, v in state.items() if hasattr(v, "shape")}
 
@@ -6437,15 +7371,20 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_launches = tp_phase(device)
     print(f"tensor-parallel path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    med_launches = med_path(device)
+    check(med_launches["int8_qmm"] == med_launches["int8_qmm_bytes"] == 0,
+          f"K5 launched on the med_benchmarking path without {QUANT_ENV}")
+    print(f"med_benchmarking path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate, the large presets' runs,
     # the record path's fits, the BIOSCAN-CLIP fit, the multi-task run A,
-    # the tensor-parallel fit's rank 0
+    # the tensor-parallel fit's rank 0, the med_benchmarking run A and eval job
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
                    input_launches, eval_launches, large_launches_run, record_launches,
-                   bioscan_launches_run, multitask_launches_run, tp_launches):
+                   bioscan_launches_run, multitask_launches_run, tp_launches, med_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

@@ -1,6 +1,8 @@
-"""The BIOSCAN-CLIP trimodal recipe (``projects/bioscan_clip/configs/
-experiment/bioscan_1m.yaml``) built in Python, until the port composes
-configs.
+"""The BIOSCAN-CLIP trimodal recipe built in Python: the ``task`` of the
+port's ``configs/experiment/bioscan_1m.yaml`` (composed by the CLI with
+``searchpath=[pkg://mmlearn_tpu_torch.projects.bioscan_clip.configs]``),
+parameter for parameter; ``tests/test_torch_med_benchmarking.py::
+test_bioscan_yaml_task_equals_the_recipe`` holds the two equal.
 
 :func:`bioscan_task` is the YAML's ``task``: a ViT-B/16 rgb tower of timm
 ``vit_base_patch16_224``'s geometry (gelu, no pre-norm, final norm, cls

@@ -8,7 +8,13 @@ from mmlearn_tpu_torch.trainer.callbacks import (
     ModelCheckpoint,
     Timer,
 )
-from mmlearn_tpu_torch.trainer.loggers import ConsoleLogger, JSONLLogger, Logger
+from mmlearn_tpu_torch.trainer.loggers import (
+    ConsoleLogger,
+    JSONLLogger,
+    Logger,
+    TensorBoardLogger,
+    WandbLogger,
+)
 from mmlearn_tpu_torch.trainer.state import TrainState
 from mmlearn_tpu_torch.trainer.trainer import Trainer
 
@@ -19,8 +25,10 @@ __all__ = [
     "LearningRateMonitor",
     "Logger",
     "ModelCheckpoint",
+    "TensorBoardLogger",
     "Timer",
     "TrainState",
     "Trainer",
+    "WandbLogger",
     "average_checkpoints",
 ]

@@ -4,7 +4,8 @@ own schema and optimizer registrations, and every port experiment YAML
 composed to the JAX package's composition of its JAX counterpart, once the
 target names are mapped (``mmlearn_tpu.`` and the root ``projects.`` to the
 port's modules, ``optax.adamw`` to ``torch.optim.AdamW`` with its
-``learning_rate`` as ``lr``; ``scan_blocks``, an XLA layout, left out)."""
+``learning_rate`` as ``lr``; ``scan_blocks``, an XLA layout, left out; an
+``MLP`` head's ``in_dim``, which flax infers, stated)."""
 
 import os
 
@@ -218,23 +219,25 @@ def test_torch_optimizers_under_the_optax_names():
 
 
 def test_registrations_mirror_the_jax_store():
-    """Every group and name the JAX package registers that has a port
-    counterpart is in the port's store under the same group and name; the
-    ones left out are the P11 loggers, the projects whose datasets are not
-    ported and the optax schedules."""
+    """Every group and name the JAX package registers, its projects'
+    included, is in the port's store under the same group and name; only
+    the optax schedules are left out (the port registers its own)."""
     from mmlearn_tpu.cli.run import build_experiment as jax_build
     from mmlearn_tpu.conf import store as jax_store
     from mmlearn_tpu_torch.cli.run import build_experiment
 
     jax_build(["experiment_name=t"])
     build_experiment(["experiment_name=t"])
-    import mmlearn_tpu_torch.projects.bioscan_clip.eval_task  # noqa: F401
+    import mmlearn_tpu_torch.projects.bioscan_clip.configs  # noqa: F401
     import mmlearn_tpu_torch.projects.ijepa.configs  # noqa: F401
+    import mmlearn_tpu_torch.projects.med_benchmarking.configs  # noqa: F401
     import mmlearn_tpu_torch.projects.multi_task.configs  # noqa: F401
+    import projects.bioscan_clip.configs  # noqa: F401
     import projects.ijepa.configs  # noqa: F401
+    import projects.med_benchmarking.configs  # noqa: F401
     import projects.multi_task.configs  # noqa: F401
 
-    left_out = {("trainer/logger", "WandbLogger"), ("trainer/logger", "TensorBoardLogger")}
+    left_out: set = set()
     missing = []
     for group in jax_store.groups():
         if group.startswith("test_group") or group == "modules/optimizers":
@@ -278,15 +281,29 @@ YAMLS = {
                           "pkg://mmlearn_tpu_torch.projects.multi_task.configs"),
     "in1k_vit_small": ("pkg://projects.ijepa.configs",
                        "pkg://mmlearn_tpu_torch.projects.ijepa.configs"),
+    "baseline": ("pkg://projects.med_benchmarking.configs",
+                 "pkg://mmlearn_tpu_torch.projects.med_benchmarking.configs"),
+    "zeroshot_classification_eval": ("pkg://projects.med_benchmarking.configs",
+                                     "pkg://mmlearn_tpu_torch.projects.med_benchmarking.configs"),
+    "bioscan_1m": ("pkg://projects.bioscan_clip.configs",
+                   "pkg://mmlearn_tpu_torch.projects.bioscan_clip.configs"),
 }
 
 
 def to_port(node):
-    """A JAX config node with the port's target names."""
+    """A JAX config node with the port's target names; an ``MLP`` head
+    states the width flax infers from its input (its tower's)."""
     if isinstance(node, list):
         return [to_port(v) for v in node]
     if not isinstance(node, dict):
         return node
+    if isinstance(node.get("heads"), dict) and isinstance(node.get("encoders"), dict):
+        node = dict(node, heads={
+            m: (dict(head, in_dim=node["encoders"][m].get("proj_dim")
+                     or node["encoders"][m]["embed_dim"])
+                if head.get("_target_", "").endswith("layers.mlp.MLP") and "in_dim" not in head
+                else head)
+            for m, head in node["heads"].items()})
     out = {}
     optax = node.get("_target_") == "optax.adamw"
     for key, value in node.items():
@@ -313,7 +330,7 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("name", sorted(YAMLS))
 def test_port_yaml_composes_to_the_jax_composition(name):
-    """``experiment_name``, ``seed``, ``task`` and ``datasets`` whole, and
+    """``experiment_name``, ``seed``, ``task``, ``datasets`` and ``job_type`` whole, and
     every ``dataloader`` and ``trainer`` value the YAML sets, equal the JAX
     composition's once mapped; the YAML sets nothing else."""
     from mmlearn_tpu.cli.run import build_experiment as jax_build
@@ -324,10 +341,11 @@ def test_port_yaml_composes_to_the_jax_composition(name):
     got = build_experiment(([f"searchpath=[{port_sp}]"] if port_sp else [])
                            + [f"+experiment={name}"])
     want = to_port(want)
-    for key in ("experiment_name", "seed", "task", "datasets"):
+    for key in ("experiment_name", "seed", "task", "datasets", "job_type"):
         assert got[key] == want[key], key
     body = yaml.safe_load(open(_port_yaml(name)))
-    assert set(body) <= {"experiment_name", "seed", "task", "datasets", "dataloader", "trainer"}
+    assert set(body) <= {"experiment_name", "seed", "task", "datasets", "dataloader", "trainer",
+                         "job_type"}
     for section in ("dataloader", "trainer"):
         for path, value in _leaves(body.get(section, {})):
             g, w = got[section], want[section]
@@ -340,7 +358,8 @@ def _port_yaml(name):
     import mmlearn_tpu_torch
 
     root = os.path.dirname(mmlearn_tpu_torch.__file__)
-    for sub in ("conf/configs", "projects/multi_task/configs", "projects/ijepa/configs"):
+    for sub in ("conf/configs", "projects/multi_task/configs", "projects/ijepa/configs",
+                "projects/med_benchmarking/configs", "projects/bioscan_clip/configs"):
         path = os.path.join(root, sub, "experiment", f"{name}.yaml")
         if os.path.exists(path):
             return path

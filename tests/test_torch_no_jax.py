@@ -207,3 +207,52 @@ def test_tensor_parallel_slice_imports_without_jax():
     proc = _run([sys.executable, "-c", blocked + names], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_project_layer_reads_without_pandas_datasets_or_h5py(tmp_path):
+    """The project layer's modules and names (the med_benchmarking readers,
+    transform and configs, BIOSCAN's dataset and configs, the W&B and
+    TensorBoard loggers), with JAX, the JAX package and the root
+    ``projects`` blocked, and ``pandas``, ``datasets`` and ``h5py`` blocked
+    too (the card's host has none of them): the readers phase 18 runs
+    construct and read their files; the others raise an ``ImportError``
+    naming the package they need."""
+    from chip_smoke import write_med_tree
+
+    roots = write_med_tree(str(tmp_path), 2, 2, 2, hw=((20, 24),), mnist_px=16)
+    names = ("from mmlearn_tpu_torch.projects.med_benchmarking.datasets import BACH, HAM10000, "
+             "LC25000, MIMICIVCXR, PCAM, PMCOA, ROCO, SICAP, MedMNISTPlus, MedVQA, NckCrc, "
+             "PadUfes20, Quilt, med_clip_vision_transform\n"
+             "import mmlearn_tpu_torch.projects.med_benchmarking.configs\n"
+             "from mmlearn_tpu_torch.projects.bioscan_clip.dataset import BIOSCANInsectDataset\n"
+             "import mmlearn_tpu_torch.projects.bioscan_clip.configs\n"
+             "from mmlearn_tpu_torch.trainer import TensorBoardLogger, WandbLogger\n"
+             f"roots = {roots!r}\n"
+             "read = [PMCOA(roots['pmcoa'], split='valid'), ROCO(roots['roco']), "
+             "MIMICIVCXR(roots['mimic']), Quilt(roots['quilt']), HAM10000(roots['ham10000']), "
+             "PadUfes20(roots['pad_ufes_20']), "
+             "MedMNISTPlus('dermamnist', roots['medmnist'], split='test')]\n"
+             "for ds in read:\n"
+             "    ex = ds[len(ds) - 1]\n"
+             "    assert ex['rgb'].shape == (224, 224, 3) and ex['rgb'].dtype.name == 'float32'\n"
+             "assert med_clip_vision_transform(job_type='eval').train is False\n"
+             "for make, package in ((lambda: BACH(roots['pmcoa']), 'datasets'), "
+             "(lambda: PCAM(roots['pmcoa']), 'datasets'), "
+             "(lambda: NckCrc(roots['pmcoa']), 'datasets'), "
+             "(lambda: SICAP(roots['pmcoa']), 'pandas'), "
+             "(lambda: BIOSCANInsectDataset('x.h5'), 'h5py')):\n"
+             "    try:\n"
+             "        make()\n"
+             "        raise AssertionError('no ImportError')\n"
+             "    except ImportError as err:\n"
+             "        assert repr(package) in str(err) or package in str(err), err\n"
+             "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('pandas', 'datasets', 'h5py'))\n"
+             "assert not leaked, leaked\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0].replace(
+        '"mmlearn_tpu", "projects")', '"mmlearn_tpu", "projects", "pandas", "datasets", "h5py")')
+    assert '"h5py")' in blocked
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
