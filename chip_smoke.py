@@ -9,19 +9,20 @@ Phases, each fatal on failure:
 1. build the hand-written kernels from the sources in the checkout, one
    ``nvcc`` a source, all at once: K1 forward and backward
    (``mmlearn_tpu_torch/csrc/fused_attention.cu``) and their head-grouped
-   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K2b, the
-   LayerNorm backward (``csrc/layernorm_bwd.cu``), K5, the quantizing int8
+   variant K1f-p/K1b-p (``csrc/fused_attention_packed.cu``), K2f and K2b,
+   the LayerNorm forward and backward (``csrc/layernorm_fwd.cu``,
+   ``csrc/layernorm_bwd.cu``), K5, the quantizing int8
    product (``csrc/int8_matmul.cu``), and K3 (``csrc/flash_attention.cu``;
    K3 and K5 on the wgmma, TMA and mbarrier helpers of
    ``csrc/hopper_tiles.cuh``), CUDA C++ for sm_90a, into ``build/kernels/``;
-   K2f, the LayerNorm forward (Triton, ``mmlearn_tpu_torch/ops/fused_norm.py``),
-   builds at its first call;
 2. hold each kernel against its plain PyTorch version on the card, with
    the tolerance printed on each line: at batch 8 over every case (masks,
    head dims, f32 and bf16; K1 also at the lengths where its code branches,
    up to ``supports_fused``'s N = 768 at D = 64 and 512 at D = 32, its
    output and gradients also as a whole, ||got - want|| / ||want||; K2b's
-   dgamma / dbeta also bit for bit on two runs of one input; K5 at
+   dgamma / dbeta also bit for bit on two runs of one input; K2f on each
+   route of its plan (C 384 to 1408, 136, 300, 8192, f32, rows not 16-byte
+   aligned), its residual ``r`` bit for bit; K5 at
    ragged M, N and K, forward and dgrad through ``switchback_matmul``,
    with its shape routing, on both of its paths (TMA and byte loads), with
    a bias), and at batch 256 in bf16 at the paths' shapes (K5 at all 16
@@ -30,7 +31,10 @@ Phases, each fatal on failure:
    plain version and, where one PyTorch call computes the same function,
    that call, at batch 256, beside the kernel's bound (the bytes it must
    move over 3.35 TB/s or its operations over the dense peak of its type,
-   whichever is larger); K5 beside a bf16 ``F.linear`` and ``torch._int_mm``
+   whichever is larger; K2 in device time alone, its launches queued
+   behind a sleep of the card, with L2 flushed before each where the
+   operands fit in it, beside the host's time a call); K5 beside a bf16
+   ``F.linear`` and ``torch._int_mm``
    on operands quantized beforehand, printed as context (no one PyTorch call
    computes K5's function);
 3. build the full-width flagship (CLIP ViT-B/16 + text tower, random
@@ -448,6 +452,8 @@ INT8_SHAPES = tuple(
 # the H100 SXM data sheet at 700 W: memory rate, dense peaks by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# its L2: a K2 grid whose operands fit is timed with L2 flushed (device_ms)
+L2_BYTES = 50e6
 
 # kernel-versus-plain tolerances, |kernel - plain| <= atol + rtol * |plain|,
 # each set about 2x above the least atol a sound run reads (printed on every
@@ -475,6 +481,8 @@ BF16_ATOL = {"fused_mha_fwd": 1.3e-2, "fused_mha_bwd": 4e-7, "layernorm_fwd": 1e
              "flash_attention_fwd": 1.2e-2, "flash_attention_bwd": 4e-3}
 F32_TOL = (5e-6, 0.0)
 K5_TOL = (0.0, 0.0)
+# K2f's residual r = x + branch: one rounding of the f32 sum, as PyTorch's add
+R_TOL = (0.0, 0.0)
 # K3's f32 log-sum-exp, values up to ~15: the scores summed in another order
 # (reads 3.8e-6)
 LSE_TOL = (1e-5, 0.0)
@@ -609,6 +617,67 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """The host's time a call of ``fn`` in µs: a host clock over ``iters``
+    calls without a synchronise (what the launches cost the host, whatever
+    the card does meanwhile)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def device_ms(fn, cold: bool, iters: int = 20) -> float:
+    """The card's own time of ``fn`` in ms, without the host's: the calls
+    are queued behind a ``torch.cuda._sleep`` that outlasts their enqueue
+    (checked: the sleep is still running when the last call is queued,
+    else the run is taken again behind a sleep four times as long), so
+    that each starts as the last ends. Warm: events around the run of
+    ``iters`` calls. ``cold``: L2 flushed (a write of twice its size)
+    before each call, and events around each call alone, the mean of
+    their times."""
+    import torch
+
+    flush = torch.empty(int(2 * L2_BYTES), dtype=torch.uint8, device="cuda") if cold else None
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters if cold else 2)]
+    asleep = torch.cuda.Event()
+    for event in (*events, asleep):  # each made, and each kernel loaded, before the run
+        event.record()
+    if cold:
+        flush.zero_()
+    sleep_us = 3 * (host_us(fn, iters=5) + (40.0 if cold else 0.0)) * iters + 1e3
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e3 * sleep_us))  # cycles at up to 2 GHz
+        asleep.record()
+        if cold:
+            for i in range(iters):
+                flush.zero_()
+                events[2 * i].record()
+                fn()
+                events[2 * i + 1].record()
+        else:
+            events[0].record()
+            for _ in range(iters):
+                fn()
+            events[1].record()
+        covered = not asleep.query()
+        torch.cuda.synchronize()
+        if covered:
+            break
+        sleep_us *= 4
+    check(covered, "device_ms: the enqueue outlasted every sleep")
+    if cold:
+        return sum(events[2 * i].elapsed_time(events[2 * i + 1]) for i in range(iters)) / iters
+    return events[0].elapsed_time(events[1]) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -884,7 +953,7 @@ def norm_checks(device, gen, err: dict) -> None:
             err["layernorm_fwd"] = max(
                 err["layernorm_fwd"],
                 compare(f"K2f layernorm {tag}", y, fn.ln_reference(x, g, beta, 1e-6), fwd_tol),
-                compare(f"K2f add+layernorm r {tag}", r, x + br, fwd_tol),
+                compare(f"K2f add+layernorm r {tag}", r, x + br, R_TOL),
                 compare(f"K2f add+layernorm y {tag}", y2,
                         fn.ln_reference(x + br, g, beta, 1e-5), fwd_tol),
             )
@@ -902,6 +971,57 @@ def norm_checks(device, gen, err: dict) -> None:
                 compare(f"K2b add+layernorm dgamma {tag} against f64", ag, eag, SUM_F64_TOL),
                 compare(f"K2b add+layernorm dbeta {tag} against f64", ab, eab, SUM_F64_TOL),
             )
+
+
+# K2f's widths at batch 8, N=37: the towers' on the rows kernel (1408: eight
+# vectors of 256 values, the last two and a half masked), 136 (one vector,
+# most lanes masked), and on the wide kernel a ragged C (300) and C = 8192
+K2F_ROUTE_WIDTHS = (384, 512, 768, 1024, 1280, 1408, 136, 300, 8192)
+
+
+def k2f_route_checks(device, err: dict) -> None:
+    """K2f on each route of its plan, both variants, against its plain
+    version at its limits, at ``K2F_ROUTE_WIDTHS`` in bf16 and f32, on rows
+    at 0, 1 and 4 elements past an aligned address (16-byte aligned, aligned
+    to the element only, and in bf16 8-byte aligned); ``r`` bit for bit;
+    the plan's route (``fused_norm.fwd_plan``) equal to its mirror
+    (``fused_norm.fwd_route``). The largest error joins ``err``."""
+    import torch
+
+    from mmlearn_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 200)
+    b, n = 8, 37
+    routes = set()
+    for c in K2F_ROUTE_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = _dtype_name(dtype)
+            g = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
+            beta = 0.1 * torch.randn(c, generator=gen, device=device)
+            for offset in (0, 1, 4):
+                x, br = (torch.randn(b * n * c + offset, generator=gen, device=device)
+                         .to(dtype)[offset:].view(b, n, c) for _ in range(2))
+                align = fn._alignment(x, br)
+                route = fn.fwd_route(c, dtype, align)
+                for has_add in (False, True):
+                    planned = fn.fwd_plan(b * n, c, dtype, has_add, align)[:2]
+                    check(planned == route, f"K2f's plan at C={c} {dn} {align}-byte aligned "
+                          f"picks {planned}, its mirror fwd_route {route}")
+                kind = f"rows {route[0]}-byte x{route[1]}" if route[0] else "wide"
+                routes.add(f"{kind} {dn}")
+                tag = f"B={b} N={n} C={c} {dn} +{offset} ({align}-byte aligned, {kind})"
+                fwd_tol = tol("layernorm_fwd", dn)
+                y = fn.fused_layernorm(x, g, beta, eps=1e-6)
+                r, y2 = fn.fused_add_layernorm(x, br, g, beta, eps=1e-5)
+                torch.cuda.synchronize()
+                err["layernorm_fwd"] = max(
+                    err["layernorm_fwd"],
+                    compare(f"K2f layernorm {tag}", y, fn.ln_reference(x, g, beta, 1e-6),
+                            fwd_tol),
+                    compare(f"K2f add+layernorm r {tag}", r, x + br, R_TOL),
+                    compare(f"K2f add+layernorm y {tag}", y2,
+                            fn.ln_reference(x + br, g, beta, 1e-5), fwd_tol))
+    print(f"K2f routes checked: {', '.join(sorted(routes))}")
 
 
 def k1_draws(device, err: dict) -> None:
@@ -1037,7 +1157,7 @@ def norms_at_batch(device, err: dict, grids=NORM_GRIDS, seed: int = NORMS_SEED) 
         worst("layernorm_fwd",
               compare(f"K2f layernorm {tag}", fn.fused_layernorm(x, g, beta),
                       fn.ln_reference(x, g, beta, 1e-6), ln_fwd),
-              compare(f"K2f add+layernorm r {tag}", r, x + br, ln_fwd),
+              compare(f"K2f add+layernorm r {tag}", r, x + br, R_TOL),
               compare(f"K2f add+layernorm y {tag}", y2,
                       fn.ln_reference(x + br, g, beta, 1e-6), ln_fwd))
         sums = ln_sums_f64(x, dy, 1e-6)
@@ -1071,31 +1191,39 @@ def norms_at_batch(device, err: dict, grids=NORM_GRIDS, seed: int = NORMS_SEED) 
         print(f"time K2b layernorm {label}: F.layer_norm backward, dx only: through autograd "
               f"{dx_autograd:.4f} ms, its ATen call {dx_aten:.4f} ms")
         del xl, yl
-        rows[f"K2f layernorm {label}"] = (
-            cuda_ms(lambda: fn.fused_layernorm(x, g, beta)),
-            cuda_ms(lambda: fn.ln_reference(x, g, beta, 1e-6)),
-            cuda_ms(lambda: F.layer_norm(x, (c,), gl, bl, 1e-6)),
-            *bound(nbytes(x, x, g, beta), 0, "bfloat16"),
-        )
-        rows[f"K2f add+layernorm {label}"] = (
-            cuda_ms(lambda: fn.fused_add_layernorm(x, br, g, beta)),
-            cuda_ms(lambda: (lambda r: (r, fn.ln_reference(r, g, beta, 1e-6)))(x + br)),
-            None,  # two PyTorch calls (add, layer_norm)
-            *bound(nbytes(x, br, x, x, g, beta), 0, "bfloat16"),
-        )
-        rows[f"K2b layernorm {label}"] = (
-            cuda_ms(lambda: fn._launch_bwd(x, g, dy, 1e-6)),
-            cuda_ms(lambda: fn.ln_bwd_reference(x, g, dy, 1e-6)),
-            cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, (c,), mean, rstd, gl, bl, (True, True, True))),
-            *bound(nbytes(x, dy, x, g, g, g), 0, "bfloat16"),
-        )
-        rows[f"K2b add+layernorm {label}"] = (
-            cuda_ms(lambda: fn._launch_bwd(x, g, dy, 1e-6, dr)),
-            cuda_ms(lambda: fn.ln_bwd_reference(x, g, dy, 1e-6, dr)),
-            None,  # the layer_norm backward and an add
-            *bound(nbytes(x, dy, dr, x, g, g, g), 0, "bfloat16"),
-        )
+        # each kernel, and its library call, in device time alone (L2 cold
+        # where the row's bytes fit in it), beside the host's time a call and
+        # the events over a loop of calls (cuda_ms, where the host's time can
+        # show); beside the forward, a copy of x, which moves its bytes but
+        # gamma's and beta's; the plain versions by cuda_ms
+        for name, kernel, plain, lib, moved in (
+                ("K2f layernorm", lambda: fn.fused_layernorm(x, g, beta),
+                 lambda: fn.ln_reference(x, g, beta, 1e-6),
+                 lambda: F.layer_norm(x, (c,), gl, bl, 1e-6), (x, x, g, beta)),
+                ("K2f add+layernorm", lambda: fn.fused_add_layernorm(x, br, g, beta),
+                 lambda: (lambda r: (r, fn.ln_reference(r, g, beta, 1e-6)))(x + br),
+                 None,  # two PyTorch calls (add, layer_norm)
+                 (x, br, x, x, g, beta)),
+                ("K2b layernorm", lambda: fn._launch_bwd(x, g, dy, 1e-6),
+                 lambda: fn.ln_bwd_reference(x, g, dy, 1e-6),
+                 lambda: torch.ops.aten.native_layer_norm_backward(
+                     dy, x, (c,), mean, rstd, gl, bl, (True, True, True)), (x, dy, x, g, g, g)),
+                ("K2b add+layernorm", lambda: fn._launch_bwd(x, g, dy, 1e-6, dr),
+                 lambda: fn.ln_bwd_reference(x, g, dy, 1e-6, dr),
+                 None,  # the layer_norm backward and an add
+                 (x, dy, dr, x, g, g, g))):
+            bnd = bound(nbytes(*moved), 0, "bfloat16")
+            cold = nbytes(*moved) < L2_BYTES
+            ms, lib_ms = device_ms(kernel, cold), lib and device_ms(lib, cold)
+            lib_s = "" if lib is None else f"; library {lib_ms:.4f} ms"
+            if name == "K2f layernorm":  # the card's own pace for these bytes
+                out = torch.empty_like(x)
+                lib_s += f"; x copied (copy_) {device_ms(lambda: out.copy_(x), cold):.4f} ms"
+                del out
+            print(f"time {name} {label} device {ms:.4f} ms (L2 {'cold' if cold else 'warm'}; "
+                  f"{bnd[0] / ms:.1%} of its bound){lib_s}; host {host_us(kernel):.1f} us a call; "
+                  f"events over 20 calls {cuda_ms(kernel):.4f} ms")
+            rows[f"{name} {label}"] = (ms, cuda_ms(plain), lib_ms, *bnd)
     print_times(rows)
     return rows
 
@@ -2659,53 +2787,62 @@ def same_run(label: str, got_history, got_weights, want_history, want_weights) -
     check(ok, f"{label} is not bit-equal to run A")
 
 
-def accumulation_parity(master, device) -> float:
-    """The trainer at k=2 on micro-batches of 8 for 2 SGD steps at rate 1,
-    with the kernels on the card and the plain versions on the CPU from the same
-    weights and batches: each micro-step's loss, and the gradient each update
-    applies and each weight's update as cosines; and the FLOPs the counter
-    counts for a micro-step, which must be equal. Returns the counted FLOPs."""
+def parity_fit(master, dev):
+    """The fit of :func:`accumulation_parity` on ``dev`` from a copy of
+    ``master``: ``(history, the gradients each update applied, each
+    weight's update, the FLOPs counted a micro-step)``."""
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     from mmlearn_tpu_torch.trainer import Trainer
 
+    task = copy.deepcopy(master)
+    # SGD at rate 1 and no schedule, not the task's AdamW and its
+    # warmup: AdamW's first updates are about lr * sign(g) an element, so
+    # an element whose gradient lies within bf16's rounding of zero moves
+    # by the full rate either way (update cosine 0.967, the loss after
+    # the first update 2.9e-3 apart); and at the warmup's 3e-4 a
+    # LayerNorm gain near 1 moves by a few f32 ulps, so its update is
+    # mostly rounding (SGD: cosine 0.942; PERF.md)
+    task.optimizer_factory = functools.partial(torch.optim.SGD, lr=1.0)
+    task.lr_scheduler_factory = None
+    names = {p: n for n, p in task.named_parameters()}
+    before = {n: p.detach().float().clone() for n, p in task.named_parameters()}
+    applied = []
+
+    def capture(optimizer, args, kwargs):
+        applied.append({names[p]: p.grad.float().cpu() for g in optimizer.param_groups
+                        for p in g["params"]})
+
+    trainer = Trainer(max_steps=2 * TRAINER_ACCUMULATE,
+                      accumulate_grad_batches=TRAINER_ACCUMULATE,
+                      gradient_clip_val=TRAINER_CLIP, log_every_n_steps=1, log_mfu=True,
+                      device=dev)
+    handle = register_optimizer_step_pre_hook(capture)
+    try:
+        trainer.fit(task, SyntheticPairs(2 * TRAINER_ACCUMULATE, TRAINER_PARITY_MICRO,
+                                         SEED + 22, "cpu"))
+    finally:
+        handle.remove()
+    update = {n: p.detach().float().cpu() - before[n] for n, p in task.named_parameters()}
+    return trainer.history, applied, update, trainer._step_flops
+
+
+def accumulation_parity(master, device) -> float:
+    """The trainer at k=2 on micro-batches of 8 for 2 SGD steps at rate 1
+    (:func:`parity_fit`), with the kernels on the card and the plain
+    versions on the CPU from the same weights and batches: each micro-step's
+    loss, and the gradient each update applies and each weight's update as
+    cosines; and the FLOPs the counter counts for a micro-step, which must
+    be equal. Returns the counted FLOPs."""
+    import torch
+
     runs = {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         t0 = time.perf_counter()
-        task = copy.deepcopy(master)
-        # SGD at rate 1 and no schedule, not the task's AdamW and its
-        # warmup: AdamW's first updates are about lr * sign(g) an element, so
-        # an element whose gradient lies within bf16's rounding of zero moves
-        # by the full rate either way (update cosine 0.967, the loss after
-        # the first update 2.9e-3 apart); and at the warmup's 3e-4 a
-        # LayerNorm gain near 1 moves by a few f32 ulps, so its update is
-        # mostly rounding (SGD: cosine 0.942). PERF.md, PR 10
-        task.optimizer_factory = functools.partial(torch.optim.SGD, lr=1.0)
-        task.lr_scheduler_factory = None
-        names = {p: n for n, p in task.named_parameters()}
-        before = {n: p.detach().float().clone() for n, p in task.named_parameters()}
-        applied = []
-
-        def capture(optimizer, args, kwargs):
-            applied.append({names[p]: p.grad.float().cpu() for g in optimizer.param_groups
-                            for p in g["params"]})
-
-        trainer = Trainer(max_steps=2 * TRAINER_ACCUMULATE,
-                          accumulate_grad_batches=TRAINER_ACCUMULATE,
-                          gradient_clip_val=TRAINER_CLIP, log_every_n_steps=1, log_mfu=True,
-                          device=dev)
-        handle = register_optimizer_step_pre_hook(capture)
-        try:
-            trainer.fit(task, SyntheticPairs(2 * TRAINER_ACCUMULATE, TRAINER_PARITY_MICRO,
-                                             SEED + 22, "cpu"))
-        finally:
-            handle.remove()
-        update = {n: p.detach().float().cpu() - before[n] for n, p in task.named_parameters()}
-        runs[where] = (trainer.history, applied, update, trainer._step_flops)
-        print(f"trainer path: accumulation parity, {len(trainer.history)} micro-steps of "
+        runs[where] = parity_fit(master, dev)
+        print(f"trainer path: accumulation parity, {len(runs[where][0])} micro-steps of "
               f"{TRAINER_PARITY_MICRO} on the {where} in {time.perf_counter() - t0:.1f} s")
-        del task, trainer
     hist, grads, update, flops = runs["card"]
     want_hist, want_grads, want_update, want_flops = runs["cpu"]
 
@@ -4762,7 +4899,7 @@ def bioscan_kernel_checks(device, err: dict) -> dict:
         want = fn.ln_bwd_reference(r, g, dy, 1e-12, torch.zeros_like(dy))
         sums = ln_sums_f64(r, dy, 1e-12)
         err["layernorm_fwd"] = max(err["layernorm_fwd"],
-                                   compare(f"K2f {tag} r", r, x + br, ln_fwd),
+                                   compare(f"K2f {tag} r", r, x + br, R_TOL),
                                    compare(f"K2f {tag} y", y,
                                            fn.ln_reference(x + br, g, beta, 1e-12), ln_fwd))
         err["layernorm_bwd"] = max(err["layernorm_bwd"],
@@ -7273,6 +7410,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = {"fused_attention": "K1 forward and backward",
                "fused_attention_packed": "K1f-p/K1b-p forward and backward",
+               "layernorm_fwd": "K2f LayerNorm forward",
                "layernorm_bwd": "K2b LayerNorm backward",
                "int8_matmul": "K5 quantizing int8 product",
                "flash_attention": "K3 forward and backward"}
@@ -7285,6 +7423,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     errors = kernel_checks(device, gen)
     norm_checks(device, gen, errors)
+    k2f_route_checks(device, errors)
     packed_kernel_checks(device, gen, errors)
     t0 = time.perf_counter()
     flash_kernel_checks(device, gen, errors)
@@ -7400,7 +7539,7 @@ def main() -> int:
         "fused_mha_bwd": ("cuda", "mmlearn_tpu_torch/csrc/fused_attention.cu",
                           "mmlearn_tpu/ops/fused_attention.py:207", "K1b image N=197 H=12",
                           ("fused_mha_bwd",)),
-        "layernorm_fwd": ("triton", "mmlearn_tpu_torch/ops/fused_norm.py",
+        "layernorm_fwd": ("cuda", "mmlearn_tpu_torch/csrc/layernorm_fwd.cu",
                           "mmlearn_tpu/ops/fused_norm.py:126", "K2f add+layernorm N=197 C=768",
                           ("layernorm_fwd",)),
         "layernorm_bwd": ("cuda", "mmlearn_tpu_torch/csrc/layernorm_bwd.cu",

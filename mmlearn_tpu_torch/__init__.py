@@ -7,7 +7,7 @@ never ``jax`` or ``flax``.
 
 Every Pallas kernel on a ported path is a kernel written by hand for Hopper
 (``sm_90a``) here: CUDA C++ under ``csrc/``, built by :mod:`._build` at first
-use, or Triton. Beside each kernel sits its plain PyTorch version, which a
+use. Beside each kernel sits its plain PyTorch version, which a
 wrapper takes only for a tensor that lies on the CPU.
 
 Ported so far: the embedding-serving path (encoders, artifact export, the

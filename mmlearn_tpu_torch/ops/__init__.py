@@ -3,14 +3,14 @@
 - :mod:`.fused_attention` -- K1, fused short-sequence attention (CUDA C++);
 - :mod:`.flash_attention` -- K3, blocked online-softmax attention for every
   layer K1 does not take (CUDA C++);
-- :mod:`.fused_norm` -- K2, LayerNorm and residual-add + LayerNorm (Triton);
+- :mod:`.fused_norm` -- K2, LayerNorm and residual-add + LayerNorm (CUDA C++);
 - :mod:`.int8_matmul` -- K5, the quantizing int8 product of
   ``MMLEARN_QUANT=int8_sb`` (CUDA C++).
 """
 
 #: the open :class:`mmlearn_tpu_torch.trainer.flops.FlopCounter` objects. A
 #: kernel's launch is invisible to ``torch.utils.flop_counter.FlopCounterMode``
-#: (a ctypes or Triton call, no ATen operation), so each kernel's autograd
+#: (a ctypes call, no ATen operation), so each kernel's autograd
 #: Function reports here what its plain version's products count there.
 FLOP_COUNTERS: list = []
 

@@ -1,47 +1,45 @@
 """LayerNorm and residual-add + LayerNorm, forward and backward (kernel K2:
-the forward K2f in Triton, the backward K2b in CUDA C++).
+the forward K2f and the backward K2b, both CUDA C++ for sm_90a).
 
 Counterpart of :mod:`mmlearn_tpu.ops.fused_norm`; replaces its Pallas
 ``_fwd_kernel`` (:126) and ``_fwd_add_kernel`` (:139), launched by
 ``_fwd_pallas`` (:191), and ``_bwd_kernel`` (:144) and ``_bwd_add_kernel``
 (:177), launched by ``_bwd_pallas`` (:227).
 
-Forward: LayerNorm over the last axis with f32 mean and variance (two passes
-over the row in registers, as ``_ln_ref``), gamma and beta applied in f32
-and the output cast to the input's dtype. The add variant computes ``r = x +
-branch`` in the input dtype, writes it, and normalises it: one read of each
-input and one write of each output. Programs over rows, a power-of-two
-block of ``next_pow2(C)`` lanes with a masked tail.
+Forward (``csrc/layernorm_fwd.cu``): LayerNorm over the last axis with f32
+mean and variance (two passes over the row in registers, as ``_ln_ref``),
+gamma and beta applied in f32 and the output rounded once to the input's
+dtype. The add variant computes ``r = x + branch`` rounded to the input
+dtype, writes it, and normalises the rounded ``r``: one read of each input
+and one write of each output. For C a multiple of 8 with 128 < C <= 2048,
+one warp a row in 16-byte vectors, blocks of four warps over consecutive
+rows, computing the bits of the kernel it replaced (the port's first K2f,
+in Triton: its order of sums and its operations); other widths on a kernel
+of one 512-thread block a row (:func:`fwd_route` mirrors the choice).
 
-Backward (``csrc/layernorm_bwd.cu``, built by :mod:`mmlearn_tpu_torch._build`
-at first use): per row, mean and rstd recomputed in f32 from the saved
-input, ``dxhat = dy * gamma``, ``dx = rstd (dxhat - mean(dxhat) - xhat
-mean(dxhat xhat))`` (plus the residual's cotangent in the add variant), cast
-to the input's dtype. The TPU kernel sums dgamma/dbeta across its grid steps
-in one output block, which works only because that grid runs in order. On
-the H100 the blocks run in parallel and in no order: each keeps its
-columns' partial sums and writes them to a scratch, and the blocks that
-finish last add them up in a fixed order (by groups of blocks, then the
-groups) -- one launch, no atomics on the values, the same bits on every
-run.
+Backward (``csrc/layernorm_bwd.cu``): per row, mean and rstd recomputed in
+f32 from the saved input, ``dxhat = dy * gamma``, ``dx = rstd (dxhat -
+mean(dxhat) - xhat mean(dxhat xhat))`` (plus the residual's cotangent in the
+add variant), cast to the input's dtype. The TPU kernel sums dgamma/dbeta
+across its grid steps in one output block, which works only because that
+grid runs in order. On the H100 the blocks run in parallel and in no order:
+each keeps its columns' partial sums and writes them to a scratch, and the
+blocks that finish last add them up in a fixed order (by groups of blocks,
+then the groups) -- one launch, no atomics on the values, the same bits on
+every run.
 
 Both are bound by memory bandwidth: a row of C <= 8192 values is read once
-and written once with a few FLOPs per value.
-
-``triton`` is imported, and the forward built, on the first launch, never
-at import: the CPU tests import this module on hosts without triton. The
-wrappers take the plain versions (:func:`ln_reference`,
+and written once with a few FLOPs per value. Both are built by
+:mod:`mmlearn_tpu_torch._build` at their first launch, never at import, and
+called through ctypes on the current stream; a failed build, plan or launch
+raises. The wrappers take the plain versions (:func:`ln_reference`,
 :func:`ln_bwd_reference`) only for a tensor that lies on the CPU; for a CUDA
 tensor they launch the kernels or raise. :func:`fused_layernorm` and
 :func:`fused_add_layernorm` are differentiable through
 :class:`LayerNormFunction` and :class:`AddLayerNormFunction`.
 """
 
-# no ``from __future__ import annotations``: Triton reads the kernel's
-# ``tl.constexpr`` annotations as objects
 import ctypes
-import functools
-import os
 from typing import Optional, Tuple
 
 import torch
@@ -100,40 +98,6 @@ def ln_bwd_reference(
     return dx.to(x.dtype), dgamma, dbeta
 
 
-@functools.cache
-def _kernels():
-    global tl  # the kernel bodies read ``tl`` as a module global
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(os.path.dirname(_build.BUILD_DIR), "triton")
-    )
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _ln_fwd_kernel(
-        x_ptr, a_ptr, g_ptr, b_ptr, r_ptr, y_ptr, n_cols, eps,
-        BLOCK: tl.constexpr, HAS_ADD: tl.constexpr,
-    ):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        inside = cols < n_cols
-        offs = row * n_cols + cols
-        x = tl.load(x_ptr + offs, mask=inside, other=0.0)
-        if HAS_ADD:
-            x = x + tl.load(a_ptr + offs, mask=inside, other=0.0)
-            tl.store(r_ptr + offs, x, mask=inside)
-        xf = x.to(tl.float32)
-        mean = tl.sum(xf, axis=0) / n_cols
-        xc = tl.where(inside, xf - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / n_cols
-        gamma = tl.load(g_ptr + cols, mask=inside, other=0.0).to(tl.float32)
-        beta = tl.load(b_ptr + cols, mask=inside, other=0.0).to(tl.float32)
-        y = xc * tl.rsqrt(var + eps) * gamma + beta
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=inside)
-
-    return triton, _ln_fwd_kernel
-
-
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"layernorm kernel takes float32 or bfloat16, got {x.dtype}")
@@ -150,18 +114,78 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
             )
 
 
+_FWD_ARGTYPES = [
+    *[ctypes.c_void_p] * 6,  # x, branch, gamma, beta, r, y
+    *[ctypes.c_int] * 5,  # rows, c, dtype, align, blocks
+    ctypes.c_float,  # eps
+    ctypes.c_void_p,  # stream
+]
+#: the forward's blocks, by (device, rows, c, dtype code, add, alignment)
+_FWD_PLANS: dict = {}
+#: the rows kernel's widest row: eight 256-value vectors a warp
+_ROWS_MAX_C = 2048
+
+
+def fwd_route(c: int, dtype: torch.dtype, align: int) -> Tuple[int, int]:
+    """The forward's kernel for rows of ``c`` values of ``dtype`` whose row
+    pointers are ``align``-byte aligned, as ``csrc/layernorm_fwd.cu``'s
+    plan picks it: ``(bytes an access, vectors of eight a lane)`` of the
+    rows kernel (16-byte accesses where the rows are aligned to them, else
+    value by value; ``next_pow2(c) / 256`` vectors, the last ones masked),
+    or ``(0, 0)`` for the wide kernel: ``c`` a multiple of 8 with 128 < c <=
+    2048."""
+    if c % 8 or not 128 < c <= _ROWS_MAX_C:
+        return 0, 0
+    return (16 if align >= 16 else dtype.itemsize), (1 << (c - 1).bit_length()) // 256
+
+
+def _fwd_library():
+    lib = _build.load_library("layernorm_fwd")
+    fn, plan, err = lib.mmlearn_ln_fwd, lib.mmlearn_ln_fwd_plan, lib.mmlearn_ln_fwd_error_string
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = ctypes.c_int, _FWD_ARGTYPES
+        plan.restype = ctypes.c_int
+        plan.argtypes = [*[ctypes.c_int] * 5, *[ctypes.POINTER(ctypes.c_int)] * 3]
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return fn, plan, err
+
+
+def fwd_plan(rows: int, c: int, dtype: torch.dtype, has_add: bool, align: int
+             ) -> Tuple[int, int, int]:
+    """``mmlearn_ln_fwd_plan`` on the current device: ``(bytes an access,
+    vectors a lane, blocks)``; raises where it has no launch."""
+    _, plan, error_string = _fwd_library()
+    nbytes, nv, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = plan(rows, c, _DTYPE_CODES[dtype], int(has_add), align, ctypes.byref(nbytes),
+               ctypes.byref(nv), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"layernorm forward has no launch for rows={rows} C={c}: "
+                           f"{error_string(err).decode()} ({err})")
+    return nbytes.value, nv.value, blocks.value
+
+
 def _launch(x, branch, gamma, beta, r, y, eps: float) -> None:
-    triton, kernel = _kernels()
+    """The forward kernel on CUDA tensors, one launch: ``y`` (and ``r``)
+    written in place."""
     c = x.shape[-1]
     rows = x.numel() // c
-    block = triton.next_power_of_2(c)
-    has_add = branch is not None
+    code = _DTYPE_CODES[x.dtype]
+    align = _alignment(x, branch, r, y)
+    fn, _, error_string = _fwd_library()
+    # the kernel reads gamma and beta as 16-byte vectors
+    g32, b32 = (p if p.data_ptr() % 16 == 0 else p.clone()
+                for p in (gamma.float(), beta.float()))
     with torch.cuda.device(x.device):
-        kernel[(rows,)](
-            x, branch if has_add else x, gamma, beta, r if has_add else y, y,
-            c, float(eps), BLOCK=block, HAS_ADD=has_add,
-            num_warps=min(max(block // 256, 1), 16),
-        )
+        key = (x.device.index, rows, c, code, branch is not None, align)
+        blocks = _FWD_PLANS.get(key)
+        if blocks is None:
+            blocks = _FWD_PLANS[key] = fwd_plan(rows, c, x.dtype, branch is not None, align)[2]
+        err = fn(x.data_ptr(), None if branch is None else branch.data_ptr(), g32.data_ptr(),
+                 b32.data_ptr(), None if r is None else r.data_ptr(), y.data_ptr(), rows, c,
+                 code, align, blocks, float(eps), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"layernorm forward kernel launch failed: {error_string(err).decode()} ({err})")
     LAUNCHES["layernorm_fwd"] += 1
 
 

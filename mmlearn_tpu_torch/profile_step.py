@@ -42,6 +42,8 @@ from collections import defaultdict
 
 import torch
 
+from mmlearn_tpu_torch.trainer.callbacks import Callback
+
 WARMUP = 3  # steps before the profiler starts
 TOP = 15  # kernels listed by name
 
@@ -53,7 +55,7 @@ GROUPS = [
     ("K1b-p attention backward, head-grouped", r"packed_bwd_"),
     ("K3f flash attention forward", r"flash_fwd"),
     ("K3b flash attention backward", r"flash_bwd_"),
-    ("K2f layernorm forward", r"_ln_fwd_kernel"),
+    ("K2f layernorm forward", r"ln_fwd_(rows|wide)_kernel"),
     ("K2b layernorm backward", r"ln_bwd_"),
     ("K5 quantizing int8 product", r"int8_qmm|int8_gemm_kernel|quantize_rows_kernel"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|sm90_|ampere_"),
@@ -70,8 +72,22 @@ def _group(name: str) -> str:
     return "other"
 
 
+class _StepMarks(Callback):
+    """A trainer callback that calls ``on_step(n)`` after the n-th step, on
+    the trainer's thread: ``Trainer.fit`` draws batches on its feeder's
+    thread, and the profiler starts and stops on the thread that made it."""
+
+    def __init__(self, on_step) -> None:
+        self.on_step = on_step
+
+    def on_train_batch_end(self, trainer, metrics, step) -> None:
+        self.on_step(step)
+
+
 def _steps(path: str, batch: int, total: int, on_step, remat: bool = True):
-    """Run ``total`` steps of ``path``, calling ``on_step(i)`` before each."""
+    """Run ``total`` steps of ``path``, calling ``on_step(i)``: on the
+    training paths after the i-th step (i from 1), on the ``encode`` paths
+    before the i-th forward and once after the last (i from 0)."""
     from mmlearn_tpu_torch.flagship import (
         flagship_task,
         flagship_training_task,
@@ -95,14 +111,8 @@ def _steps(path: str, batch: int, total: int, on_step, remat: bool = True):
     if path in steps:
         make_batch, make_task = steps[path]
         data = make_batch(batch, gen, device)
-
-        def loader():
-            for i in range(total + 1):
-                on_step(i)
-                yield data
-
-        Trainer(max_steps=total, log_every_n_steps=total, device=device).fit(
-            make_task(device), loader())
+        Trainer(max_steps=total, log_every_n_steps=total, device=device,
+                callbacks=[_StepMarks(on_step)]).fit(make_task(device), [data] * total)
         return
     task = flagship_task(device)
     if path == "encode-rgb":

@@ -4,7 +4,7 @@
 ``torch.utils.flop_counter.FlopCounterMode`` counts the ATen products a
 step dispatches (``mm``, ``bmm``, convolutions and their backwards, as the
 JAX walker counts ``dot_general`` and convolutions) but sees nothing of a
-kernel launched through ctypes or Triton, so every attention layer of the
+kernel launched through ctypes, so every attention layer of the
 port would count as zero on the card: the trap the JAX module fixed for
 Pallas. :class:`FlopCounter` is ``FlopCounterMode`` plus what each kernel's
 autograd Function reports (:func:`mmlearn_tpu_torch.ops.report_flops`): the

@@ -173,7 +173,7 @@ def test_cuda_flash_branch_vit_matches_cpu():
     """The tiny flash-branch ViT on the card (K3f, K2f) against the plain
     versions on the CPU, f32: sums in another order, atol 1e-4."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels are CUDA C++ and Triton)")
+        pytest.skip("needs a CUDA card (the kernels are CUDA C++)")
     _, _, vit, images = _flash_vit()
     x = torch.from_numpy(images)
     with torch.no_grad():

@@ -21,7 +21,7 @@ from mmlearn_tpu_torch.trainer.flops import count_flops
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels are CUDA C++ and Triton)")
+        pytest.skip("needs a CUDA card (the kernels are CUDA C++)")
 
 
 class Pairs:

@@ -412,7 +412,7 @@ def test_cuda_trainer_matches_cpu():
     versions on the CPU, from the same weights: the kernels differ by f32
     summation order, rtol 1e-4 on the loss."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels are CUDA C++ and Triton)")
+        pytest.skip("needs a CUDA card (the kernels are CUDA C++)")
     rng = np.random.default_rng(0)
     ids = rng.integers(2, 62, (4, 16)).astype(np.int32)
     ids[:, -1] = 63

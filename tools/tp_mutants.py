@@ -34,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TARGET = os.path.join("mmlearn_tpu_torch", "parallel", "tensor_parallel.py")
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as c; "
        "sys.modules['chip_smoke'] = c; from mmlearn_tpu_torch import _build; "
-       "[_build.build(n) for n in ('fused_attention', 'layernorm_bwd', 'flash_attention')]; "
+       "[_build.build(n) for n in ('fused_attention', 'layernorm_fwd', 'layernorm_bwd', "
+       "'flash_attention')]; "
        "c.tp_phase(torch.device('cuda', 0))")
 
 _SOUND = """            outputs = outputs.redistribute(placements=output_layouts)
@@ -103,7 +104,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from mmlearn_tpu_torch import _build
 
-    for name in ("fused_attention", "layernorm_bwd", "flash_attention"):
+    for name in ("fused_attention", "layernorm_fwd", "layernorm_bwd", "flash_attention"):
         _build.build(name)
     failed = []
     if args.sound and run("sound", REPO) != 0:
