@@ -110,7 +110,7 @@ Phases, each fatal on failure:
    first updates are about a sign an element, which bf16's rounding turns
    either way where a gradient is near zero, and the warmup's rates move a
    LayerNorm gain by a few f32 ulps) on the card against the CPU: losses
-   within ``LOSS_RTOL``, each applied (accumulated, clipped) gradient and
+   within ``ACCUM_LOSS_RTOL``, each applied (accumulated, clipped) gradient and
    each weight's update at cosine ``MIN_GRAD_COSINE`` (key biases without
    their key part: a zero gradient in exact arithmetic), and the FLOP
    counter's count of a micro-step equal on both (the kernels reporting on
@@ -159,10 +159,14 @@ Phases, each fatal on failure:
     route: ``prepare_eval_state`` from phase 10's checkpoint and
     ``Trainer.test``, its metrics equal validate's bit for bit. Check 3: the
     same hooks over 64 pairs (two batches of 32) on the card and on an f32
-    CPU copy with the plain versions: per-row cosines of the exported and
-    the class embeddings >= ``MIN_COSINE``, the loss within ``LOSS_RTOL``,
-    each recall and accuracy within ``EVAL_ROWS`` rows, the other metrics
-    within ``EVAL_OTHER_ATOL``. Check 4: the blockwise top-k at 8,192 x
+    CPU copy with the plain versions, for the fresh flagship (its rows
+    distinct) and phase 10's weights: per-row cosines of the exported and
+    the class embeddings >= ``MIN_COSINE``; on the fresh flagship also the
+    rows less the CPU rows' mean (``EVAL_CENTERED_COS``, each row nearest
+    its own), the loss within ``EVAL_LOSS_RTOL``, each recall and accuracy
+    within ``EVAL_ROWS`` rows, the other metrics within
+    ``EVAL_OTHER_ATOL`` (phase 10's, a nearly collapsed model whose scores
+    rounding orders, printed). Check 4: the blockwise top-k at 8,192 x
     262,144 (integer-valued f32, so every product is exact) equal to the
     full-axis top-k in query chunks and, on 256 queries, to a stable
     descending sort (the lower row first among equal scores); the recall
@@ -349,6 +353,30 @@ Phases, each fatal on failure:
     copy (cosines >= ``MIN_COSINE``). Then ``bioscan_1m.yaml`` composed and
     its task instantiated on the card: parameter names, shapes, LoRA sites
     and trainable set equal to ``recipe.bioscan_task()``'s.
+
+19. the artifact path (``artifact_path``): a K2f call's host time, direct
+    and through its registered operator; then serving artifacts
+    (``save_encoder``: a ``torch.export`` program for the card and one for
+    the CPU, batch-polymorphic) of eight towers at full width, random
+    weights from the seed: the flagship's image tower (224 px) and text
+    tower (ragged, masked), the 448-px image tower (K3f at N=785), the
+    I-JEPA ViT-B/16 encoder exported under ``MMLEARN_FUSED_ATTN_PACKED=1``
+    (K1f-p at N=196), BIOSCAN-CLIP's three towers (the image tower with a
+    live LoRA delta merged, bert-small with its 512->768 MLP head and key
+    mask, BarcodeBERT at N=133) and the flagship image tower exported under
+    ``MMLEARN_QUANT=int8_sb`` (K5). Each: the eager ``encode`` at b 1, 7
+    and 256 and its b256 time against the artifact's; ``/embed`` and
+    ``/search`` served from it over HTTP and in process against an index of
+    its own b256 rows (each query its own rank-1, p50). Then one fresh
+    process, with the port's ``modules``, ``tasks``, ``bridge`` and
+    ``peft`` blocked (and JAX), loads every artifact without the model
+    code and runs it at b 1, 7 and 256 from one program: each output equal
+    to the eager one bit for bit, one b=7 forward's launches exact (K1f,
+    K1f-p or K3f ``depth``, K2f ``2 * depth``, K5 ``4 * depth`` under
+    ``int8_sb``, every other kernel 0), the graph's call targets the
+    registered operators and none of the plain versions' attention or
+    LayerNorm operations, its CPU program against its card program on two
+    rows (cosine >= ``MIN_COSINE``).
 
 Every main path before the seventh runs with ``MMLEARN_QUANT`` unset and
 checks that K5 never launched there; so do the eighth to the eighteenth.
@@ -560,6 +588,12 @@ TRAINER_MICRO_BATCH, TRAINER_ACCUMULATE, TRAINER_STEPS = 128, 2, 12
 TRAINER_EVERY, TRAINER_STOP_AT, TRAINER_PASS, TRAINER_VAL_BATCHES = 6, 4, 8, 2
 TRAINER_PARITY_MICRO = PARITY_BATCH
 TRAINER_CLIP = 1.0
+# the accumulation parity's loss, card against CPU: about 2x the largest of
+# sound LayerNorms' readings on an NVIDIA H100 80GB HBM3 at 700 W, K2f
+# 1.498e-03, K2f's plain version on the card 1.295e-03, F.layer_norm
+# 2.471e-03 (tools/noise_limits.py), below a copy that leaves the second
+# micro-batch's gradient out of the card's mean (4.526e-02)
+ACCUM_LOSS_RTOL = 5e-3
 
 # the input-fed path (phase 10): the flagship at b256 on uint8 host batches,
 # 16 distinct batches a pass fetched by 8 threads; 3 batches held to the
@@ -578,14 +612,18 @@ EVAL_PAIRS, EVAL_BINARY_PAIRS, EVAL_BINARY_CLASSES = 2048, 200, (5, 40)
 EVAL_SEED, EVAL_SHARD_ROWS, EVAL_RGB_KS = SEED + 41, 1024, [1, 5, 10]
 EVAL_CPU_PAIRS, EVAL_CPU_BINARY, EVAL_CPU_BATCH = 64, 16, 32
 BLOCKWISE_QUERIES, BLOCKWISE_TARGETS, TIE_RULE_QUERIES = 8192, 262144, 256
-# the eval metrics, card (bf16, kernels) against the CPU copy (f32, plain
-# versions) on those 64 pairs. Each recall and accuracy counts rows (64 for
-# retrieval, 48 and 16 for the two sets), so it is held in rows decided the
-# other way: a sound run reads 1 (R@5 over the 64, or top-5 over the 48);
-# the limit is 2. The other metrics (macro precision, recall, F1, AUROC) are
-# held to an absolute limit about 2x a sound run's reading (AUROC over the
-# 48, 1.98e-3; PERF.md section 2)
-EVAL_ROWS, EVAL_OTHER_ATOL = 2, 4e-3
+# the eval metrics of the fresh flagship (rows distinct), card (bf16,
+# kernels) against the CPU copy (f32, plain versions) on those 64 pairs.
+# Each recall and accuracy counts rows (64 for retrieval, 48 and 16 for the
+# two sets), so it is held in rows decided the other way: sound LayerNorms
+# read 0; the limit is 2. The loss and the other metrics (macro precision,
+# recall, F1, AUROC) are held to about 2x the largest of sound LayerNorms'
+# readings on an NVIDIA H100 80GB HBM3 at 700 W: K2f 1.301e-04 and 7.028e-03
+# (AUROC over the 48), K2f's plain version on the card 1.007e-04 and
+# 3.891e-03, F.layer_norm 5.258e-05 and 6.564e-03 (tools/noise_limits.py);
+# K1f launched without its causal flag reads 5.467e-03, 3 rows and 0.1333
+EVAL_ROWS, EVAL_OTHER_ATOL = 2, 1.4e-2
+EVAL_LOSS_RTOL = 3e-4
 # check 3 on the fresh flagship, the rows with the CPU rows' mean taken out:
 # least cosine 0.998045 (rgb), 0.999851 (text) on one H100 at 700 W; K1f's
 # image-side scale x 1.25 reads 0.968185, its output x 1.03 on half the
@@ -2858,7 +2896,7 @@ def accumulation_parity(master, device) -> float:
     rel = max(rels)
     print(f"trainer path: accumulation parity k={TRAINER_ACCUMULATE}, card vs CPU: loss rel "
           f"diff {', '.join(f'{r:.3e}' for r in rels)} over {len(hist)} micro-steps "
-          f"(tol {LOSS_RTOL})")
+          f"(tol {ACCUM_LOSS_RTOL})")
     check(len(grads) == len(want_grads) == 2, f"{len(grads)} updates, want 2")
     for label, got, want in [*((f"applied gradient {i}", g, w)
                                for i, (g, w) in enumerate(zip(grads, want_grads))),
@@ -2872,7 +2910,7 @@ def accumulation_parity(master, device) -> float:
     print(f"trainer path: FLOPs a micro-step of {TRAINER_PARITY_MICRO} counted on the card "
           f"(kernels reporting) {flops:.6e}, on the CPU (plain versions) {want_flops:.6e}")
     check(flops == want_flops, "the FLOP counter counts the card's step otherwise than the CPU's")
-    check(rel <= LOSS_RTOL, f"accumulated training loss on the card vs the CPU: {rel}")
+    check(rel <= ACCUM_LOSS_RTOL, f"accumulated training loss on the card vs the CPU: {rel}")
     return flops
 
 
@@ -3685,16 +3723,18 @@ def eval_card_vs_cpu(task, device, sets, weights: str) -> None:
     64-class set's first and the binary set's first, two batches of
     ``EVAL_CPU_BATCH``) on the card and on an f32 CPU copy of the task with
     the plain versions: per-row cosines of the exported embeddings and of
-    the class embeddings (>= ``MIN_COSINE``, the serving limit), and the
-    same rows with the CPU rows' mean taken out (``_centered_agreement``):
+    the class embeddings (>= ``MIN_COSINE``, the serving limit), the same
+    rows with the CPU rows' mean taken out (``_centered_agreement``):
     cosines >= ``EVAL_CENTERED_COS`` and each card row nearest its own
-    input's CPU row. The image tower's rows share most of their direction
-    (fresh weights: an error of 5.98e-05 in 1 - cos reads 1.95e-03 once
-    centered), so only the centered rows see a fault in it. The ``fresh``
-    flagship's rows are held to all of it; the ``trained`` weights (phase
-    10's, whose image tower is nearly collapsed: rows of equal bits for
-    different images) to the serving limit and to the CPU's metrics, their
-    centered readings printed."""
+    input's CPU row, and the metrics: the loss, each recall and accuracy in
+    rows decided otherwise, the macro metrics. The image tower's rows share
+    most of their direction (fresh weights: an error of 5.98e-05 in 1 - cos
+    reads 1.95e-03 once centered), so only the centered rows see a fault in
+    it. The ``fresh`` flagship's rows, distinct, are held to all of it; the
+    ``trained`` weights (phase 10's, whose image tower is nearly collapsed:
+    rows of equal bits for different images, scores whose order rounding
+    decides) to the serving limit, their centered readings and metrics
+    printed. Every reading is printed before any check."""
     import numpy as np
 
     from mmlearn_tpu_torch.trainer import Trainer
@@ -3730,18 +3770,12 @@ def eval_card_vs_cpu(task, device, sets, weights: str) -> None:
         worst[f"classes ds{d}"] = _row_cosines(card_cls[d], cpu_cls[d]).min()
         centered[f"classes ds{d}"] = _centered_agreement(card_cls[d], cpu_cls[d],
                                                          np.arange(len(cpu_cls[d])))
+    held = weights == "fresh"
     print(f"eval path, {weights} weights, card vs CPU: least row cosine " + ", ".join(
         f"{k} {v:.6f}" for k, v in worst.items()) + f" (bound {MIN_COSINE}); centered: least "
           "cosine, rows nearer another input's CPU row than their own, least margin " + ", ".join(
               f"{k} {c:.6f} {n} {m:.3e}" for k, (c, n, m) in centered.items())
-          + (f" (bound {EVAL_CENTERED_COS}, 0 rows)" if weights == "fresh"
-             else " (printed, not held)"))
-    check(all(v >= MIN_COSINE for v in worst.values()),
-          f"eval embeddings card vs CPU ({weights}) {worst}")
-    if weights == "fresh":
-        check(all(c >= EVAL_CENTERED_COS and n == 0 for c, n, _ in centered.values()),
-              f"eval embeddings card vs CPU ({weights}), centered: {centered}")
-        return
+          + (f" (bound {EVAL_CENTERED_COS}, 0 rows)" if held else " (printed, not held)"))
     check(sorted(card) == sorted(cpu), f"card and CPU metric keys differ: {sorted(card)} "
           f"{sorted(cpu)}")
     loss_err = abs(card["validation/loss"] - cpu["validation/loss"]) / abs(cpu["validation/loss"])
@@ -3755,12 +3789,19 @@ def eval_card_vs_cpu(task, device, sets, weights: str) -> None:
         elif not k.startswith(("export/", "validation/")):
             other[k] = abs(card[k] - cpu[k])
     worst_rows, worst_other = max(rows, key=rows.get), max(other, key=other.get)
-    print(f"eval path, card vs CPU: loss rel diff {loss_err:.3e} (limit {LOSS_RTOL}); recalls "
-          f"and accuracies: at most {rows[worst_rows]} rows decided otherwise ({worst_rows}; "
-          f"limit {EVAL_ROWS}); other metrics: largest abs diff {other[worst_other]:.6f} "
-          f"({worst_other}; limit {EVAL_OTHER_ATOL}); card/CPU " + ", ".join(
+    print(f"eval path, {weights} weights, card vs CPU: loss rel diff {loss_err:.3e} (limit "
+          f"{EVAL_LOSS_RTOL}); recalls and accuracies: at most {rows[worst_rows]} rows decided "
+          f"otherwise ({worst_rows}; limit {EVAL_ROWS}); other metrics: largest abs diff "
+          f"{other[worst_other]:.6f} ({worst_other}; limit {EVAL_OTHER_ATOL})"
+          + ("" if held else " (printed, not held)") + "; card/CPU " + ", ".join(
               f"{k} {card[k]:.4f}/{cpu[k]:.4f}" for k in sorted(card) if k in rows or k in other))
-    check(loss_err <= LOSS_RTOL, f"eval loss card vs CPU {card['validation/loss']} "
+    check(all(v >= MIN_COSINE for v in worst.values()),
+          f"eval embeddings card vs CPU ({weights}) {worst}")
+    if not held:
+        return
+    check(all(c >= EVAL_CENTERED_COS and n == 0 for c, n, _ in centered.values()),
+          f"eval embeddings card vs CPU ({weights}), centered: {centered}")
+    check(loss_err <= EVAL_LOSS_RTOL, f"eval loss card vs CPU {card['validation/loss']} "
           f"{cpu['validation/loss']}")
     check(rows[worst_rows] <= EVAL_ROWS and other[worst_other] <= EVAL_OTHER_ATOL,
           f"eval metrics card vs CPU: {worst_rows} {card[worst_rows]} {cpu[worst_rows]}, "
@@ -6140,8 +6181,12 @@ TP_TIMED = (2, 4)  # steps 2-4 on the host clock
 #: NVIDIA H100 80GB HBM3 at 700 W (6.584e-05, 8.011e-03, 1.626e-02,
 #: 4.704e-02), below a copy that adds the bias on both ranks (8.473e-04,
 #: 3.827e-02, 4.793e-02, 1.993e-01) or skips the all-reduce (6.586e-03,
-#: 2.165, 7.184e-01, 5.311); ``tools/tp_mutants.py`` reads them
-TP_LOSS_REL = 1.5e-4
+#: 2.165, 7.184e-01, 5.311); ``tools/tp_mutants.py`` reads them. The loss
+#: moves with any LayerNorm's last bits: its limit is about 2x the largest
+#: of sound LayerNorms' readings, K2f 6.584e-05, K2f's plain version on the
+#: card 9.154e-05, ``F.layer_norm`` 1.193e-04 (``tools/noise_limits.py``),
+#: and a K2f of other last bits 1.775e-04
+TP_LOSS_REL = 3.5e-4
 TP_NORM_REL = 1.6e-2
 TP_WEIGHT_REL = 3.5e-2
 TP_UPDATE_REL = 1e-1
@@ -7379,6 +7424,350 @@ def med_path(device) -> dict:
     return train
 
 
+# ------------------------------------------------------- the artifact path
+
+# phase 19: serving artifacts (torch.export programs) of every tower kind at
+# full width, random weights from SEED, loaded in a fresh process without
+# the port's model code and run at ARTIFACT_SIZES from one program; their
+# CPU programs at ARTIFACT_CPU_ROWS rows; ARTIFACT_QUERIES b=1 searches of
+# each over HTTP and in process, against an index of its own b256 rows
+ARTIFACT_SIZES, ARTIFACT_CPU_ROWS, ARTIFACT_QUERIES = (1, 7, 256), 2, 3
+ARTIFACT_SEED = SEED + 90
+#: the port's model code, blocked in the process that loads the artifacts,
+#: with JAX and the JAX package
+MODEL_CODE = tuple(f"mmlearn_tpu_torch.{m}" for m in ("modules", "tasks", "bridge", "peft"))
+BLOCKED = (*MODEL_CODE, "jax", "jaxlib", "flax", "optax", "mmlearn_tpu.")
+#: operations of the attention's and the LayerNorm's plain versions, which
+#: no program may hold: both attention versions' products are einsums, the
+#: LayerNorm's rstd an rsqrt (a tower's own softmax, BarcodeBERT's pooling,
+#: is neither)
+PLAIN_OPS = ("aten.einsum", "aten.rsqrt")
+
+
+def artifact_batch(meta: dict, vocab: int, n: int, device, seed: int) -> dict:
+    """``n`` rows of an artifact's inputs (``meta["inputs"]``, in order)
+    drawn on ``device`` from ``seed``: standard-normal floats, token ids in
+    ``[1, vocab)``, attention masks of 2 to N valid tokens (right padding).
+    Torch only, so that the process without the model code draws the same
+    rows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for key, info in meta["inputs"].items():
+        shape = (n, *info["shape"][1:])
+        if info["dtype"].startswith("float"):
+            out[key] = torch.randn(shape, generator=g, device=device)
+        elif key.endswith("_attention_mask"):
+            lens = torch.randint(2, shape[1] + 1, (n, 1), generator=g, device=device)
+            out[key] = (torch.arange(shape[1], device=device)[None] < lens).to(torch.int32)
+        else:
+            out[key] = torch.randint(1, vocab, shape, generator=g, device=device,
+                                     dtype=torch.int32)
+    return out
+
+
+def artifact_worker(spec_path: str, out_dir: str, platform: str) -> None:
+    """Phase 19's fresh processes (the port's model code blocked), one a
+    platform, run at once. ``cuda``: each artifact's card program loaded
+    and run at ``ARTIFACT_SIZES`` on rows drawn as the parent draws them
+    (one forward's launches counted at b=7), and on the
+    ``ARTIFACT_CPU_ROWS`` rows; its graph's call targets. ``cpu``: each
+    artifact's CPU program on those rows. The outputs in ``out_dir``."""
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.serving.export import load_encoder
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = torch.device(spec.pop("_device", platform))
+    results = {}
+    reset_counts()
+    for label, art in spec.items():
+        t0 = time.perf_counter()
+        encode = load_encoder(art["dir"], device)
+        load_s = time.perf_counter() - t0
+        rows = artifact_batch(encode.meta, art["vocab"], ARTIFACT_CPU_ROWS, "cpu", art["seed"])
+        outs = {"rows": encode({k: v.to(device) for k, v in rows.items()}).float().cpu().numpy()}
+        results[label] = {"load_s": load_s}
+        if platform == "cuda":
+            for n in ARTIFACT_SIZES:
+                batch = artifact_batch(encode.meta, art["vocab"], n, device, art["seed"] + n)
+                before = launch_counts()
+                outs[f"b{n}"] = encode(batch).float().cpu().numpy()
+                if n == 7:
+                    counts = {k: v - before[k] for k, v in launch_counts().items()}
+            targets = sorted({str(node.target) for node in encode.program.graph.nodes
+                              if node.op == "call_function"})
+            results[label].update(counts=counts, targets=[
+                t for t in targets if t.startswith(("mmlearn.", *PLAIN_OPS))])
+        results[label]["run_s"] = time.perf_counter() - t0 - load_s
+        np.savez(os.path.join(out_dir, f"{art['name']}.{platform}.npz"), **outs)
+        del encode
+    leaked = sorted(m for m in sys.modules if m.startswith(BLOCKED))
+    with open(os.path.join(out_dir, f"results.{platform}.json"), "w") as f:
+        json.dump({"artifacts": results, "launches": launch_counts(), "leaked": leaked}, f)
+
+
+def _artifact_index(index_dir: str, modality: str, emb) -> None:
+    """An index of the rows ``emb`` (example ids their row numbers): one
+    shard and the manifest ``EmbeddingIndex.load`` reads."""
+    import numpy as np
+
+    os.makedirs(index_dir, exist_ok=True)
+    name = f"{modality}_00000.npz"
+    np.savez(os.path.join(index_dir, name), embeddings=emb, example_index=np.arange(len(emb)),
+             dataset_index=np.zeros(len(emb), np.int64))
+    with open(os.path.join(index_dir, "manifest.json"), "w") as f:
+        json.dump({modality: {"shards": [name], "rows": len(emb), "dim": emb.shape[1],
+                              "normalized": True}}, f)
+
+
+def _same_row(emb, hit: int, i: int) -> bool:
+    """Whether the rank-1 row ``hit`` is row ``i``, or a row of the same
+    bits (inputs that the tower maps alike)."""
+    import numpy as np
+
+    return hit == i or bool(np.array_equal(emb[hit], emb[i]))
+
+
+def _serve_artifact(label: str, art: str, modality: str, batch, emb, device):
+    """``/embed`` and ``/search`` from the artifact: an index of its b256
+    rows ``emb`` (the eager encode's), ``ARTIFACT_QUERIES`` of them searched
+    at b=1 over HTTP and in process (each its own rank-1 neighbour);
+    ``/embed`` of a row equal to the loaded artifact's ``encode`` of it.
+    Returns the p50s and the server's loaded artifact."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from mmlearn_tpu_torch.serving.server import ServingState, make_handler
+
+    index_dir = os.path.join(WORK_DIR, "artifacts", f"{label}_index")
+    # the rows normalized again in f32, as an index is exported: a bf16
+    # row's norm lies up to 2^-8 from 1, and fresh towers' rows lie closer
+    # than that to one another
+    _artifact_index(index_dir, modality, emb / np.linalg.norm(emb, axis=1, keepdims=True))
+    state = ServingState(art, index_dir, modality, device=device)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = _start(server)
+    ids = [int(i) for i in np.linspace(0, len(emb) - 1, ARTIFACT_QUERIES)]
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    try:
+        port = server.server_address[1]
+        status, out = _post(port, "/embed", {"inputs": {k: v[:1].tolist()
+                                                         for k, v in host.items()}})
+        want = state.encode({k: v[:1] for k, v in batch.items()}).float().cpu().numpy()
+        check(status == 200 and np.array_equal(np.asarray(out["embeddings"], np.float32), want),
+              f"artifact {label}: /embed {status} differs from the artifact's row")
+        http = []
+        for i in ids:
+            body = {"inputs": {k: v[i:i + 1].tolist() for k, v in host.items()}, "k": SEARCH_K}
+            t0 = time.perf_counter()
+            status, out = _post(port, "/search", body)
+            http.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and _same_row(emb, out["example_index"][0][0], i)
+                  and abs(out["scores"][0][0] - 1) <= SELF_SCORE_ATOL,
+                  f"artifact {label}: /search of row {i}: {status} {out}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    local = []
+    for i in ids:
+        t0 = time.perf_counter()
+        found = state.search({k: v[i:i + 1] for k, v in host.items()}, k=SEARCH_K)
+        local.append((time.perf_counter() - t0) * 1e3)
+        check(_same_row(emb, found["example_index"][0][0], i),
+              f"artifact {label}: in-process search of row {i}: {found}")
+    return {"http_p50_ms": statistics.median(http),
+            "local_p50_ms": statistics.median(local)}, state.encode
+
+
+def _artifact_towers(device):
+    """Phase 19's towers, one task built at a time: ``(label, task,
+    modality, environment, inputs, vocab, attention launch key)``, the
+    inputs ``{key: (shape without the batch, dtype)}``."""
+    import torch
+
+    from mmlearn_tpu_torch.flagship import (
+        TEXT_LENGTH,
+        VOCAB_SIZE,
+        flagship_task,
+        highres_task,
+        ijepa_training_task,
+    )
+    from mmlearn_tpu_torch.projects.bioscan_clip import recipe
+
+    rgb = {"rgb": ((224, 224, 3), "float32")}
+    task = flagship_task(device, seed=SEED)
+    yield ("flagship_rgb", task, "rgb", {}, rgb, 0, "fused_mha_fwd")
+    yield ("flagship_text", task, "text", {},
+           {"text": ((TEXT_LENGTH,), "int32"), "text_attention_mask": ((TEXT_LENGTH,), "int32")},
+           VOCAB_SIZE, "fused_mha_fwd")
+    yield ("flagship_rgb_int8_sb", task, "rgb", {QUANT_ENV: "int8_sb"}, rgb, 0,
+           "fused_mha_fwd")
+    del task
+    yield ("highres_rgb", highres_task(device, seed=SEED), "rgb", {},
+           {"rgb": ((448, 448, 3), "float32")}, 0, "flash_fwd")
+    yield ("ijepa_rgb_packed", ijepa_training_task(device, seed=SEED).eval(), "rgb",
+           {PACKED_ENV: "1"}, rgb, 0, "fused_mha_packed_fwd")
+    task = recipe.bioscan_task(dtype="bfloat16", device=device, seed=SEED).eval()
+    with torch.no_grad():  # a live LoRA delta: the factors' b drawn, not zero
+        for i, (name, p) in enumerate(sorted(task.lora.named_parameters())):
+            if name.endswith(".b"):
+                p.normal_(0.0, BIOSCAN_PARITY_B_STD,
+                          generator=torch.Generator(device=p.device).manual_seed(SEED + i))
+    text_n = BIOSCAN_TEXT
+    yield ("bioscan_rgb", task, "rgb", {}, rgb, 0, "fused_mha_fwd")
+    yield ("bioscan_text", task, "text", {},
+           {"text": ((text_n,), "int32"), "text_attention_mask": ((text_n,), "int32")},
+           recipe.TEXT["vocab_size"], "fused_mha_fwd")
+    yield ("bioscan_dna", task, "dna", {}, {"dna": ((133,), "int32")},
+           recipe.DNA["vocab_size"], "fused_mha_fwd")
+
+
+def artifact_path(device) -> dict:
+    """Phase 19 (see the module docstring). Returns the launches of the
+    fresh process's runs of the programs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mmlearn_tpu_torch.modules.layers.attention import Attention
+    from mmlearn_tpu_torch.ops import fused_norm as fn
+    from mmlearn_tpu_torch.ops import registered  # noqa: F401 - torch.ops.mmlearn
+    from mmlearn_tpu_torch.serving import save_encoder
+
+    root = os.path.join(WORK_DIR, "artifacts")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # a K2f call's host time, direct and through its registered operator
+    gen = torch.Generator(device=device).manual_seed(ARTIFACT_SEED)
+    x, r = (torch.randn(BATCH * 197, 768, generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    g, b = torch.ones(768, device=device), torch.zeros(768, device=device)
+    host = {"LN direct": host_us(lambda: fn.layernorm_forward(x, g, b, 1e-6)),
+            "LN operator": host_us(lambda: torch.ops.mmlearn.layernorm(x, g, b, 1e-6)),
+            "add+LN direct": host_us(lambda: fn.add_layernorm_forward(x, r, g, b, 1e-6)),
+            "add+LN operator": host_us(lambda: torch.ops.mmlearn.add_layernorm(
+                x, r, g, b, 1e-6))}
+    print("artifact path: a K2f call's host time at (256·197, 768) bf16: " + ", ".join(
+        f"{k} {v:.1f} µs" for k, v in host.items()) + " (eager calls launch directly; "
+          "programs call the operators)")
+    del x, r
+
+    spec, eager, served, depths = {}, {}, {}, {}
+    for label, task, modality, env, inputs, vocab, attention in _artifact_towers(device):
+        t0 = time.perf_counter()
+        meta = {"inputs": {k: {"shape": [1, *shape], "dtype": dt}
+                           for k, (shape, dt) in inputs.items()}}
+        seed = ARTIFACT_SEED + 10 * len(spec)
+        art = os.path.join(root, label)
+        with contextlib.ExitStack() as stack:
+            for name, value in env.items():
+                stack.enter_context(environ(name, value))
+            example = artifact_batch(meta, vocab, 2, device, seed)
+            save_encoder(art, task, modality, {k: v.cpu().numpy() for k, v in example.items()})
+            export_s = time.perf_counter() - t0
+            with torch.inference_mode():
+                eager[label] = {n: task.encode(artifact_batch(meta, vocab, n, device, seed + n),
+                                               modality, normalize=True).float().cpu().numpy()
+                                for n in ARTIFACT_SIZES}
+                big = artifact_batch(meta, vocab, BATCH, device, seed + BATCH)
+                eager_ms = cuda_ms(lambda: task.encode(big, modality, normalize=True),
+                                   iters=5, warmup=1)
+        encoder = (task.encoders[task.encoder_keys[modality]] if hasattr(task, "encoders")
+                   else task.encoder)
+        depth = sum(isinstance(m, Attention) for m in encoder.modules())
+        depths[label] = (depth, attention, bool(env.get(QUANT_ENV)))
+        served[label], encode = _serve_artifact(label, art, modality, big,
+                                                eager[label][BATCH], device)
+        art_ms = cuda_ms(lambda: encode(big), iters=5, warmup=1)
+        served[label].update(export_s=export_s, eager_ms=eager_ms, art_ms=art_ms,
+                             mb=sum(os.path.getsize(os.path.join(art, f))
+                                    for f in os.listdir(art)) / 2**20)
+        spec[label] = {"dir": art, "vocab": vocab, "seed": seed, "name": label}
+        del encode, big, example, task
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"artifact path, {label}: exported (cuda, cpu) in {export_s:.1f} s, "
+              f"{served[label]['mb']:.0f} MB; encode b{BATCH} through the artifact "
+              f"{BATCH / art_ms * 1e3:.1f} rows/s, eager {BATCH / eager_ms * 1e3:.1f} "
+              f"({art_ms:.2f} / {eager_ms:.2f} ms); /search b=1 p50 HTTP "
+              f"{served[label]['http_p50_ms']:.2f} ms, in process "
+              f"{served[label]['local_p50_ms']:.2f} ms ({ARTIFACT_QUERIES} queries, each its "
+              f"own rank-1 among {BATCH}); in {time.perf_counter() - t0:.1f} s")
+
+    # the fresh processes, one a platform, the model code blocked
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    procs = {}
+    for platform in ("cuda", "cpu"):
+        script = (
+            "import importlib.abc, sys\n"
+            f"BLOCKED = {BLOCKED!r}\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path, target=None):\n"
+            "        if name == 'mmlearn_tpu' or name.startswith(BLOCKED):\n"
+            "            raise ImportError(f'blocked import of {name}')\n"
+            "        return None\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.artifact_worker({spec_path!r}, {root!r}, {platform!r})\n")
+        procs[platform] = subprocess.Popen([sys.executable, "-c", script], cwd=REPO, env=env,
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)
+    res = {}
+    for platform, proc in procs.items():
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"artifact path: the fresh {platform} process exited "
+              f"{proc.returncode}: {err[-3000:]}")
+        with open(os.path.join(root, f"results.{platform}.json")) as f:
+            res[platform] = json.load(f)
+    leaked = sorted({*res["cuda"]["leaked"], *res["cpu"]["leaked"]})
+    print(f"artifact path: {len(spec)} artifacts loaded and run in two fresh processes (the "
+          f"card's programs, the CPU's) with {', '.join(MODEL_CODE)} blocked in "
+          f"{time.perf_counter() - t0:.1f} s; model modules imported there: {leaked or 'none'}")
+    check(not leaked, f"artifact path: model code imported: {leaked}")
+    for label, (depth, attention, quant) in depths.items():
+        got, cpu = res["cuda"]["artifacts"][label], res["cpu"]["artifacts"][label]
+        outs = np.load(os.path.join(root, f"{label}.cuda.npz"))
+        cpu_rows = np.load(os.path.join(root, f"{label}.cpu.npz"))["rows"]
+        equal = {n: bool(np.array_equal(outs[f"b{n}"], eager[label][n])) for n in ARTIFACT_SIZES}
+        diff = max(float(np.abs(outs[f"b{n}"] - eager[label][n]).max()) for n in ARTIFACT_SIZES)
+        want = {k: 0 for k in got["counts"]}
+        want.update({attention: depth, "layernorm_fwd": 2 * depth})
+        if quant:
+            want["int8_qmm"] = 4 * depth
+        ops = {t for t in got["targets"] if t.startswith("mmlearn.")}
+        want_ops = {f"mmlearn.{'flash_qkv' if attention == 'flash_fwd' else 'fused_mha'}.default",
+                    "mmlearn.add_layernorm.default", *(["mmlearn.int8_qmm.default"] * quant)}
+        plain = [t for t in got["targets"] if t.startswith(PLAIN_OPS)]
+        cos = _row_cosines(outs["rows"], cpu_rows).min()
+        print(f"artifact path, {label}: program vs eager encode on the card bit for bit at b "
+              + ", ".join(f"{n} {'yes' if e else 'NO'}" for n, e in equal.items())
+              + f" (max |diff| {diff:.3e}); one b=7 forward launched "
+              + ", ".join(f"{k} {v}" for k, v in got["counts"].items() if v)
+              + f" (depth {depth}); operators {sorted(ops)}; plain operations {plain or 'none'}; "
+              f"cpu program vs cuda program on {ARTIFACT_CPU_ROWS} rows: least cosine {cos:.6f} "
+              f"(bound {MIN_COSINE}); load and run {got['load_s']:.1f} + {got['run_s']:.1f} s, "
+              f"on the CPU {cpu['load_s']:.1f} + {cpu['run_s']:.1f} s")
+        check(all(equal.values()), f"artifact {label}: program differs from eager encode "
+              f"({equal}, max |diff| {diff})")
+        check(got["counts"] == want, f"artifact {label}: launched {got['counts']}, want {want}")
+        check(want_ops <= ops and not plain, f"artifact {label}: operators {sorted(ops)}, "
+              f"plain {plain}")
+        check(cos >= MIN_COSINE, f"artifact {label}: cpu vs cuda cosine {cos}")
+    return res["cuda"]["launches"]
+
+
 def _tensors(state: dict) -> dict:
     return {k: v for k, v in state.items() if hasattr(v, "shape")}
 
@@ -7515,15 +7904,20 @@ def main() -> int:
     check(med_launches["int8_qmm"] == med_launches["int8_qmm_bytes"] == 0,
           f"K5 launched on the med_benchmarking path without {QUANT_ENV}")
     print(f"med_benchmarking path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    artifact_launches = artifact_path(device)
+    print(f"artifact path done in {time.perf_counter() - t0:.1f} s")
     # launches on the main paths, each counted from 0: serving, CLIP
     # training, I-JEPA with K1, I-JEPA with K1f-p/K1b-p, CLIP training under
     # int8_sb, 448 encode and 448 training, the trainer path's run A, the
     # input path's fit, the eval path's validate, the large presets' runs,
     # the record path's fits, the BIOSCAN-CLIP fit, the multi-task run A,
-    # the tensor-parallel fit's rank 0, the med_benchmarking run A and eval job
+    # the tensor-parallel fit's rank 0, the med_benchmarking run A and eval job,
+    # the artifacts' programs in the process without the model code
     for counts in (ijepa_launches, quant_launches, highres_launches, trainer_launches,
                    input_launches, eval_launches, large_launches_run, record_launches,
-                   bioscan_launches_run, multitask_launches_run, tp_launches, med_launches):
+                   bioscan_launches_run, multitask_launches_run, tp_launches, med_launches,
+                   artifact_launches):
         for key, count in counts.items():
             launches[key] = launches.get(key, 0) + count
     launches["fused_mha_fwd"] += serving["launches"][0]

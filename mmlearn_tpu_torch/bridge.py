@@ -121,16 +121,24 @@ def _jax_leaf(mod: nn.Module, pname: str) -> tuple[str, Optional[tuple[int, ...]
     return pname, None
 
 
-def jax_paths(module: nn.Module) -> dict[str, str]:
-    """``{parameter name: JAX path}`` of every parameter of ``module``:
-    ``blocks.3.attn.qkv.weight`` to ``blocks_3/attn/qkv/kernel``."""
+def jax_leaves(module: nn.Module) -> dict[str, tuple[str, Optional[tuple[int, ...]]]]:
+    """``{parameter name: (JAX path, axes)}`` of every parameter of
+    ``module``: ``blocks.3.attn.qkv.weight`` to ``("blocks_3/attn/qkv/kernel",
+    (1, 0))``, the axes taking the port's layout to the JAX one (``None``: as
+    it is)."""
     out = {}
     for name, mod in module.named_modules():
         for pname, _ in mod.named_parameters(recurse=False):
-            leaf, _ = _jax_leaf(mod, pname)
-            out[f"{name}.{pname}" if name else pname] = "/".join(
-                filter(None, [jax_module_path(name), leaf]))
+            leaf, axes = _jax_leaf(mod, pname)
+            out[f"{name}.{pname}" if name else pname] = (
+                "/".join(filter(None, [jax_module_path(name), leaf])), axes)
     return out
+
+
+def jax_paths(module: nn.Module) -> dict[str, str]:
+    """``{parameter name: JAX path}`` of every parameter of ``module``:
+    ``blocks.3.attn.qkv.weight`` to ``blocks_3/attn/qkv/kernel``."""
+    return {name: path for name, (path, _) in jax_leaves(module).items()}
 
 
 def torch_to_jax(module: nn.Module, scanned: bool = False,

@@ -15,23 +15,23 @@
 // (and r) a value with a few FLOPs each, so memory: at (256 x 197, 768) in
 // bf16 LN moves 155 MB, 0.046 ms at 3.35 TB/s.
 //
-// Its bits. A last-bit difference in y moves a bf16 rounding, and checks
-// that hold whole runs on the card to other runs (the CPU's, a model-split
-// one's, an f32 copy's on a nearly collapsed model) read such differences
-// through every layer, some with limits inside that noise. So the rows
-// kernel computes the bits of the kernel it replaces, the port's first K2f
-// (Triton, one program of next_pow2(C) lanes a row, BLOCK / 256 warps of
-// eight values a thread), read from the machine code Triton generated for
-// it on the H100: a thread's eight values summed in order, a butterfly over
-// the warp's lanes (offsets 16 .. 1), then one over the warps (BLOCK / 512
-// .. 1); rcp = the approximate reciprocal of C (its division, unscaled for
-// any C here); x - mean as fma(rcp, -sum, x), one rounding; var = rcp times
-// the squares' sum, taken as before (x1 x1, then fused multiply-adds of x0
-// x0, x2 x2, ...); the approximate rsqrt of var + eps; y = fma((x - mean)
-// rstd, gamma, beta); and in bf16 r by add.bf16x2. So every path's output
-// stays what it was. This constraint is not the function's: once those
-// checks take their limits from several sound runs (ROADMAP, "Next
-// slices"), the kernel may take its own order of sums and exact operations.
+// Its bits. The rows kernel computes the bits of the kernel it replaced,
+// the port's first K2f (Triton, one program of next_pow2(C) lanes a row,
+// BLOCK / 256 warps of eight values a thread), read from the machine code
+// Triton generated for it on the H100: a thread's eight values summed in
+// order, a butterfly over the warp's lanes (offsets 16 .. 1), then one over
+// the warps (BLOCK / 512 .. 1); rcp = the approximate reciprocal of C (its
+// division, unscaled for any C here); x - mean as fma(rcp, -sum, x), one
+// rounding; var = rcp times the squares' sum, taken as before (x1 x1, then
+// fused multiply-adds of x0 x0, x2 x2, ...); the approximate rsqrt of var +
+// eps; y = fma((x - mean) rstd, gamma, beta); and in bf16 r by add.bf16x2.
+// Nothing requires those bits now. A last-bit difference in y moves a bf16
+// rounding, which the checks that hold whole runs on the card to other runs
+// of the same numbers (the CPU's, a model-split one's, an f32 copy's) read
+// through every layer; their limits sit at about twice the largest reading
+// of three sound LayerNorms (this kernel, its plain version on the card and
+// F.layer_norm; tools/noise_limits.py), so a kernel with its own order of
+// sums and exact operations is held by the same limits.
 //
 // Design. The memory's rate needs bytes in flight (some 15-20 KB an SM at
 // its latency), rows in order (rows far apart in flight at once read slower),

@@ -38,6 +38,10 @@ import torch
 from mmlearn_tpu_torch.datasets.core.data_collator import DefaultDataCollator
 from mmlearn_tpu_torch.datasets.core.samplers import RandomSampler, SequentialSampler
 
+#: how long an early close of an iterator waits, at most, for its prefetch
+#: thread to finish the fetch it is in (a fetch of ``batch_size`` examples)
+CLOSE_TIMEOUT_S = 60.0
+
 _BATCH_VALIDITY_KEY = "batch_validity"
 
 
@@ -50,6 +54,14 @@ def _propagate_set_epoch(dataset: Any, epoch: int) -> None:
         return  # a container that owns set_epoch handles its own children
     for sub in getattr(dataset, "datasets", []):
         _propagate_set_epoch(sub, epoch)
+
+
+def _drain(q: queue.Queue) -> None:
+    while True:
+        try:
+            q.get_nowait()
+        except queue.Empty:
+            return
 
 
 class DataLoader:
@@ -163,7 +175,7 @@ class DataLoader:
                     except queue.Full:
                         continue
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, name="DataLoader prefetch", daemon=True)
         thread.start()
         try:
             while True:
@@ -175,13 +187,12 @@ class DataLoader:
             if error_box:
                 raise error_box[0]
         finally:
-            # closed early: release the producer and drain the queue
+            # closed early: release the producer, drain the queue, and wait
+            # for the fetch it may be in, so that none follows the close
             stop.set()
-            while True:
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    break
+            _drain(q)
+            thread.join(CLOSE_TIMEOUT_S)
+            _drain(q)
 
     def _can_fast_skip(self) -> bool:
         # opt-in only: an unknown dataset's __getitem__ may have side effects

@@ -37,6 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from mmlearn_tpu_torch.modules.layers.dense import Dense
+from mmlearn_tpu_torch.ops.int8_matmul import (
+    _int8_fwd,
+    _quantize,
+    exact_int_dot,
+    switchback_matmul,
+)
 
 #: the values of ``MMLEARN_QUANT`` that name a mode
 QUANT_MODES = ("int8_fwd", "int8", "int8_sb")
@@ -46,35 +52,6 @@ def quant_mode() -> Optional[str]:
     """Active quantization mode, read from ``MMLEARN_QUANT`` now."""
     mode = os.environ.get("MMLEARN_QUANT", "").strip().lower()
     return mode or None
-
-
-def _quantize(a: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric absmax int8 quantization along ``axis`` (the scale keeps the
-    dim). The one quantizer of the port: the composed modes, the weight of
-    K5 and K5's plain version all take it.
-
-    The divisor 127 is a tensor filled on ``a``'s device: PyTorch's CUDA
-    division by a Python number multiplies by its reciprocal, one rounding
-    off the IEEE quotient that K5 and the JAX package compute, and a tensor
-    copied from the host would wait for the card."""
-    af = a.float()
-    amax = af.abs().amax(dim=axis, keepdim=True).clamp_min(1e-6)
-    s = amax / amax.new_full((), 127.0)
-    return torch.round(af / s).to(torch.int8), s
-
-
-def exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two int8 tensors as f32: the exact integer sum (taken in
-    f64), rounded to the nearest f32 as an s32 sum converts."""
-    return torch.matmul(a.double(), b.double()).float()
-
-
-def _int8_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` with ``x`` quantized per row and the ``(out, in)`` weight
-    per output row; in ``x``'s type."""
-    qx, sx = _quantize(x, -1)
-    qw, sw = _quantize(w, -1)
-    return (exact_int_dot(qx, qw.t()) * (sx * sw.t())).to(x.dtype)
 
 
 class Int8MatmulSTE(torch.autograd.Function):
@@ -148,8 +125,6 @@ class Int8Dense(Dense):
         x, w = x.to(dt), self.merged_weight().to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
         if mode == "int8_sb":
-            from mmlearn_tpu_torch.ops.int8_matmul import switchback_matmul
-
             # the bias joins K5's epilogue (a separate add where K5 does not run)
             return switchback_matmul(x, w, bias)
         if mode == "int8":

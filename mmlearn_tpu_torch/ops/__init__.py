@@ -5,7 +5,9 @@
   layer K1 does not take (CUDA C++);
 - :mod:`.fused_norm` -- K2, LayerNorm and residual-add + LayerNorm (CUDA C++);
 - :mod:`.int8_matmul` -- K5, the quantizing int8 product of
-  ``MMLEARN_QUANT=int8_sb`` (CUDA C++).
+  ``MMLEARN_QUANT=int8_sb`` (CUDA C++);
+- :mod:`.registered` -- the forward kernels as registered operators
+  (``torch.ops.mmlearn``), which programs traced by ``torch.export`` call.
 """
 
 #: the open :class:`mmlearn_tpu_torch.trainer.flops.FlopCounter` objects. A

@@ -215,8 +215,6 @@ def _check_cuda(q, k, v, mask) -> Optional[torch.Tensor]:
         raise ValueError(f"flash attention kernels take head_dim {_KERNEL_HEAD_DIMS}, got {d}")
     if n_q == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs at least one query and one key")
-    if b > _GRID_LIMIT or h > _GRID_LIMIT:
-        raise ValueError(f"flash attention kernels' grid limit: batch={b}, heads={h}")
     if not (k.device == v.device == q.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if mask is None:
@@ -225,6 +223,15 @@ def _check_cuda(q, k, v, mask) -> Optional[torch.Tensor]:
         raise ValueError(f"mask must be ({b}, {k.shape[2]}) on {q.device}, got "
                          f"{tuple(mask.shape)} on {mask.device}")
     return mask.to(torch.bool).contiguous()
+
+
+def _check_grid(q) -> None:
+    """Batch and heads are grid dimensions. Checked at the launch, on the
+    call's own shape, so that a program traced at a symbolic batch keeps
+    it free."""
+    b, h = q.shape[:2]
+    if b > _GRID_LIMIT or h > _GRID_LIMIT:
+        raise ValueError(f"flash attention kernels' grid limit: batch={b}, heads={h}")
 
 
 def _count(key: str, head_dim: int) -> None:
@@ -249,6 +256,7 @@ def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool,
     buffer (so a caller that merges the heads reads it with no copy), in q's
     type or in f32 under ``out_dtype=torch.float32`` (the ring's hop), and
     the f32 log-sum-exp ``(B, H, N_q)``."""
+    _check_grid(q)
     q, k, v = _layout(q), _layout(k), _layout(v)
     b, h, n_q, d = q.shape
     out_dtype = out_dtype or q.dtype
@@ -274,6 +282,7 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, scale: float, causal: bool, g
     kernel. They write dq, dk, dv into ``grads`` where it is given (views the
     kernels write in place, such as the three of a packed ``(B, N, H, 3, D)``
     buffer), else into new tensors; returns them."""
+    _check_grid(q)
     q, k, v, out = _layout(q), _layout(k), _layout(v), _layout(out)
     dout = _layout(dout.to(q.dtype))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -303,6 +312,16 @@ def _report(q, k, backward: bool) -> None:
                  attention_flops(b, h, n_q, k.shape[2], d, backward))
 
 
+def flash_forward(q, k, v, mask, scale: float, causal: bool):
+    """The forward by the tensor's device: the plain version on the CPU, K3f
+    on the card (reported to the open FLOP counters): ``(out, lse)``."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, mask, scale, causal)
+    out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
+    _report(q, k, backward=False)
+    return out, lse
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_flash_attention``: saves q,
     k, v, the mask, the output and the log-sum-exp (``_flash_fwd``), and runs
@@ -310,11 +329,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale: float, causal: bool):
-        if q.device.type == "cpu":
-            out, lse = flash_fwd_reference(q, k, v, mask, scale, causal)
-        else:
-            out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
-            _report(q, k, backward=False)
+        out, lse = flash_forward(q, k, v, mask, scale, causal)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.config = (scale, causal)
         return out
@@ -376,6 +391,18 @@ def split_qkv(qkv: torch.Tensor, num_heads: int):
     return qkv.view(b, n, num_heads, 3, -1).permute(3, 0, 2, 1, 4).unbind(0)
 
 
+def flash_qkv_forward(qkv, mask, num_heads: int, scale: float, causal: bool):
+    """:func:`flash_forward` on the three strided views of a head-major
+    packed projection: ``(out, lse)``, the output ``(B, N, H * D)`` with the
+    heads merged (on the card a view of the buffer K3f writes). The eager
+    route, and the implementations of the registered operator
+    ``mmlearn::flash_qkv`` (:mod:`.registered`) that a traced program
+    calls."""
+    b, n, _ = qkv.shape
+    out, lse = flash_forward(*split_qkv(qkv, num_heads), mask, scale, causal)
+    return out.transpose(1, 2).reshape(b, n, -1), lse
+
+
 class FlashQKVFunction(torch.autograd.Function):
     """K3 on the head-major packed projection ``(B, N, H * 3 * D)`` of an
     attention layer, as :class:`~mmlearn_tpu_torch.ops.fused_attention.
@@ -384,20 +411,22 @@ class FlashQKVFunction(torch.autograd.Function):
     writes. The backward allocates one ``(B, N, H, 3, D)`` buffer and has K3b
     write dq, dk and dv into its three views: the buffer is the gradient of
     qkv, with no stack and no reshape. On a CPU tensor both run the plain
-    versions on the views, and the gradients land in the same layout."""
+    versions on the views, and the gradients land in the same layout. Under
+    ``torch.export`` the forward is the registered operator."""
 
     @staticmethod
     def forward(ctx, qkv, mask, num_heads: int, scale: float, causal: bool):
-        q, k, v = split_qkv(qkv, num_heads)
-        if qkv.device.type == "cpu":
-            out, lse = flash_fwd_reference(q, k, v, mask, scale, causal)
+        if torch.compiler.is_exporting():
+            from mmlearn_tpu_torch.ops import registered
+
+            merged, lse = registered.flash_qkv(qkv, mask, num_heads, scale, causal)
         else:
-            out, lse = _flash_fwd_cuda(q, k, v, mask, scale, causal)
-            _report(q, k, backward=False)
-        ctx.save_for_backward(qkv, mask, out, lse)
-        ctx.config = (num_heads, scale, causal)
+            merged, lse = flash_qkv_forward(qkv, mask, num_heads, scale, causal)
         b, n, _ = qkv.shape
-        return out.transpose(1, 2).reshape(b, n, -1)
+        # the (B, H, N, D) output the backward reads, a view of the merged one
+        ctx.save_for_backward(qkv, mask, merged.view(b, n, num_heads, -1).transpose(1, 2), lse)
+        ctx.config = (num_heads, scale, causal)
+        return merged
 
     @staticmethod
     def backward(ctx, dout):

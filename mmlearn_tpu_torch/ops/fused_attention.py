@@ -311,8 +311,6 @@ def _check_cuda(
         )
     if not qkv.is_contiguous():
         raise ValueError("fused_mha kernel needs a contiguous qkv")
-    if b > 65535 or num_heads > 65535:
-        raise ValueError(f"fused_mha kernel grid limit: batch={b}, heads={num_heads}")
     if mask is None:
         return None
     if mask.shape != (b, n) or mask.device != qkv.device:
@@ -335,6 +333,14 @@ def _raise_on(error_string, err: int, what: str) -> None:
         )
 
 
+def _check_grid(b: int, num_heads: int) -> None:
+    """Batch and heads are grid dimensions. Checked at the launch, on the
+    call's own shape, so that a program traced at a symbolic batch keeps
+    it free."""
+    if b > 65535 or num_heads > 65535:
+        raise ValueError(f"fused_mha kernel grid limit: batch={b}, heads={num_heads}")
+
+
 def _check_aligned(*tensors: torch.Tensor) -> None:
     """K1's bf16 kernels copy qkv's (and dout's) rows, and the head-grouped
     kernels every operand, as 16-byte vectors."""
@@ -348,6 +354,7 @@ def _fused_mha_cuda(
 ) -> torch.Tensor:
     b, n, three_c = qkv.shape
     d = three_c // (3 * num_heads)
+    _check_grid(b, num_heads)
     out = torch.empty(b, n, num_heads * d, dtype=qkv.dtype, device=qkv.device)
     fwd, _, error_string, prefix = _library(packed)
     if packed or qkv.dtype == torch.bfloat16:
@@ -370,6 +377,7 @@ def _fused_mha_bwd_cuda(
 ) -> torch.Tensor:
     b, n, three_c = qkv.shape
     d = three_c // (3 * num_heads)
+    _check_grid(b, num_heads)
     dout = dout.to(qkv.dtype).contiguous()
     if packed:
         _check_aligned(qkv, out, dout)
@@ -397,20 +405,37 @@ def _report(qkv, num_heads: int, packed: bool, backward: bool) -> None:
                  attention_flops(b, num_heads, n, n, three_c // (3 * num_heads), backward))
 
 
+def fused_mha_forward(qkv, mask, num_heads: int, scale: float, causal: bool,
+                      packed: bool = False) -> torch.Tensor:
+    """The forward by the tensor's device: the plain version on the CPU; on
+    the card K1f (or K1f-p under ``packed``), reported to the open FLOP
+    counters. The eager route, and the implementations of the registered
+    operator ``mmlearn::fused_mha`` (:mod:`.registered`) that a traced
+    program calls."""
+    if qkv.device.type == "cpu":
+        return mha_reference(qkv, mask, num_heads, scale, causal)
+    out = _fused_mha_cuda(qkv, mask, num_heads, scale, causal, packed)
+    _report(qkv, num_heads, packed, backward=False)
+    return out
+
+
 class FusedMHAFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_fused_mha_nomask`` /
     ``_fused_mha_masked``: saves qkv, the mask and the output, and runs the
     backward kernel (the plain backward on a CPU tensor). ``packed`` picks
-    the head-grouped kernels for both passes on a CUDA tensor."""
+    the head-grouped kernels for both passes on a CUDA tensor. Under
+    ``torch.export`` the forward is the registered operator, so that the
+    program calls the kernel and not its plain version."""
 
     @staticmethod
     def forward(ctx, qkv, mask, num_heads: int, scale: float, causal: bool,
                 packed: bool = False):
-        if qkv.device.type == "cpu":
-            out = mha_reference(qkv, mask, num_heads, scale, causal)
+        if torch.compiler.is_exporting():
+            from mmlearn_tpu_torch.ops import registered
+
+            out = registered.fused_mha(qkv, mask, num_heads, scale, causal, packed)
         else:
-            out = _fused_mha_cuda(qkv, mask, num_heads, scale, causal, packed)
-            _report(qkv, num_heads, packed, backward=False)
+            out = fused_mha_forward(qkv, mask, num_heads, scale, causal, packed)
         ctx.save_for_backward(qkv, mask, out)
         ctx.config = (num_heads, scale, causal)
         ctx.packed = packed

@@ -274,6 +274,44 @@ def _ln_bwd(x, gamma, dy, eps: float, dr=None):
     return _launch_bwd(x, gamma, dy, eps, dr)
 
 
+def layernorm_forward(x, gamma, beta, eps: float) -> torch.Tensor:
+    """LN by the tensor's device: the plain version on the CPU, K2f on the
+    card (reported to the open FLOP counters). The eager route, and the
+    implementations of the registered operator ``mmlearn::layernorm``
+    (:mod:`.registered`) that a traced program calls."""
+    if x.device.type == "cpu":
+        return ln_reference(x, gamma, beta, eps)
+    y = torch.empty_like(x)
+    _launch(x, None, gamma, beta, None, y, eps)
+    report_flops("layernorm_fwd", LAYERNORM_FLOPS)
+    return y
+
+
+def add_layernorm_forward(x, branch, gamma, beta, eps: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(r, LN(r))`` with ``r = x + branch``, by the tensor's device, as
+    :func:`layernorm_forward` (``mmlearn::add_layernorm``)."""
+    if x.device.type == "cpu":
+        r = x + branch
+        return r, ln_reference(r, gamma, beta, eps)
+    r = torch.empty_like(x)
+    y = torch.empty_like(x)
+    _launch(x, branch, gamma, beta, r, y, eps)
+    report_flops("layernorm_fwd", LAYERNORM_FLOPS)
+    return r, y
+
+
+def _forwards():
+    """The two forwards: the registered operators under ``torch.export``,
+    so that the program calls K2f and not its plain version; else the
+    direct calls (the operator's dispatch costs the host time a call)."""
+    if torch.compiler.is_exporting():
+        from mmlearn_tpu_torch.ops import registered
+
+        return registered.layernorm, registered.add_layernorm
+    return layernorm_forward, add_layernorm_forward
+
+
 class LayerNormFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX package's ``_layernorm``: saves x and
     gamma, and runs the backward kernel (the plain backward on a CPU
@@ -281,12 +319,7 @@ class LayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps: float):
-        if x.device.type == "cpu":
-            y = ln_reference(x, gamma, beta, eps)
-        else:
-            y = torch.empty_like(x)
-            _launch(x, None, gamma, beta, None, y, eps)
-            report_flops("layernorm_fwd", LAYERNORM_FLOPS)
+        y = _forwards()[0](x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
         return y
@@ -305,14 +338,7 @@ class AddLayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, branch, gamma, beta, eps: float):
-        if x.device.type == "cpu":
-            r = x + branch
-            y = ln_reference(r, gamma, beta, eps)
-        else:
-            r = torch.empty_like(x)
-            y = torch.empty_like(x)
-            _launch(x, branch, gamma, beta, r, y, eps)
-            report_flops("layernorm_fwd", LAYERNORM_FLOPS)
+        r, y = _forwards()[1](x, branch, gamma, beta, eps)
         ctx.save_for_backward(r, gamma)
         ctx.eps = eps
         return r, y

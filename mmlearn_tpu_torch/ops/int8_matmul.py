@@ -37,7 +37,6 @@ import math
 import torch
 
 from mmlearn_tpu_torch import _build
-from mmlearn_tpu_torch.modules.layers.quantization import _int8_fwd, _quantize, exact_int_dot
 from mmlearn_tpu_torch.ops import report_flops
 
 #: launches of K5, counted by :func:`int8_qmm` where it launches a path:
@@ -59,6 +58,35 @@ _BYTES_ARGTYPES = [
     *[ctypes.c_int] * 4,  # m, k, n, dtype
     ctypes.c_void_p,  # stream
 ]
+
+
+def _quantize(a: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 quantization along ``axis`` (the scale keeps the
+    dim). The one quantizer of the port: the composed modes, the weight of
+    K5 and K5's plain version all take it.
+
+    The divisor 127 is a tensor filled on ``a``'s device: PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal, one rounding
+    off the IEEE quotient that K5 and the JAX package compute, and a tensor
+    copied from the host would wait for the card."""
+    af = a.float()
+    amax = af.abs().amax(dim=axis, keepdim=True).clamp_min(1e-6)
+    s = amax / amax.new_full((), 127.0)
+    return torch.round(af / s).to(torch.int8), s
+
+
+def exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two int8 tensors as f32: the exact integer sum (taken in
+    f64), rounded to the nearest f32 as an s32 sum converts."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def _int8_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` with ``x`` quantized per row and the ``(out, in)`` weight
+    per output row; in ``x``'s type."""
+    qx, sx = _quantize(x, -1)
+    qw, sw = _quantize(w, -1)
+    return (exact_int_dot(qx, qw.t()) * (sx * sw.t())).to(x.dtype)
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -163,15 +191,30 @@ def int8_qmm(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
     return _int8_qmm_cuda(x, qw, sw, bias)
 
 
+def int8_qmm_forward(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`int8_qmm`, reported to the open FLOP counters where K5 runs
+    (the plain version's one product). The eager route, and the
+    implementations of the registered operator ``mmlearn::int8_qmm``
+    (:mod:`.registered`) that a traced program calls."""
+    out = int8_qmm(x, qw, sw, bias)
+    if x.device.type != "cpu":
+        report_flops("int8_qmm", 2 * math.prod(x.shape[:-1]) * x.shape[-1] * qw.shape[0])
+    return out
+
+
 def _qmm_or_fallback(a: torch.Tensor, qw, sw, b_full: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
-    """K5 where the JAX package runs its kernel; the composed int8 product
-    (the same numbers) and a separate add elsewhere."""
+    """K5 where the JAX package runs its kernel (under ``torch.export`` the
+    registered operator, so that the program calls K5); the composed int8
+    product (the same numbers) and a separate add elsewhere."""
     m, k, n = math.prod(a.shape[:-1]), a.shape[-1], qw.shape[0]
     if supports_int8_qmm(m, k, n):
-        if a.device.type != "cpu":
-            report_flops("int8_qmm", 2 * m * k * n)  # the plain version's one product
-        return int8_qmm(a, qw, sw, bias)
+        if torch.compiler.is_exporting():
+            from mmlearn_tpu_torch.ops import registered
+
+            return registered.int8_qmm(a, qw, sw, bias)
+        return int8_qmm_forward(a, qw, sw, bias)
     y = _int8_fwd(a, b_full)
     return y if bias is None else y + bias
 

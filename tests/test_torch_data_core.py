@@ -310,6 +310,28 @@ def test_early_break_releases_the_prefetch_thread():
     assert len(list(loader)) == len(loader)  # a fresh pass starts over
 
 
+def test_close_waits_for_the_prefetch_thread_and_no_fetch_follows():
+    """A fetch in flight when the consumer closes: ``close`` returns only
+    once the prefetch thread has ended, and no example is fetched after."""
+    import time
+
+    class Slow(Pairs):
+        def __getitem__(self, idx):
+            time.sleep(0.05)
+            return super().__getitem__(idx)
+
+    loader = DataLoader(CombinedDataset([Slow(Example, 21)]), batch_size=2, num_workers=2,
+                        prefetch_factor=1)
+    it = iter(loader)
+    next(it)
+    time.sleep(0.02)  # the next batch's fetch has begun
+    it.close()
+    assert not any(t.name == "DataLoader prefetch" for t in threading.enumerate())
+    fetched = len(loader.dataset.datasets[0].fetched)
+    time.sleep(0.3)
+    assert len(loader.dataset.datasets[0].fetched) == fetched < 21
+
+
 @pytest.mark.parametrize("prefetch_factor", [1, 3])
 def test_iter_from_batch_skips_fetches_and_keeps_the_order(prefetch_factor):
     """The batches from 3 on equal an uninterrupted epoch's (and the JAX

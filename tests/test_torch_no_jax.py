@@ -256,3 +256,18 @@ def test_project_layer_reads_without_pandas_datasets_or_h5py(tmp_path):
     proc = _run([sys.executable, "-c", blocked + names], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_registered_operators_import_without_jax():
+    """The kernels' registered operators (what a serving artifact's program
+    calls), with JAX and the JAX package blocked."""
+    names = ("import torch\n"
+             "from mmlearn_tpu_torch.ops import registered\n"
+             "assert set(registered.OPERATORS) == {'fused_mha', 'layernorm', 'add_layernorm', "
+             "'flash_qkv', 'int8_qmm'}\n"
+             "assert all(hasattr(torch.ops.mmlearn, n) for n in registered.OPERATORS)\n"
+             "print('ok')\n")
+    blocked = _IMPORT_ALL.split("import mmlearn_tpu_torch\n")[0]
+    proc = _run([sys.executable, "-c", blocked + names], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
